@@ -1,0 +1,8 @@
+"""lz4_tpu_torch: the LZ4F frame codec on PyTorch, with hand-written CUDA
+kernels for Hopper (sm_90a).
+
+A port of ``lz4_tpu`` (JAX/Pallas, the reference it is tested against).  The
+main path is ``device.compress_frame_device`` and
+``device.decompress_frame_device``; see ``device`` for the frames it covers.
+It imports neither jax nor lz4_tpu.
+"""

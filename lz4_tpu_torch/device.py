@@ -1,0 +1,561 @@
+"""LZ4F frames with every block coded on the device.
+
+Counterpart of ``lz4_tpu/tpu.py``.  The host parses and writes the frame
+container (a few bytes per 64 KB block); the kernels do the block work:
+
+* compress: ``compress_frame_device`` -> the linked stream builder ->
+  ``encode_blocks_linked`` (kernel A) -> ``pack_frame_payloads`` (kernel C);
+  inputs over 8 MB go through ``DeviceFrameCompressor`` in 4 MB chunks, one
+  chunk in flight, the 64 KB window carried on the device.  Inputs of 64 KB
+  or less and block-independent frames take ``encode_blocks`` (kernel B),
+  then kernel C.  Every frame body is packed on the device and fetched
+  once; block checksums are inserted on the host while it is walked.
+* decompress: ``decompress_frame_device`` -> ``decode_blocks_linked``
+  (kernel D, linked mode) in groups of ``DEC_GROUP_BLOCKS`` blocks, the
+  window handed from group to group on the device; independent frames take
+  ``decode_blocks`` (kernel D, batch mode).
+
+Frames outside the kernels' envelope raise ``DeviceLayoutUnsupported``
+(there is no host codec to fall back to): blocks over 64 KB, and linked
+chains whose non-final blocks are not full (``DeviceFrameCompressor.flush``
+writes those).  A block the kernel rejects for its own bytes raises
+``Lz4FrameError`` with its index.
+
+Every function takes a ``device``; the default ``"cuda"`` raises on a
+machine without a card.  The tests pass ``device="cpu"``, which runs the
+kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import spec
+from .frame import (FramePreferences, Lz4FrameError, decode_frame_header,
+                    encode_frame_header)
+from .kernels.common import resolve_device, to_device, to_host
+from .kernels.decode_kernel import decode_blocks, decode_blocks_linked
+from .kernels.encode_kernel import encode_blocks, encode_blocks_linked
+from .kernels.pack_kernel import pack_frame_payloads
+from .ops.xxhash import XXH32State, xxh32
+
+BLOCK = 65536  # device-path block granularity
+WINDOW = spec.WINDOW_SIZE
+
+# linked-chain decode pipelining: blocks per dispatched group (64 = 4 MB of
+# content; tests shrink it to exercise the window handoff between groups)
+DEC_GROUP_BLOCKS = 64
+
+CHUNK = 4 << 20          # DeviceFrameCompressor chunk of compress_frame_device
+CHUNKED_ABOVE = 8 << 20  # inputs larger than this are compressed in chunks
+
+
+class DeviceLayoutUnsupported(Lz4FrameError):
+    """The frame is valid as far as parsed, but its layout is outside the
+    device kernels' envelope (blocks over 64 KB, short non-final blocks in
+    a linked chain)."""
+
+
+def _split_blocks(data: bytes, block_size: int) -> List[bytes]:
+    if not data:
+        return [b""]
+    return [data[i:i + block_size] for i in range(0, len(data), block_size)]
+
+
+def _rows(buffers: List[bytes], width: int, dev: torch.device):
+    """Byte strings -> ([B, width] uint8 rows, zero padded; [B] int32
+    lengths), both on ``dev``."""
+    arr = np.zeros((len(buffers), max(width, 1)), np.uint8)
+    lens = np.zeros((len(buffers),), np.int32)
+    for i, b in enumerate(buffers):
+        arr[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    rows = to_device(arr, dev).reshape(arr.shape)
+    return rows, torch.from_numpy(lens).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# device batch codec (bytes in, bytes out)
+# ---------------------------------------------------------------------------
+
+def encode_batch(buffers: List[bytes], block_size: int = BLOCK,
+                 acceleration: int = 1, min_match: int = 4,
+                 reject_step: int = 1, device="cuda"):
+    """Compress a list of <= block_size buffers on the device.
+
+    Returns (comp_rows uint8 numpy [B, maxlen], comp_lens numpy [B])."""
+    dev = resolve_device(device)
+    rows, lens = _rows(buffers, block_size, dev)
+    out, olen = encode_blocks(rows, lens, acceleration, min_match=min_match,
+                              reject_step=reject_step)
+    olen_h = to_host(olen)
+    return to_host(out[:, :int(olen_h.max(initial=0))]), olen_h
+
+
+def decode_batch(comp_list: List[bytes], out_cap: int,
+                 out_lens: Optional[List[int]] = None,
+                 device="cuda") -> List[bytes]:
+    """Decompress a list of independent blocks on the device; raises
+    Lz4FrameError naming the first block the kernel rejects."""
+    dev = resolve_device(device)
+    rows, lens = _rows(comp_list, max((len(c) for c in comp_list),
+                                         default=1), dev)
+    caps = None
+    if out_lens is not None:
+        caps = torch.as_tensor(out_lens, dtype=torch.int32).to(dev)
+    out, olen = decode_blocks(rows, lens, out_cap, out_caps=caps)
+    olen_h = to_host(olen)
+    if (olen_h < 0).any():
+        bad = int(np.nonzero(olen_h < 0)[0][0])
+        raise Lz4FrameError(f"device decode failed on block {bad}")
+    out_h = to_host(out[:, :int(olen_h.max(initial=0))])
+    return [out_h[i, :olen_h[i]].tobytes() for i in range(len(comp_list))]
+
+
+# ---------------------------------------------------------------------------
+# compression
+# ---------------------------------------------------------------------------
+
+def linked_stream(data: bytes, prefix: bytes = b"", device="cuda"):
+    """The linked kernel's input for one stream of 64 KB blocks:
+    ``[64 KB window | blocks | zeros to the block boundary]`` as a [1, L]
+    uint8 tensor, the window holding ``prefix`` right-aligned (zeros below).
+    Block k's window is simply the 64 KB before it in the same buffer, so
+    nothing is duplicated.  Returns (stream, lens numpy [1, nb])."""
+    nb = max(1, -(-len(data) // WINDOW))
+    host = np.zeros(((nb + 1) * WINDOW,), np.uint8)
+    if prefix:
+        host[WINDOW - len(prefix):WINDOW] = np.frombuffer(prefix, np.uint8)
+    host[WINDOW:WINDOW + len(data)] = np.frombuffer(data, np.uint8)
+    lens = np.zeros((1, nb), np.int32)
+    for k in range(nb):
+        lens[0, k] = max(0, min(WINDOW, len(data) - k * WINDOW))
+    return to_device(host, device).reshape(1, -1), lens
+
+
+def _block_view(stream: torch.Tensor, nb: int) -> torch.Tensor:
+    """[nb, 64K] view of the blocks of a [1, L] linked stream."""
+    return stream[0, WINDOW:(nb + 1) * WINDOW].view(nb, WINDOW)
+
+
+def _fetch_body(flat: torch.Tensor, total, block_checksum: bool) -> bytes:
+    """The body kernel C packed, as bytes; with block checksums, the XXH32
+    of each record's payload is inserted after the record."""
+    body = to_host(flat[:int(total)]).tobytes()
+    if not block_checksum:
+        return body
+    parts, pos = [], 0
+    while pos < len(body):
+        end = pos + 4 + (struct.unpack_from("<I", body, pos)[0]
+                         & ~spec.UNCOMPRESSED_BIT)
+        parts.append(body[pos:end])
+        parts.append(struct.pack("<I", xxh32(body[pos + 4:end], 0)))
+        pos = end
+    return b"".join(parts)
+
+
+def assemble_linked_frame(data: bytes, prefs: FramePreferences,
+                          payloads, block_lens) -> bytes:
+    """Header + per-block payloads + endmark + optional checksums, for a
+    linked chain in stream order (``encode_stream_linked``'s output) on the
+    host.  A payload that is not smaller than its block ships the plaintext
+    (stored block); empty blocks write nothing."""
+    parts = []
+    pos = 0
+    for payload, blen in zip(payloads, block_lens):
+        if blen == 0:
+            continue
+        if len(payload) >= blen:
+            payload = data[pos:pos + blen]
+            parts.append(struct.pack("<I", blen | spec.UNCOMPRESSED_BIT))
+        else:
+            parts.append(struct.pack("<I", len(payload)))
+        parts.append(payload)
+        if prefs.block_checksum:
+            parts.append(struct.pack("<I", xxh32(payload, 0)))
+        pos += blen
+    return _frame(prefs, data, b"".join(parts))
+
+
+def _frame(prefs: FramePreferences, data: bytes, body: bytes) -> bytes:
+    """Header + block records + endmark + optional content checksum."""
+    parts = [encode_frame_header(prefs), body, struct.pack("<I", 0)]
+    if prefs.content_checksum:
+        parts.append(struct.pack("<I", xxh32(data, 0)))
+    return b"".join(parts)
+
+
+def encode_stream_linked(data: bytes, acceleration: int = 1,
+                         min_match: int = 4, reject_step: int = 1,
+                         device="cuda"):
+    """Compress one stream as a chain of linked 64 KB blocks on the device.
+
+    Returns (payloads, block_lens): each block's compressed bytes and its
+    plaintext length; each block may match into the previous one."""
+    data = bytes(data)
+    if len(data) >= (1 << 31) - (1 << 17):
+        # the kernels address a stream with int32 positions
+        raise Lz4FrameError("stream exceeds the linked kernel's 2GB "
+                            "position envelope; use chunked compression")
+    dev = resolve_device(device)
+    stream, lens = linked_stream(data, device=dev)
+    out, olen = encode_blocks_linked(stream, torch.from_numpy(lens).to(dev),
+                                     acceleration, min_match=min_match,
+                                     reject_step=reject_step)
+    olen_h = to_host(olen[0])
+    outb = to_host(out[0, :, :int(olen_h.max(initial=0))])
+    payloads = [outb[k, :n].tobytes() for k, n in enumerate(olen_h)]
+    return payloads, [int(x) for x in lens[0]]
+
+
+def compress_frame_device(data: bytes,
+                          prefs: Optional[FramePreferences] = None,
+                          block_size: int = BLOCK,
+                          acceleration: int = 1,
+                          min_match: int = 4,
+                          reject_step: int = 1,
+                          device="cuda") -> bytes:
+    """One-shot frame compression with all block work on the device.
+
+    Linked frames (``prefs.block_independent=False``, 64 KB blocks, input
+    over 64 KB) chain their blocks through kernel A; everything else is
+    block-independent through kernel B.  Parity: LZ4F_compressFrame."""
+    prefs = dataclasses.replace(prefs) if prefs else FramePreferences()
+    dev = resolve_device(device)
+    data = bytes(data)
+    if prefs.content_size is not None and prefs.content_size != len(data):
+        raise Lz4FrameError("content_size does not match data")
+    linked = (not prefs.block_independent and len(data) > WINDOW
+              and block_size == WINDOW)
+    if linked:
+        if prefs.block_size_id == 0:
+            prefs.block_size_id = 4        # 64KB, the kernel's chain unit
+        prefs.resolved_bsid()              # rejects an invalid id
+        if len(data) > CHUNKED_ABOVE:
+            # chunked: one chunk in flight while the next is prepared
+            comp = DeviceFrameCompressor(prefs, acceleration, min_match,
+                                         reject_step, device=dev)
+            parts = [comp.begin()]
+            for i in range(0, len(data), CHUNK):
+                parts.append(comp.update(data[i:i + CHUNK]))
+            parts.append(comp.end())
+            return b"".join(parts)
+        return _compress_frame_device_linked(data, prefs, acceleration,
+                                             min_match, reject_step, dev)
+    # A linked frame whose data fits one block (or whose block size is not
+    # the chain unit) is compressed block-independently: still a valid
+    # linked stream, and the header keeps the requested block-mode bit.
+    if prefs.block_size_id == 0:
+        prefs.block_size_id = spec.optimal_block_size_id(block_size)
+    if block_size > spec.BLOCK_SIZES[prefs.resolved_bsid()]:
+        raise Lz4FrameError("block_size exceeds frame block maximum")
+    rows, lens = _rows(_split_blocks(data, block_size), block_size, dev)
+    out, olen = encode_blocks(rows, lens, acceleration, min_match=min_match,
+                              reject_step=reject_step)
+    flat, total, _stored = pack_frame_payloads(out, olen, rows, lens)
+    return _frame(prefs, data, _fetch_body(flat, total, prefs.block_checksum))
+
+
+def _compress_frame_device_linked(data: bytes, prefs: FramePreferences,
+                                  acceleration: int, min_match: int,
+                                  reject_step: int,
+                                  dev: torch.device) -> bytes:
+    """Linked frame of 64 KB blocks in one pass through kernels A and C."""
+    nb = max(1, -(-len(data) // WINDOW))
+    stream, lens = linked_stream(data, device=dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    out, olen = encode_blocks_linked(stream, lens_d, acceleration,
+                                     min_match=min_match,
+                                     reject_step=reject_step)
+    flat, total, _stored = pack_frame_payloads(
+        out.reshape(nb, -1), olen.reshape(nb), _block_view(stream, nb),
+        lens_d.reshape(nb))
+    return _frame(prefs, data, _fetch_body(flat, total, prefs.block_checksum))
+
+
+class DeviceFrameCompressor:
+    """Streaming LZ4F compression on the device: feed chunks, get frame
+    bytes.  Writes ONE linked 64 KB-block frame; the 64 KB window carries
+    across chunks as the next chunk's dictionary prefix, so the ratio equals
+    whole-buffer compression.  Parity: LZ4F_compressBegin/Update/flush/End.
+
+    ``update`` dispatches its chunk's kernels and only then fetches the
+    previous chunk's bytes, so one chunk is always in flight."""
+
+    def __init__(self, prefs: Optional[FramePreferences] = None,
+                 acceleration: int = 1, min_match: int = 4,
+                 reject_step: int = 1, device="cuda"):
+        self.device = resolve_device(device)
+        self.prefs = dataclasses.replace(prefs) if prefs \
+            else FramePreferences()
+        self.prefs.block_independent = False
+        if self.prefs.block_size_id == 0:
+            self.prefs.block_size_id = 4
+        self.prefs.resolved_bsid()
+        self.acceleration = acceleration
+        self.min_match = min_match
+        self.reject_step = reject_step
+        self._tail = b""        # last 64KB of content (the window)
+        self._buf = b""         # sub-block input remainder
+        self._xxh = XXH32State(0)
+        self._total = 0
+        self._begun = False
+        self._pending = None    # dispatched device work awaiting fetch
+        self._tail_dev = None   # the window as a device tensor, when whole
+
+    def begin(self) -> bytes:
+        self._begun = True
+        return encode_frame_header(self.prefs)
+
+    def _require_begun(self) -> None:
+        if not self._begun:
+            raise RuntimeError("call begin() first")
+
+    def _emit_pending(self) -> bytes:
+        """Fetch and assemble the previously dispatched chunk's bytes."""
+        if self._pending is None:
+            return b""
+        flat, total = self._pending
+        self._pending = None
+        return _fetch_body(flat, total, self.prefs.block_checksum)
+
+    def _dispatch(self, data: bytes, prefix: bytes):
+        """Launch the device work for ``data`` (whole blocks, or a final
+        partial) with ``prefix`` as block 0's window; returns the pending
+        record without waiting.  Raises before changing any state."""
+        dev = self.device
+        nb = max(1, -(-len(data) // WINDOW))
+        if data and len(data) % WINDOW == 0:
+            # whole blocks: the chunk crosses the link once; the window is
+            # the previous chunk's last block, already on the device
+            stream = torch.empty((1, (nb + 1) * WINDOW), dtype=torch.uint8,
+                                 device=dev)
+            if self._tail_dev is not None:
+                stream[0, :WINDOW] = self._tail_dev
+                plen = WINDOW
+            else:
+                window = np.zeros((WINDOW,), np.uint8)
+                if prefix:
+                    window[WINDOW - len(prefix):] = np.frombuffer(prefix,
+                                                                  np.uint8)
+                stream[0, :WINDOW] = to_device(window, dev)
+                plen = len(prefix)
+            stream[0, WINDOW:] = to_device(data, dev)
+            lens = [WINDOW] * nb
+            tail_dev = stream[0, nb * WINDOW:]
+            zero_lanes = True
+        else:
+            stream, lens_np = linked_stream(data, prefix, dev)
+            lens = lens_np[0].tolist()
+            plen = len(prefix)
+            tail_dev = None
+            zero_lanes = False
+        lens_d = torch.tensor([lens], dtype=torch.int32, device=dev)
+        prefix_d = torch.tensor([plen], dtype=torch.int32, device=dev)
+        out, olen = encode_blocks_linked(
+            stream, lens_d, self.acceleration, prefix_lens=prefix_d,
+            min_match=self.min_match, reject_step=self.reject_step,
+            zero_window_lanes=zero_lanes)
+        flat, total, _stored = pack_frame_payloads(
+            out.reshape(nb, -1), olen.reshape(nb), _block_view(stream, nb),
+            lens_d.reshape(nb))
+        self._tail_dev = tail_dev
+        return flat, total
+
+    def update(self, chunk: bytes) -> bytes:
+        self._require_begun()
+        data = self._buf + bytes(chunk)
+        whole = (len(data) // WINDOW) * WINDOW
+        if not whole:
+            self._buf = data
+            return b""
+        body = data[:whole]
+        cur = self._dispatch(body, self._tail)
+        self._buf = data[whole:]
+        self._total += len(body)
+        if self.prefs.content_checksum:
+            self._xxh.update(body)
+        self._tail = body[-WINDOW:]
+        out = self._emit_pending()          # the previous chunk
+        self._pending = cur
+        return out
+
+    def _encode_now(self, data: bytes) -> bytes:
+        """Compress a final or flushed partial remainder synchronously."""
+        pending = self._dispatch(data, self._tail)
+        self._total += len(data)
+        if self.prefs.content_checksum:
+            self._xxh.update(data)
+        self._tail = (self._tail + data)[-WINDOW:]
+        self._pending = pending
+        return self._emit_pending()
+
+    def flush(self) -> bytes:
+        """Emit the buffered sub-block remainder now as a (possibly short)
+        linked block.  Parity: LZ4F_flush; the window keeps carrying.  A
+        frame with such a short non-final block decodes with the host
+        codec only: the device decoder raises DeviceLayoutUnsupported."""
+        self._require_begun()
+        drained = self._emit_pending()
+        if not self._buf:
+            return drained
+        out = self._encode_now(self._buf)
+        self._buf = b""
+        return drained + out
+
+    def end(self) -> bytes:
+        self._require_begun()
+        parts = [self._emit_pending()]
+        if self._buf:
+            parts.append(self._encode_now(self._buf))
+            self._buf = b""
+        if (self.prefs.content_size is not None
+                and self.prefs.content_size != self._total):
+            raise Lz4FrameError("content_size does not match data")
+        parts.append(struct.pack("<I", 0))
+        if self.prefs.content_checksum:
+            parts.append(struct.pack("<I", self._xxh.digest()))
+        return b"".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# decompression
+# ---------------------------------------------------------------------------
+
+def _literal_block(payload: bytes) -> bytes:
+    """Wrap raw bytes as a literal-only LZ4 block (token + run + bytes), so
+    a stored block spliced into a linked chain decodes to its bytes and
+    keeps the window contract intact."""
+    n = len(payload)
+    if n < 15:
+        return bytes([n << 4]) + payload
+    ext = n - 15
+    out = bytearray([0xF0])
+    while ext >= 255:
+        out.append(255)
+        ext -= 255
+    out.append(ext)
+    return bytes(out) + payload
+
+
+def _read_blocks(frame: bytes, pos: int, info):
+    """Walk the block records: (compressed payloads or None, stored payloads
+    or None, position after the endmark)."""
+    bound = spec.compress_bound(info.block_size)
+    comp_blocks: List[Optional[bytes]] = []
+    stored: List[Optional[bytes]] = []
+    while True:
+        if pos + 4 > len(frame):
+            raise Lz4FrameError("truncated frame")
+        raw = struct.unpack_from("<I", frame, pos)[0]
+        pos += 4
+        if raw == 0:
+            return comp_blocks, stored, pos
+        size = raw & ~spec.UNCOMPRESSED_BIT
+        if pos + size > len(frame):
+            raise Lz4FrameError("truncated block")
+        payload = frame[pos:pos + size]
+        pos += size
+        if info.block_checksum:
+            if pos + 4 > len(frame):
+                raise Lz4FrameError("truncated block checksum")
+            want = struct.unpack_from("<I", frame, pos)[0]
+            pos += 4
+            if xxh32(payload, 0) != want:
+                raise Lz4FrameError("block checksum mismatch")
+        if raw & spec.UNCOMPRESSED_BIT:
+            stored.append(payload)
+            comp_blocks.append(None)
+        else:
+            if size > bound:
+                raise Lz4FrameError(
+                    f"block {len(comp_blocks)}: payload of {size} bytes "
+                    f"exceeds compress_bound({info.block_size})")
+            stored.append(None)
+            comp_blocks.append(payload)
+
+
+def _decode_linked_chain(payloads: List[bytes], bs: int,
+                         dev: torch.device) -> bytes:
+    """Decode a linked chain in groups of DEC_GROUP_BLOCKS: group g+1 is
+    dispatched before group g is fetched, and its window is group g's last
+    output block, handed over on the device."""
+    G = DEC_GROUP_BLOCKS
+    nblocks = len(payloads)
+    win = None
+    pending: List[Tuple] = []
+    chunks: List[bytes] = []
+
+    def drain():
+        out_d, olen_d, first = pending.pop(0)
+        olen = to_host(olen_d)
+        out = to_host(out_d)
+        for i, n in enumerate(olen.tolist()):
+            g = first + i
+            if n < 0:
+                raise Lz4FrameError(f"device decode failed on block {g}")
+            if n != bs and g != nblocks - 1:
+                raise DeviceLayoutUnsupported(
+                    f"linked block {g} decodes to {n} of {bs} bytes: a short "
+                    "non-final block is outside the device decoder's window "
+                    "contract")
+            chunks.append(out[i, :n].tobytes())
+
+    for first in range(0, nblocks, G):
+        grp = payloads[first:first + G]
+        rows, lens = _rows(grp, max(len(c) for c in grp), dev)
+        out_d, olen_d = decode_blocks_linked(
+            rows, lens, bs, init_window=win,
+            init_window_len=bs if win is not None else 0)
+        win = out_d[len(grp) - 1]
+        pending.append((out_d, olen_d, first))
+        if len(pending) > 1:
+            drain()
+    while pending:
+        drain()
+    return b"".join(chunks)
+
+
+def decompress_frame_device(frame: bytes, device="cuda") -> Tuple[bytes, int]:
+    """One-shot frame decompression with all block work on the device.
+
+    Handles block-independent frames and linked frames of 64 KB blocks.
+    Returns (content, bytes_consumed)."""
+    dev = resolve_device(device)
+    frame = bytes(frame)
+    info = decode_frame_header(frame)
+    if info.block_size > BLOCK:
+        raise DeviceLayoutUnsupported(
+            f"{info.block_size}-byte blocks: the device decoder takes "
+            f"blocks of at most {BLOCK} bytes")
+    comp_blocks, stored, pos = _read_blocks(frame, info.header_size, info)
+    if info.block_independent:
+        todo = [c for c in comp_blocks if c is not None]
+        decoded = iter(decode_batch(todo, info.block_size, device=dev)
+                       if todo else [])
+        content = b"".join(s if s is not None else next(decoded)
+                           for s in stored)
+    elif not comp_blocks:
+        content = b""
+    else:
+        if info.block_size < WINDOW:
+            raise DeviceLayoutUnsupported(
+                "linked blocks under 64 KB: the window spans several blocks")
+        payloads = [c if c is not None else _literal_block(s)
+                    for c, s in zip(comp_blocks, stored)]
+        content = _decode_linked_chain(payloads, info.block_size, dev)
+    if info.content_checksum:
+        if pos + 4 > len(frame):
+            raise Lz4FrameError("truncated content checksum")
+        want = struct.unpack_from("<I", frame, pos)[0]
+        pos += 4
+        if xxh32(content, 0) != want:
+            raise Lz4FrameError("content checksum mismatch")
+    if info.content_size is not None and info.content_size != len(content):
+        raise Lz4FrameError("frame content size mismatch")
+    return content, pos

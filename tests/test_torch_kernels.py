@@ -1,0 +1,419 @@
+"""The port's kernels (lz4_tpu_torch.kernels) held against lz4_tpu's.
+
+Both packages get the same bytes (numpy seeds, stdlib text, datagen); the
+JAX side runs in interpret mode as its own tests run it, the port through
+its kernels' plain versions (CPU tensors).  Codec outputs are integers, so
+every comparison is exact: lengths, statuses and ``out[:olen]`` bytes.
+"""
+
+import functools
+import sysconfig
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lz4_tpu.kernels import decode_kernel as jdec
+from lz4_tpu.kernels import encode_kernel as jenc
+from lz4_tpu.kernels.pack_kernel import pack_frame_payloads as jpack
+from lz4_tpu.ops.block_np import compress_block
+from lz4_tpu.tpu import fetch_byte_rows, linked_val_rows
+from lz4_tpu.utils.datagen import gen_buffer
+from lz4_tpu_torch.kernels import common
+from lz4_tpu_torch.kernels import decode_kernel as tdec
+from lz4_tpu_torch.kernels import encode_kernel as tenc
+from lz4_tpu_torch.kernels.pack_kernel import pack_frame_payloads as tpack
+
+from .test_adversarial_kernel import _cases as adversarial_cases
+from .test_fuzz import cycle_params
+
+W = 65536
+
+
+@functools.lru_cache(maxsize=None)
+def stdlib_text(n: int) -> bytes:
+    """The first ``n`` bytes of the Python stdlib sources, in sorted order
+    (the way bench.py builds its corpus)."""
+    parts, size = [], 0
+    for p in sorted(Path(sysconfig.get_paths()["stdlib"]).rglob("*.py")):
+        parts.append(p.read_bytes())
+        size += len(parts[-1])
+        if size >= n:
+            break
+    return b"".join(parts)[:n]
+
+
+def mixed_stream(n: int, seed: int) -> bytes:
+    """Text, datagen mixes, a zero run and random bytes, ``n`` bytes."""
+    data = _mixed_base(seed)
+    return (data * (n // len(data) + 1))[:n]
+
+
+@functools.lru_cache(maxsize=None)
+def _mixed_base(seed: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    text = stdlib_text(220_000)
+    parts = [text[:150_000], gen_buffer(100_000, 0.6, seed), bytes(40_000),
+             rng.integers(0, 256, 30_000, dtype=np.uint8).tobytes(),
+             gen_buffer(80_000, 0.9, seed + 1), text[150_000:],
+             bytes(7000), rng.integers(0, 4, 20_000, dtype=np.uint8).tobytes()]
+    return b"".join(parts)
+
+
+def val32(rows_u8: np.ndarray) -> np.ndarray:
+    """[..., N] uint8 rows -> int32 val32 lanes (wrapping at the row end),
+    the JAX package's layout."""
+    ext = np.concatenate([rows_u8, rows_u8[..., :3]], -1).astype(np.int64)
+    v = ext[..., :-3] | ext[..., 1:-2] << 8 | ext[..., 2:-1] << 16 \
+        | ext[..., 3:] << 24
+    return v.astype(np.uint32).view(np.int32)
+
+
+def _rows(buffers, width=None):
+    width = width or -(-max(max(map(len, buffers)), 1) // 128) * 128
+    arr = np.zeros((len(buffers), width), np.uint8)
+    lens = np.zeros((len(buffers),), np.int32)
+    for i, b in enumerate(buffers):
+        arr[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return arr, lens
+
+
+def _assert_rows_equal(j_out, j_olen, t_out, t_olen):
+    j_olen = np.asarray(j_olen).reshape(-1)
+    t_olen = t_olen.numpy().reshape(-1)
+    assert (j_olen == t_olen).all(), (j_olen, t_olen)
+    j_out = np.asarray(j_out).reshape(len(j_olen), -1)
+    t_out = t_out.numpy().reshape(len(t_olen), -1)
+    for i, n in enumerate(j_olen):
+        if n > 0:
+            assert (j_out[i, :n].astype(np.uint8) == t_out[i, :n]).all(), i
+
+
+# ---------------------------------------------------------------------------
+# candidate table
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("filter_mm", [None, 8])
+def test_cand_delta_rows_matches_jax(filter_mm):
+    data = mixed_stream(2 * 3 * W, 11)
+    rows = np.frombuffer(data, np.uint8).reshape(2, 3 * W)
+    v = val32(rows)
+    jf = None if filter_mm is None else jnp.full((2,), filter_mm, jnp.int32)
+    want = np.asarray(jenc.cand_delta_rows(jnp.asarray(v), jf))
+    got = tenc.cand_delta_rows(torch.from_numpy(v), filter_mm).numpy()
+    assert (want == got).all()
+
+
+# ---------------------------------------------------------------------------
+# kernel A: linked blocks
+# ---------------------------------------------------------------------------
+
+NB = 9                               # 8 blocks and a partial: two K=6 tiles
+LINKED_DATA_LEN = 8 * W + 20_011
+
+
+@pytest.mark.parametrize("prefix", [0, W])
+@pytest.mark.parametrize("mm,rs,acc", [(4, 1, 1), (8, 1, 1), (8, 3, 1),
+                                       (4, 1, 4)])
+def test_encode_blocks_linked_matches_jax(mm, rs, acc, prefix):
+    data = mixed_stream(LINKED_DATA_LEN, 5)
+    pre = mixed_stream(prefix, 77) if prefix else b""
+    stream = np.zeros(((NB + 1) * W,), np.uint8)
+    stream[W - prefix:W] = np.frombuffer(pre, np.uint8)
+    stream[W:W + len(data)] = np.frombuffer(data, np.uint8)
+    if prefix:
+        # [previous block | block] rows built on the host, as the JAX
+        # package's DeviceFrameCompressor does for a prefixed remainder
+        rows = np.stack([stream[k * W:(k + 2) * W] for k in range(NB)])
+        val = jnp.asarray(val32(rows)).reshape(1, NB, 2 * W)
+        lens = np.array([[min(W, len(data) - k * W) for k in range(NB)]],
+                        np.int32)
+    else:
+        val, lens = linked_val_rows(data, 1, NB)
+    j_out, j_olen = jenc.encode_blocks_linked(
+        val, jnp.asarray(lens), acc, prefix_lens=jnp.asarray([prefix]),
+        min_match=mm, reject_step=rs)
+    t_out, t_olen = tenc.encode_blocks_linked(
+        torch.from_numpy(stream).reshape(1, -1), torch.from_numpy(lens), acc,
+        prefix_lens=torch.tensor([prefix], dtype=torch.int32), min_match=mm,
+        reject_step=rs)
+    _assert_rows_equal(fetch_byte_rows(j_out[0]), j_olen, t_out, t_olen)
+
+
+def test_encode_blocks_linked_zeroed_window_lanes_match_jax():
+    """A partial prefix with the chunked window builder's lane zeroing."""
+    from lz4_tpu.tpu import _chunk_windows
+    nb, plen = 7, 30_000
+    data = mixed_stream(nb * W, 9)
+    prefix = mixed_stream(plen, 10)
+    tail = np.zeros((W,), np.uint8)
+    tail[W - plen:] = np.frombuffer(prefix, np.uint8)
+    packed = np.frombuffer(data, np.uint8).reshape(nb, W).view("<i4")
+    val = _chunk_windows(jnp.asarray(packed),
+                         jnp.asarray(tail.view("<i4").reshape(1, -1)),
+                         jnp.int32(plen), NB=nb, BS=W)
+    lens = np.full((1, nb), W, np.int32)
+    j_out, j_olen = jenc.encode_blocks_linked(
+        val, jnp.asarray(lens), 1, prefix_lens=jnp.asarray([plen]),
+        min_match=8)
+    stream = torch.from_numpy(np.concatenate(
+        [tail, np.frombuffer(data, np.uint8)])).reshape(1, -1)
+    t_out, t_olen = tenc.encode_blocks_linked(
+        stream, torch.from_numpy(lens), 1,
+        prefix_lens=torch.tensor([plen], dtype=torch.int32), min_match=8,
+        zero_window_lanes=True)
+    _assert_rows_equal(fetch_byte_rows(j_out[0]), j_olen, t_out, t_olen)
+
+
+# ---------------------------------------------------------------------------
+# kernel B: independent rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mm", [4, 8])
+def test_encode_blocks_matches_jax(mm):
+    text = stdlib_text(W)
+    rng = np.random.default_rng(3)
+    bufs = [text, gen_buffer(40_000, 0.7, 8), bytes(5000),
+            rng.integers(0, 256, 3000, dtype=np.uint8).tobytes(), b"",
+            b"x" * 13, mixed_stream(W, 4)[:61_234]]
+    arr, lens = _rows(bufs, W)
+    j_out, j_olen = jenc.encode_blocks(jnp.asarray(val32(arr)),
+                                       jnp.asarray(lens), 1, min_match=mm)
+    t_out, t_olen = tenc.encode_blocks(torch.from_numpy(arr),
+                                       torch.from_numpy(lens), 1,
+                                       min_match=mm)
+    _assert_rows_equal(fetch_byte_rows(j_out), j_olen, t_out, t_olen)
+
+
+# ---------------------------------------------------------------------------
+# kernel C: pack
+# ---------------------------------------------------------------------------
+
+def test_pack_frame_payloads_matches_jax():
+    rng = np.random.default_rng(21)
+    B, M, NS = 7, 512, 384
+    comp = rng.integers(0, 256, (B, M)).astype(np.int32)
+    plain = rng.integers(0, 256, (B, NS)).astype(np.int32)
+    blens = np.array([384, 300, 384, 1, 200, 0, 0], np.int32)
+    # rows 1 and 3 are stored (payload not smaller than the block); the
+    # last two are padding rows
+    olen = np.array([100, 300, 17, 5, 199, 1, 0], np.int32)
+    j_flat, j_total, j_stored = jpack(jnp.asarray(comp), jnp.asarray(olen),
+                                      jnp.asarray(plain), blens)
+    t_flat, t_total, t_stored = tpack(
+        common.from_jax_lanes(comp), torch.from_numpy(olen),
+        common.from_jax_lanes(plain), blens)
+    assert int(t_total) == j_total
+    assert (t_stored.numpy() == j_stored).all()
+    want = np.asarray(j_flat).reshape(-1)[:j_total].astype(np.uint8)
+    assert (t_flat[:j_total].numpy() == want).all()
+
+
+# ---------------------------------------------------------------------------
+# kernel D: decode
+# ---------------------------------------------------------------------------
+
+def _linked_payloads(data: bytes, bs: int):
+    blocks = [data[i:i + bs] for i in range(0, len(data), bs)]
+    return blocks, [compress_block(b, dict_=(blocks[i - 1] if i else b""))
+                    for i, b in enumerate(blocks)]
+
+
+def _decode_linked_both(payloads, bs, window=None):
+    arr, lens = _rows(payloads)
+    jw = None if window is None else jnp.asarray(
+        np.frombuffer(window, np.uint8).astype(np.int32)).reshape(1, bs)
+    j_out, j_olen = jdec.decode_blocks_linked(
+        jnp.asarray(arr.astype(np.int32)), jnp.asarray(lens), bs,
+        init_window=jw, init_window_len=len(window) if window else 0)
+    tw = None if window is None else torch.frombuffer(
+        bytearray(window), dtype=torch.uint8)
+    t_out, t_olen = tdec.decode_blocks_linked(
+        torch.from_numpy(arr), torch.from_numpy(lens), bs, init_window=tw,
+        init_window_len=len(window) if window else 0)
+    _assert_rows_equal(j_out, j_olen, t_out, t_olen)
+    return t_out, t_olen.numpy()
+
+
+def test_decode_blocks_linked_valid_chain_matches_jax():
+    data = mixed_stream(4 * W - 999, 31)
+    blocks, payloads = _linked_payloads(data, W)
+    out, olen = _decode_linked_both(payloads, W)
+    assert list(olen) == [len(b) for b in blocks]
+
+
+def test_decode_blocks_linked_init_window_matches_jax():
+    data = mixed_stream(3 * W, 32)
+    blocks, payloads = _linked_payloads(data, W)
+    out, olen = _decode_linked_both(payloads[1:], W, window=blocks[0])
+    assert list(olen) == [W, W]
+    assert out[1].numpy().tobytes() == blocks[2]
+
+
+def test_decode_blocks_linked_partial_predecessor_matches_jax():
+    # block 0 decodes short, so block 1 sees an empty window: it fails if
+    # it reaches back, exactly as in the JAX kernel
+    data = mixed_stream(2 * W, 33)
+    short = data[:30_000]
+    p1 = compress_block(data[W:], dict_=short)
+    _, olen = _decode_linked_both([compress_block(short), p1], W)
+    assert olen[0] == 30_000
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_decode_blocks_linked_malformed_matches_jax(seed):
+    cases = adversarial_cases(seed)
+    _decode_linked_both(cases, 8192)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_decode_blocks_batch_malformed_matches_jax(seed):
+    cases = adversarial_cases(seed)
+    _, block, _ = cycle_params(1000 + seed)
+    rng = np.random.default_rng(seed)
+    comp = bytearray(compress_block(block))
+    for _ in range(12):
+        mut = bytearray(comp)
+        for _ in range(int(rng.integers(1, 9))):
+            mut[int(rng.integers(len(mut)))] = int(rng.integers(256))
+        cases.append(bytes(mut))
+    cases.append(comp)
+    arr, lens = _rows(cases)
+    cap = 8192
+    j_out, j_olen = jdec.decode_blocks(jnp.asarray(arr.astype(np.int32)),
+                                       jnp.asarray(lens), cap)
+    t_out, t_olen = tdec.decode_blocks(torch.from_numpy(arr),
+                                       torch.from_numpy(lens), cap)
+    _assert_rows_equal(j_out, j_olen, t_out, t_olen)
+    assert (t_olen.numpy() == -1).any() and (t_olen.numpy() > 0).any()
+
+
+def test_jax_lane_conversions_round_trip():
+    rng = np.random.default_rng(5)
+    lanes = rng.integers(0, 256, (3, 200)).astype(np.int32)
+    t = common.from_jax_lanes(lanes)
+    assert t.dtype == torch.uint8
+    assert (common.to_jax_lanes(t) == lanes).all()
+    # val32 rows: the low byte of every lane is the byte at that position
+    assert (common.from_jax_lanes(val32(lanes.astype(np.uint8))).numpy()
+            == lanes).all()
+    le = common.le32_lanes(t)
+    assert (le.numpy() == val32(lanes.astype(np.uint8))[:, :-3]).all()
+
+
+# ---------------------------------------------------------------------------
+# host layers: spec, XXH32, the build machinery, argument checks
+# ---------------------------------------------------------------------------
+
+def test_spec_matches_jax():
+    from lz4_tpu import spec as jspec
+    from lz4_tpu_torch import spec as tspec
+    for n in (0, 1, 255, 65536, 1 << 22, 0x7E000000, 0x7E000001):
+        assert tspec.compress_bound(n) == jspec.compress_bound(n)
+    for hint in (0, 1, 65536, 65537, 1 << 20, 1 << 23):
+        assert tspec.optimal_block_size_id(hint) == \
+            jspec.optimal_block_size_id(hint)
+    assert tspec.BLOCK_SIZES == jspec.BLOCK_SIZES
+
+
+def test_xxh32_matches_jax():
+    from lz4_tpu.ops import xxhash_np
+    from lz4_tpu_torch.ops import xxhash
+    rng = np.random.default_rng(8)
+    data = rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()
+    for n in (0, 1, 15, 16, 17, 100, 5000):
+        for seed in (0, 1, 0xDEADBEEF):
+            want = xxhash_np.xxh32(data[:n], seed)
+            assert xxhash.xxh32(data[:n], seed) == want
+            st = xxhash.XXH32State(seed)
+            for i in range(0, n, 7):
+                st.update(data[i:min(i + 7, n)])
+            assert st.digest() == want
+
+
+def test_build_shared_caches_by_source_and_reports_failures(tmp_path,
+                                                            monkeypatch):
+    import shutil
+    from lz4_tpu_torch.kernels import build
+    cc = shutil.which("cc")
+    if cc is None:
+        pytest.skip("needs a C compiler")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    src = tmp_path / "k.c"
+    src.write_text("int f(void) { return 7; }\n")
+    flags = ["-O2", "-fPIC", "-shared"]
+
+    def cmd(out):
+        return [cc, *flags, str(src), "-o", str(out)]
+
+    first = build.build_shared("k", [src], flags, cmd)
+    assert build.build_shared("k", [src], flags, cmd) == first
+    src.write_text("int f(void) { return 8; }\n")
+    second = build.build_shared("k", [src], flags, cmd)
+    assert second != first and second.exists()
+    src.write_text("this is not C\n")
+    with pytest.raises(build.BuildError, match="build of k failed"):
+        build.build_shared("k", [src], flags, cmd)
+
+
+def test_find_nvcc_raises_without_a_toolkit(tmp_path, monkeypatch):
+    from lz4_tpu_torch.kernels import build
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(build.BuildError, match="nvcc not found"):
+        build.find_nvcc()
+
+
+def test_wrappers_check_their_arguments():
+    rows = torch.zeros((2, 256), dtype=torch.uint8)
+    lens = torch.tensor([10, 20], dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tenc.encode_blocks(rows.int(), lens)
+    with pytest.raises(ValueError):
+        tenc.encode_blocks(rows[:, ::2], lens)            # not contiguous
+    with pytest.raises(ValueError):
+        tenc.encode_blocks(torch.zeros((2, 1 << 19), dtype=torch.uint8),
+                           lens)                           # row too long
+    with pytest.raises(ValueError):
+        tenc.encode_blocks_linked(rows, lens.reshape(1, 2))  # short stream
+    with pytest.raises(ValueError):
+        tdec.decode_blocks_linked(rows, lens, 256,
+                                  init_window=torch.zeros(100,
+                                                          dtype=torch.uint8),
+                                  init_window_len=50)
+    with pytest.raises(ValueError):
+        common.use_kernel(rows, torch.zeros(1, device="meta"))
+
+
+@pytest.mark.parametrize("olen,blens", [
+    ([200, 5], [250, 20]),       # compressed olen past its row (M = 128)
+    ([-1, 5], [10, 20]),         # negative compressed olen
+    ([5, 5], [10, 300]),         # block past its plaintext row (NS = 256)
+    ([5, 5], [10, -4]),          # negative block length
+])
+def test_pack_rejects_lengths_past_their_rows(olen, blens):
+    comp = torch.zeros((2, 128), dtype=torch.uint8)
+    src = torch.zeros((2, 256), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="exceeds its row"):
+        tpack(comp, torch.tensor(olen, dtype=torch.int32), src, blens)
+    # the same rows with lengths that fit pack without complaint
+    tpack(comp, torch.tensor([100, 5], dtype=torch.int32), src, [250, 20])
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_xxh32_state_streams_long_inputs(native, monkeypatch):
+    from lz4_tpu.ops import xxhash_np
+    from lz4_tpu_torch.ops import xxhash
+    if not native:
+        monkeypatch.setattr(xxhash, "_load_native", lambda: None)
+    elif xxhash._load_native() is None:
+        pytest.skip("needs a C compiler")
+    data = np.random.default_rng(9).integers(0, 256, 300_007,
+                                              dtype=np.uint8).tobytes()
+    st = xxhash.XXH32State(5)
+    for a, b in ((0, 3), (3, 16), (16, 100_001), (100_001, 300_007)):
+        st.update(data[a:b])
+    assert st.digest() == xxhash_np.xxh32(data, 5) == xxhash.xxh32(data, 5)
