@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Where the port's main-path time goes, on one NVIDIA card.
+"""Where the port's time goes, on one NVIDIA card.
 
     python3 chip_profile.py [--mib 64] [--out chiprun_out]
 
 Builds the kernels, makes the stdlib-text corpus the way chip_smoke.py
-does, and warms up on 16 MiB.  Then, for each cell (linked 64 KB blocks at
-min_match=8, at min_match=4, and at min_match=8 with a content checksum),
-it runs the corpus through compress_frame_device and
-decompress_frame_device twice each: once untraced (wall time only) and
-once under torch.profiler with CUDA activity.  From the traced pass's
-Chrome trace it reports:
+does, and warms up on 16 MiB.  Then, for each main-path cell (linked 64 KB
+blocks at min_match=8, at min_match=4, and at min_match=8 with a content
+checksum), it runs the corpus through compress_frame_device and
+decompress_frame_device; for each stream cell (the files of chip_smoke.py's
+stream phase: a -B7 independent frame with a content checksum, a -B5
+linked frame, a legacy file, a 64 KB linked frame with flushed short
+blocks) it decodes the file through decompress_frame_device or
+decompress_legacy_device.  Each step runs twice: once untraced (wall time
+only) and once under torch.profiler with CUDA activity.  From the traced
+pass's Chrome trace it reports:
 
 * device busy ms: the union of the intervals of every kernel, memcpy and
   memset on the card, so work that overlaps is counted once;
@@ -33,6 +37,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 CELLS = (("mm8", 8, False), ("mm4", 4, False), ("mm8_checksum", 8, True))
+STREAM_CELLS = ("b7", "b5_linked", "legacy", "flushed")  # chip_smoke files
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -71,7 +76,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import real_text_corpus
+    from chip_smoke import real_text_corpus, stream_files
     from lz4_tpu_torch import device as D
     from lz4_tpu_torch.frame import FramePreferences
     from lz4_tpu_torch.kernels import build
@@ -99,43 +104,44 @@ def main() -> int:
         return res, (time.perf_counter() - t) * 1e3
 
     results = {}
+
+    def measure(key, fn, want=None):
+        """Run ``fn`` untraced, then traced; record the step under ``key``
+        and return its result (which must equal ``want`` when given)."""
+        res, wall = timed(fn)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res_t, wall_t = timed(fn)
+        if res_t != res or (want is not None and res != want):
+            raise RuntimeError(f"{key}: output differs")
+        path = out_dir / f"trace_{key.replace('/', '_')}.json"
+        prof.export_chrome_trace(str(path))
+        busy, by_name = device_time(path)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        r = results[key] = {
+            "wall_ms": wall, "mb_s": mb / (wall / 1e3),
+            "traced_wall_ms": wall_t, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_t, "top_device_ms": dict(top)}
+        print(f"[{key}] wall {wall:.1f} ms ({r['mb_s']:.1f} MB/s); traced "
+              f"{wall_t:.1f} ms, device busy {busy:.1f} ms, idle "
+              f"{r['idle_share']:.3f}", flush=True)
+        for name, ms in top:
+            print(f"    {ms:10.3f} ms  {name}", flush=True)
+        return res
+
     for cell, mm, checksum in CELLS:
         prefs = FramePreferences(block_size_id=4, content_checksum=checksum)
-        steps = {
-            "compress": lambda: D.compress_frame_device(corpus, prefs,
-                                                        min_match=mm),
-            "decompress": lambda: D.decompress_frame_device(frame)[0],
-        }
-        frame = None
-        for direction, fn in steps.items():
-            res, wall = timed(fn)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                res_t, wall_t = timed(fn)
-            if res_t != res:
-                raise RuntimeError(f"{cell} {direction}: traced pass differs")
-            path = out_dir / f"trace_{cell}_{direction}.json"
-            prof.export_chrome_trace(str(path))
-            busy, by_name = device_time(path)
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-            results[f"{cell}/{direction}"] = {
-                "wall_ms": wall, "mb_s": mb / (wall / 1e3),
-                "traced_wall_ms": wall_t, "device_busy_ms": busy,
-                "idle_share": 1 - busy / wall_t,
-                "top_device_ms": dict(top)}
-            if direction == "compress":
-                frame = res
-                results[f"{cell}/{direction}"]["ratio"] = len(frame) / len(
-                    corpus)
-            elif res != corpus:
-                raise RuntimeError(f"{cell}: round trip differs")
-            r = results[f"{cell}/{direction}"]
-            print(f"[{cell} {direction}] wall {wall:.1f} ms "
-                  f"({r['mb_s']:.1f} MB/s); traced {wall_t:.1f} ms, device "
-                  f"busy {busy:.1f} ms, idle {r['idle_share']:.3f}",
-                  flush=True)
-            for name, ms in top:
-                print(f"    {ms:10.3f} ms  {name}", flush=True)
+        frame = measure(f"{cell}/compress", lambda: D.compress_frame_device(
+            corpus, prefs, min_match=mm))
+        results[f"{cell}/compress"]["ratio"] = len(frame) / len(corpus)
+        measure(f"{cell}/decompress",
+                lambda: D.decompress_frame_device(frame)[0], corpus)
+    files = stream_files(corpus, "cuda")
+    for name in STREAM_CELLS:
+        decode = (D.decompress_legacy_device if name == "legacy"
+                  else D.decompress_frame_device)
+        measure(f"stream_{name}/decompress", lambda: decode(files[name])[0],
+                corpus)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "corpus_bytes": len(corpus), "cells": results}))
     return 0

@@ -7,7 +7,12 @@
 2. Builds the kernels from lz4_tpu_torch/csrc (nvcc, sm_90a).
 3. Holds every kernel against its plain PyTorch/Python version on the same
    inputs, byte for byte (tolerance 0: a codec's outputs are integers), at
-   the main path's shapes, and times both.
+   the main path's shapes, and times both.  Kernel E (the stream decoder)
+   is held against its plain version at every launch step 6 makes (the
+   whole -B7, -B5 linked, legacy and flushed files) and on small inputs (a
+   4 MB block, stored blocks, a flushed chain with short mid-stream blocks,
+   corrupted payloads, noise) in both modes, and timed on a 4 MB block in
+   three alternating rounds of the two modes and on the 64 MiB -B7 frame.
 4. Runs the main path at full size: a 64 MiB real-text corpus (the Python
    stdlib sources, built the way bench.py builds its corpus) through
    compress_frame_device and decompress_frame_device, at min_match=8 /
@@ -17,14 +22,25 @@
    linked D must have launched and no plain version may have run.
 5. Resets the counters again and runs the smaller entry points: a 4 MB
    one-shot linked frame, a 60 KB input (kernel B), and independent frames
-   with and without block and content checksums.  Every kernel, B and
+   with and without block and content checksums.  Kernels A to D, B and
    batch D included, must launch here, and no plain version may run.
-6. Decodes a 1 MB frame written by the kernels with the plain versions.
+6. The stream path, with its own counter reset and read: the corpus as a
+   -B7 frame with a content checksum (what ``lz4 file`` writes), a -B5
+   linked frame, a legacy file (8 MB blocks), a linked 64 KB-block frame
+   with flush() after every third 4 MB update (kernel D finds its short
+   blocks and hands the chain to kernel E), the three fixture files, and
+   io.decompress_filename on the -B7 file in a temporary directory under
+   build/.  Kernels E and linked D must launch, and no plain version run.
+   The -B7 and legacy files merge kernel B's 256 KB payloads into 4 MB and
+   8 MB blocks (``merge_payloads``): nothing on the card host writes
+   larger blocks.
+7. Decodes a 1 MB frame written by the kernels with the plain versions.
 
 Prints a JSON line of the kernels (each with the launch count of the phase
-that drives it, and both phases' counts), then, as its last line,
+that drives it, and every phase's counts), then, as its last line,
 {"ok": true, "device": {...}}.  Exits non-zero on any failure, and when no
-card is present.  Writes nothing outside build/ (the kernel library).
+card is present.  Writes nothing outside build/ (the kernel library and
+the temporary directory of step 6).
 """
 
 import json
@@ -41,7 +57,8 @@ CORPUS_BYTES = 64 << 20
 MAIN_POINTS = ((8, 1, False), (4, 1, False), (8, 1, True))
 
 # name -> (route, source, the Pallas launch it replaces, the phase whose
-# launch count it reports: "main" = step 4, "entry" = step 5)
+# launch count it reports: "main" = step 4, "entry" = step 5, "stream" =
+# step 6)
 KERNELS = {
     "encode_linked": ("cuda", "lz4_tpu_torch/csrc/encode.cu",
                       "lz4_tpu/kernels/encode_kernel.py:744", "main"),
@@ -53,6 +70,8 @@ KERNELS = {
                       "lz4_tpu/kernels/decode_kernel.py:834", "main"),
     "decode_batch": ("cuda", "lz4_tpu_torch/csrc/decode.cu",
                      "lz4_tpu/kernels/decode_kernel.py:834", "entry"),
+    "decode_stream": ("cuda", "lz4_tpu_torch/csrc/stream.cu",
+                      "lz4_tpu/kernels/decode_kernel.py:1636", "stream"),
 }
 
 
@@ -116,6 +135,275 @@ def mixed_bytes(n: int, text: bytes, seed: int) -> bytes:
     return bytes(out[:n])
 
 
+# -- building 4 MB and 8 MB blocks from independent 256 KB payloads ----------
+# Kernel B encodes rows of at most 256 KB, and the card host has no LZ4
+# compressor that writes larger blocks.  An independent block's offsets
+# never leave the block, so consecutive independent payloads become one
+# block when each payload's terminal literal-only sequence is folded into
+# the first sequence of the next: the new token takes the sum of both
+# literal runs, with the second token's match nibble, offset and extension.
+# Only the merged block's end keeps the end-of-block rules, as it must.
+
+def frame_payloads(frame: bytes, pos: int):
+    """(payload, stored) of each block record of an LZ4F frame without
+    block checksums, from the first record at ``pos`` to the endmark."""
+    out = []
+    while True:
+        raw = int.from_bytes(frame[pos:pos + 4], "little")
+        pos += 4
+        if raw == 0:
+            return out
+        size = raw & 0x7FFFFFFF
+        out.append((frame[pos:pos + size], bool(raw >> 31)))
+        pos += size
+
+
+def _ext(payload: bytes, ip: int, run: int):
+    """Add a length extension at ``ip`` to ``run``: (run, next ip)."""
+    while True:
+        b = payload[ip]
+        ip += 1
+        run += b
+        if b != 255:
+            return run, ip
+
+
+def literal_head(n: int, match_nibble: int = 0) -> bytes:
+    """Token and literal-length extension of a sequence with ``n``
+    literals."""
+    head = bytearray([min(n, 15) << 4 | match_nibble])
+    if n >= 15:
+        rest = n - 15
+        head += b"\xff" * (rest // 255) + bytes([rest % 255])
+    return bytes(head)
+
+
+def terminal_literals(payload: bytes) -> int:
+    """Offset of the token of a block's last (literal-only) sequence."""
+    ip, n = 0, len(payload)
+    while True:
+        at = ip
+        token = payload[ip]
+        run, ip = token >> 4, ip + 1
+        if run == 15:
+            run, ip = _ext(payload, ip, run)
+        ip += run
+        if ip >= n:
+            return at
+        ip += 2
+        if token & 15 == 15:
+            _, ip = _ext(payload, ip, 0)
+
+
+def merge_payloads(payloads) -> bytes:
+    """One LZ4 block decoding to the concatenation of the contents of
+    independent blocks ``payloads`` (compressed, in order)."""
+    out = bytearray()
+    carry = b""                 # literals of the previous terminal sequence
+    for p in payloads:
+        token = p[0]
+        run, ip = token >> 4, 1
+        if run == 15:
+            run, ip = _ext(p, ip, run)
+        lits = carry + p[ip:ip + run]
+        if ip + run == len(p):                  # one literal-only sequence
+            carry = lits
+            continue
+        t = terminal_literals(p)
+        out += literal_head(len(lits), token & 15) + lits + p[ip + run:t]
+        run, ip = p[t] >> 4, t + 1
+        if run == 15:
+            run, ip = _ext(p, ip, run)
+        carry = p[ip:ip + run]
+    out += literal_head(len(carry)) + carry
+    return bytes(out)
+
+
+def merged_blocks(records, group: int):
+    """Merge every ``group`` consecutive 256 KB records (payload, stored)
+    into one block; a stored record takes part as a literal-only block."""
+    payloads = [literal_head(len(p)) + p if st else p for p, st in records]
+    return [merge_payloads(payloads[i:i + group])
+            for i in range(0, len(payloads), group)]
+
+
+def block_records(payloads) -> bytes:
+    """LE32 size + payload for each compressed block (no checksums)."""
+    return b"".join(len(p).to_bytes(4, "little") + p for p in payloads)
+
+
+# -- the stream path (kernel E): inputs, kernel cases and the phase ----------
+# DeviceFrameCompressor update size of the flushed frame: not a multiple of
+# 64 KB, so every flush() writes a short non-final block
+FLUSH_CHUNK = 4_000_000
+PER_4MB, PER_8MB = 16, 32          # 256 KB payloads per -B7 / legacy block
+MB4 = 4 << 20
+
+
+def stream_files(corpus: bytes, dev) -> dict:
+    """The stream phase's files, all written on ``dev`` by the port:
+    'b5_linked' (256 KB blocks from kernels B and C; a linked header over
+    independent content), 'b7' (16 of those payloads merged per 4 MB
+    block, independent, with a content checksum: what ``lz4 file`` writes),
+    'legacy' (32 per 8 MB block) and 'flushed' (a linked 64 KB-block frame
+    from DeviceFrameCompressor, flush() after every third update, so the
+    chain has short non-final blocks and real cross-block matches)."""
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import spec
+    from lz4_tpu_torch.frame import FramePreferences, encode_frame_header
+    from lz4_tpu_torch.ops.xxhash import xxh32
+
+    b5 = D.compress_frame_device(
+        corpus, FramePreferences(block_size_id=5, block_independent=True),
+        block_size=256 << 10, device=dev)
+    recs = frame_payloads(b5, 7)
+    files = {
+        "b5_linked": encode_frame_header(FramePreferences(
+            block_size_id=5)) + b5[7:],
+        "b7": (encode_frame_header(FramePreferences(
+            block_size_id=7, block_independent=True, content_checksum=True))
+            + block_records(merged_blocks(recs, PER_4MB)) + bytes(4)
+            + xxh32(corpus, 0).to_bytes(4, "little")),
+        "legacy": (spec.LEGACY_MAGIC.to_bytes(4, "little")
+                   + block_records(merged_blocks(recs, PER_8MB))),
+    }
+    comp = D.DeviceFrameCompressor(FramePreferences(block_size_id=4),
+                                   device=dev)
+    parts = [comp.begin()]
+    for k, i in enumerate(range(0, len(corpus), FLUSH_CHUNK)):
+        parts.append(comp.update(corpus[i:i + FLUSH_CHUNK]))
+        if k % 3 == 2:
+            parts.append(comp.flush())
+    parts.append(comp.end())
+    files["flushed"] = b"".join(parts)
+    return files
+
+
+def _records(frame: bytes, pos: int):
+    """(starts, sizes, stored) of the block records of a frame without
+    block checksums."""
+    starts, sizes, stored = [], [], []
+    for p, st in frame_payloads(frame, pos):
+        pos += 4
+        starts.append(pos)
+        sizes.append(len(p))
+        stored.append(int(st))
+        pos += len(p)
+    return starts, sizes, stored
+
+
+def stream_cases(files: dict, corpus: bytes, dev, bad_rows, noise_rows):
+    """Kernel E's inputs at small sizes, each run in both modes: (what,
+    flat bytes, bstart, clen, stored, block size, caps or None)."""
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch.frame import FramePreferences
+
+    b7 = files["b7"]
+    s7, n7, _ = _records(b7, 7)
+    p1 = frame_payloads(files["b5_linked"], 7)[PER_4MB][0]
+    four = b7[:s7[0] + n7[0]] + block_records([p1])
+    cases = [("4 MB block + 256 KB block, raw frame offsets", four,
+              [s7[0], s7[0] + n7[0] + 4], [n7[0], len(p1)], [0, 0], MB4,
+              None)]
+    # stored blocks, one over its cap, beside a compressed one
+    parts = [corpus[:100_000], p1, noise_rows[0] * 17, corpus[:300_000]]
+    starts = [sum(map(len, parts[:i])) + 3 for i in range(len(parts))]
+    cases.append(("stored blocks", b"\x01\x02\x03" + b"".join(parts), starts,
+                  [len(p) for p in parts], [1, 0, 1, 1], 256 << 10,
+                  [100_000, 256 << 10, 256 << 10, 200_000]))
+    # short mid-stream blocks: a flushed linked chain with cross-block
+    # matches (its independent-mode verdicts reject the reaching blocks)
+    comp = D.DeviceFrameCompressor(FramePreferences(block_size_id=4),
+                                   device=dev)
+    small = comp.begin() + b"".join(
+        comp.update(corpus[i:i + 300_000]) + comp.flush()
+        for i in range(0, 1_500_000, 300_000)) + comp.end()
+    st, sz, sd = _records(small, 7)
+    cases.append(("flushed chain, short mid-stream blocks", small, st, sz,
+                  sd, 64 << 10, None))
+    for what, rows in (("48 corrupted streams", bad_rows),
+                       ("64 payloads of noise", noise_rows)):
+        starts = [sum(map(len, rows[:i])) for i in range(len(rows))]
+        cases.append((what, b"".join(rows), starts, [len(r) for r in rows],
+                      [0] * len(rows), 64 << 10, None))
+    return cases
+
+
+def stream_launches(files: dict) -> dict:
+    """File name -> the arguments of kernel E's launch on that full-size
+    file, as the stream phase's entry points make it (device.py): (what,
+    flat bytes, bstart, clen, stored, block size, linked, caps).  A frame's
+    stored blocks may fill their own length, every other block its block
+    size."""
+    out = {}
+    for what, name, bs, linked in (
+            ("-B7 frame, 16 blocks of 4 MB", "b7", MB4, False),
+            ("-B5 linked frame, 256 blocks", "b5_linked", 256 << 10, True),
+            ("legacy file, 8 blocks of 8 MB", "legacy", 8 << 20, False),
+            ("flushed 64 KB linked chain", "flushed", 64 << 10, True)):
+        frame = files[name]
+        st, sz, sd = _records(frame, 4 if name == "legacy" else 7)
+        caps = [bs] * len(st) if name == "flushed" else \
+            [n if s else bs for n, s in zip(sz, sd)]
+        out[name] = (what, frame[:st[-1] + sz[-1]], st, sz, sd, bs, linked,
+                     caps)
+    return out
+
+
+def stream_phase(files: dict, corpus: bytes, dev, fixtures: Path,
+                 tmp_root: Path) -> None:
+    """The stream path at full size, through the entry points a user
+    calls: decompress_frame_device, decompress_legacy_device and
+    lz4_tpu_torch.io.  Every output must equal its input byte for byte."""
+    import io
+    import tempfile
+
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import io as tio
+
+    cases = (("-B7 independent + content checksum", files["b7"],
+              D.decompress_frame_device),
+             ("-B5 linked", files["b5_linked"], D.decompress_frame_device),
+             ("legacy (8 MB blocks)", files["legacy"],
+              D.decompress_legacy_device),
+             ("64 KB linked, flush() every 3rd update", files["flushed"],
+              D.decompress_frame_device))
+    mb = len(corpus) / 1e6
+    for what, frame, fn in cases:
+        t0 = time.perf_counter()
+        out, used = fn(frame, device=dev)
+        dt = time.perf_counter() - t0
+        if out != corpus or used != len(frame):
+            raise SmokeFailure(f"stream phase: {what} does not decode to the "
+                               "corpus")
+        log(f"[stream] {len(corpus) >> 20} MiB {what}: {len(frame)} bytes, "
+            f"decompress {mb / dt:.1f} MB/s ({dt:.3f} s), byte-exact")
+        del out
+    golden = (fixtures / "golden_input.bin").read_bytes()
+    for name in ("default.lz4", "hc9_b5_linked.lz4", "legacy.lz4"):
+        out = io.BytesIO()
+        tio.decompress_stream(io.BytesIO((fixtures / name).read_bytes()),
+                              out, tio.IoPrefs(), device=dev)
+        if out.getvalue() != golden:
+            raise SmokeFailure(f"fixture {name} does not decode to "
+                               "golden_input.bin")
+        log(f"[stream] fixture {name}: decodes to golden_input.bin")
+    tmp_root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp_root) as d:
+        src, dst = Path(d) / "corpus.lz4", Path(d) / "corpus"
+        src.write_bytes(files["b7"])
+        t0 = time.perf_counter()
+        r, w = tio.decompress_filename(str(src), str(dst), tio.IoPrefs(),
+                                       device=dev)
+        dt = time.perf_counter() - t0
+        if (r, w) != (len(files["b7"]), len(corpus)) or \
+                dst.read_bytes() != corpus:
+            raise SmokeFailure("io.decompress_filename of the -B7 file "
+                               "differs")
+    log(f"[stream] io.decompress_filename, {len(corpus) >> 20} MiB -B7 "
+        f"file: {mb / dt:.1f} MB/s ({dt:.3f} s) file to file, byte-exact")
+
+
 def main() -> int:
     import torch
 
@@ -170,6 +458,27 @@ def main() -> int:
         if err:
             raise SmokeFailure(f"{kernel} disagrees with its plain version "
                                f"on {what}")
+
+    def cmp_stream(what, k, p):
+        """Exact comparison of two decode_stream results: olen, and the
+        bytes of the good blocks."""
+        torch.cuda.synchronize()
+        (k_out, k_olen), (p_out, p_olen) = k, p
+        k_olen = k_olen.cpu()
+        total = int(p_olen.clamp(min=0).sum())
+        err = int((k_olen.long() - p_olen.long()).abs().max()) \
+            if len(p_olen) else 0
+        if total:
+            d = (k_out[:total].cpu().int() - p_out[:total].int()).abs().max()
+            err = max(err, int(d))
+        stats["decode_stream"]["max_abs_err"] = max(
+            stats["decode_stream"]["max_abs_err"], err)
+        log(f"[compare] {'decode_stream':14s} {what}: blocks={len(p_olen)} "
+            f"rejected={int((p_olen < 0).sum())} bytes={total} "
+            f"max_abs_err={err}")
+        if err:
+            raise SmokeFailure(f"decode_stream disagrees with its plain "
+                               f"version on {what}")
 
     def time_card(fn, reps=5):
         fn()
@@ -399,6 +708,78 @@ def main() -> int:
         p = fn(noise, noise_lens, W)
         cmp_rows(mode, "64 rows of noise", *k, *p)
 
+    # -- 3f. kernel E: full-size inputs, small cases, times ------------------
+    t0 = time.perf_counter()
+    files = stream_files(corpus, cuda)
+    log(f"[stream] inputs written on the card in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {len(v)} bytes" for k, v in files.items()))
+    noise_rows = [noise[i, :n].numpy().tobytes()
+                  for i, n in enumerate(noise_lens.tolist())]
+    for what, flat, st, cl, sd, bs, caps in stream_cases(
+            files, corpus, cuda, comp_rows, noise_rows):
+        for linked in (False, True):
+            args = (st, cl, sd, bs, 0, linked, caps)
+            k = dec.decode_stream_raw(torch.frombuffer(
+                bytearray(flat), dtype=torch.uint8).to(cuda), *args)
+            p = dec.decode_stream_raw(torch.frombuffer(
+                bytearray(flat), dtype=torch.uint8), *args)
+            cmp_stream(f"{what}, {'linked' if linked else 'independent'}",
+                       k, p)
+    # every launch the stream phase makes (step 6), on the whole file
+    launches = stream_launches(files)
+    plain_full = {}
+    for fname, (what, flat, st, cl, sd, bs, linked, caps) in \
+            launches.items():
+        flat_h = torch.frombuffer(bytearray(flat), dtype=torch.uint8)
+        args = (st, cl, sd, bs, 0, linked, caps)
+        k = dec.decode_stream_raw(flat_h.to(cuda), *args)
+        p, plain_full[fname] = time_host(
+            lambda: dec.decode_stream_raw(flat_h, *args))
+        cmp_stream(f"{what} (the stream phase's launch)", k, p)
+        del k, p
+    s7, n7, d7 = _records(files["b7"], 7)
+    b7_d = torch.frombuffer(bytearray(files["b7"]), dtype=torch.uint8).to(cuda)
+    one = ([s7[0]], [n7[0]], [0], MB4, 0)
+    # three alternating rounds of the two modes on one 4 MB block; the
+    # reported time is each mode's median
+    rounds = {True: [], False: []}
+    for _ in range(3):
+        for linked in (True, False):
+            rounds[linked].append(time_card(lambda: dec.decode_stream_raw(
+                b7_d, *one, linked=linked)))
+    ms = {m: sorted(r)[1] for m, r in rounds.items()}
+    stats["decode_stream"]["ms"] = ms[True]
+    stats["decode_stream"]["ms_independent"] = ms[False]
+    stats["decode_stream"]["ms_rounds"] = rounds[True]
+    stats["decode_stream"]["ms_rounds_independent"] = rounds[False]
+    b7_h = b7_d.cpu()
+    plain_ms = {}
+    for linked in (True, False):
+        p, plain_ms[linked] = time_host(
+            lambda: dec.decode_stream_raw(b7_h, *one, linked=linked))
+        k = dec.decode_stream_raw(b7_d, *one, linked=linked)
+        cmp_stream(f"one 4 MB block (timed), "
+                   f"{'linked' if linked else 'independent'}", k, p)
+    stats["decode_stream"]["plain_ms"] = plain_ms[True]
+    stats["decode_stream"]["plain_ms_independent"] = plain_ms[False]
+    t16 = time_card(lambda: dec.decode_stream_raw(
+        b7_d, s7, n7, d7, MB4, 0, linked=False))
+    stats["decode_stream"]["ms_64mib_independent"] = t16
+    stats["decode_stream"]["plain_ms_64mib_independent"] = plain_full["b7"]
+    log(f"[time] decode_stream, one 4 MB block: linked {ms[True]:.3f} ms "
+        f"({MB4 / 1e3 / ms[True]:.1f} MB/s), independent {ms[False]:.3f} ms "
+        f"({MB4 / 1e3 / ms[False]:.1f} MB/s), rounds linked "
+        f"{[round(t, 3) for t in rounds[True]]} independent "
+        f"{[round(t, 3) for t in rounds[False]]}; plain linked "
+        f"{plain_ms[True]:.1f} ms, independent {plain_ms[False]:.1f} ms; "
+        f"16 blocks, {len(corpus) >> 20} MiB independent: {t16:.3f} ms "
+        f"({len(corpus) / 1e3 / t16:.1f} MB/s), plain "
+        f"{plain_full['b7']:.1f} ms")
+    log("[time] decode_stream plain version, whole files: " + ", ".join(
+        f"{f} {t:.1f} ms" for f, t in plain_full.items()))
+    del b7_d, b7_h, launches
+
     def phase_counts(phase, need):
         """Read the counters after a phase: every kernel in ``need`` must
         have launched and no plain version may have run."""
@@ -457,9 +838,18 @@ def main() -> int:
             raise SmokeFailure(f"round trip differs: {what}")
         log(f"[entry] {what}: ratio {len(frame) / len(data):.6f}, "
             f"round trip byte-exact")
-    counts["entry"] = phase_counts("entry points", list(KERNELS))
+    counts["entry"] = phase_counts(
+        "entry points", [k for k, v in KERNELS.items() if v[3] != "stream"])
 
-    # -- 6. the plain decoder reads a frame the kernels wrote ------------------
+    # -- 6. the stream path at full size -------------------------------------
+    common.reset_counts()
+    stream_phase(files, corpus, cuda, REPO / "tests" / "fixtures",
+                 REPO / "build")
+    counts["stream"] = phase_counts("stream path",
+                                    ["decode_stream", "decode_linked"])
+    del files
+
+    # -- 7. the plain decoder reads a frame the kernels wrote -----------------
     data = corpus[8 << 20:9 << 20]
     frame = D.compress_frame_device(data, FramePreferences(block_size_id=4),
                                     min_match=8)

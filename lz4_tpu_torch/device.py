@@ -12,14 +12,20 @@ container (a few bytes per 64 KB block); the kernels do the block work:
   once; block checksums are inserted on the host while it is walked.
 * decompress: ``decompress_frame_device`` -> ``decode_blocks_linked``
   (kernel D, linked mode) in groups of ``DEC_GROUP_BLOCKS`` blocks, the
-  window handed from group to group on the device; independent frames take
-  ``decode_blocks`` (kernel D, batch mode).
+  window handed from group to group on the device; independent frames of
+  64 KB blocks take ``decode_blocks`` (kernel D, batch mode).  Frames of
+  larger blocks (the ``lz4`` CLI writes 4 MB blocks by default) take
+  ``decode_stream_raw`` (kernel E) over the raw frame, uploaded once, and so
+  do legacy files (``decompress_legacy_device``, 8 MB blocks).  A linked
+  chain with a short non-final block (``DeviceFrameCompressor.flush``
+  writes those) is legal LZ4F but outside kernel D's one-block window: when
+  kernel D finds one, the whole chain is decoded again by kernel E, whose
+  window is everything decoded so far.
 
-Frames outside the kernels' envelope raise ``DeviceLayoutUnsupported``
-(there is no host codec to fall back to): blocks over 64 KB, and linked
-chains whose non-final blocks are not full (``DeviceFrameCompressor.flush``
-writes those).  A block the kernel rejects for its own bytes raises
-``Lz4FrameError`` with its index.
+There is no host codec to fall back to.  A block the kernels reject raises
+``Lz4FrameError`` with its index; frames outside every kernel's envelope
+(linked blocks under 64 KB, frames past the int32 byte offsets of kernel E)
+raise ``DeviceLayoutUnsupported``.
 
 Every function takes a ``device``; the default ``"cuda"`` raises on a
 machine without a card.  The tests pass ``device="cpu"``, which runs the
@@ -39,7 +45,8 @@ from . import spec
 from .frame import (FramePreferences, Lz4FrameError, decode_frame_header,
                     encode_frame_header)
 from .kernels.common import resolve_device, to_device, to_host
-from .kernels.decode_kernel import decode_blocks, decode_blocks_linked
+from .kernels.decode_kernel import (StreamEnvelopeError, decode_blocks,
+                                    decode_blocks_linked, decode_stream_raw)
 from .kernels.encode_kernel import encode_blocks, encode_blocks_linked
 from .kernels.pack_kernel import pack_frame_payloads
 from .ops.xxhash import XXH32State, xxh32
@@ -57,8 +64,8 @@ CHUNKED_ABOVE = 8 << 20  # inputs larger than this are compressed in chunks
 
 class DeviceLayoutUnsupported(Lz4FrameError):
     """The frame is valid as far as parsed, but its layout is outside the
-    device kernels' envelope (blocks over 64 KB, short non-final blocks in
-    a linked chain)."""
+    device kernels' envelope (linked blocks under 64 KB, frames past the
+    stream kernel's int32 byte offsets)."""
 
 
 def _split_blocks(data: bytes, block_size: int) -> List[bytes]:
@@ -397,9 +404,9 @@ class DeviceFrameCompressor:
 
     def flush(self) -> bytes:
         """Emit the buffered sub-block remainder now as a (possibly short)
-        linked block.  Parity: LZ4F_flush; the window keeps carrying.  A
-        frame with such a short non-final block decodes with the host
-        codec only: the device decoder raises DeviceLayoutUnsupported."""
+        linked block.  Parity: LZ4F_flush; the window keeps carrying.
+        ``decompress_frame_device`` decodes a frame with such a short
+        non-final block through the stream kernel (kernel E)."""
         self._require_begun()
         drained = self._emit_pending()
         if not self._buf:
@@ -444,54 +451,80 @@ def _literal_block(payload: bytes) -> bytes:
 
 
 def _read_blocks(frame: bytes, pos: int, info):
-    """Walk the block records: (compressed payloads or None, stored payloads
-    or None, position after the endmark)."""
+    """Walk the block records: (payload offsets, payload sizes, stored
+    flags, position after the endmark)."""
     bound = spec.compress_bound(info.block_size)
-    comp_blocks: List[Optional[bytes]] = []
-    stored: List[Optional[bytes]] = []
+    starts: List[int] = []
+    sizes: List[int] = []
+    stored: List[bool] = []
     while True:
         if pos + 4 > len(frame):
             raise Lz4FrameError("truncated frame")
         raw = struct.unpack_from("<I", frame, pos)[0]
         pos += 4
         if raw == 0:
-            return comp_blocks, stored, pos
+            return starts, sizes, stored, pos
         size = raw & ~spec.UNCOMPRESSED_BIT
         if pos + size > len(frame):
             raise Lz4FrameError("truncated block")
-        payload = frame[pos:pos + size]
+        is_stored = bool(raw & spec.UNCOMPRESSED_BIT)
+        if not is_stored and size > bound:
+            raise Lz4FrameError(
+                f"block {len(starts)}: payload of {size} bytes "
+                f"exceeds compress_bound({info.block_size})")
+        starts.append(pos)
+        sizes.append(size)
+        stored.append(is_stored)
         pos += size
         if info.block_checksum:
             if pos + 4 > len(frame):
                 raise Lz4FrameError("truncated block checksum")
             want = struct.unpack_from("<I", frame, pos)[0]
-            pos += 4
-            if xxh32(payload, 0) != want:
+            if xxh32(frame[pos - size:pos], 0) != want:
                 raise Lz4FrameError("block checksum mismatch")
-        if raw & spec.UNCOMPRESSED_BIT:
-            stored.append(payload)
-            comp_blocks.append(None)
-        else:
-            if size > bound:
-                raise Lz4FrameError(
-                    f"block {len(comp_blocks)}: payload of {size} bytes "
-                    f"exceeds compress_bound({info.block_size})")
-            stored.append(None)
-            comp_blocks.append(payload)
+            pos += 4
 
 
-def _decode_linked_chain(payloads: List[bytes], bs: int,
+def _decode_stream_blocks(buf: bytes, starts: List[int], sizes: List[int],
+                          stored: List[bool], caps: List[int],
+                          block_size: int, linked: bool,
+                          dev: torch.device) -> bytes:
+    """Decode the blocks at ``starts`` of ``buf`` through kernel E, with
+    ``buf`` uploaded as it is; raises Lz4FrameError naming the first block
+    the kernel rejects, and DeviceLayoutUnsupported for a ``buf`` past the
+    kernel's int32 byte offsets."""
+    try:
+        out, olen = decode_stream_raw(to_device(buf, dev), starts, sizes,
+                                      stored, block_size, sum(caps), linked,
+                                      out_caps=caps)
+    except StreamEnvelopeError as exc:
+        raise DeviceLayoutUnsupported(str(exc)) from exc
+    olen_h = to_host(olen)
+    if (olen_h < 0).any():
+        bad = int(np.nonzero(olen_h < 0)[0][0])
+        raise Lz4FrameError(f"device decode failed on block {bad}")
+    return to_host(out[:int(olen_h.sum())]).tobytes()
+
+
+def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
+                         stored: List[bool], bs: int,
                          dev: torch.device) -> bytes:
-    """Decode a linked chain in groups of DEC_GROUP_BLOCKS: group g+1 is
-    dispatched before group g is fetched, and its window is group g's last
-    output block, handed over on the device."""
+    """Decode a linked chain of 64 KB blocks in groups of DEC_GROUP_BLOCKS:
+    group g+1 is dispatched before group g is fetched, and its window is
+    group g's last output block, handed over on the device.  Stored blocks
+    are spliced in as literal-only blocks.  When a non-final block decodes
+    short, the successors' one-block window is wrong, so the whole chain is
+    decoded again by kernel E in linked mode, with caps of ``bs``."""
     G = DEC_GROUP_BLOCKS
+    payloads = [_literal_block(frame[s:s + n]) if st else frame[s:s + n]
+                for s, n, st in zip(starts, sizes, stored)]
     nblocks = len(payloads)
     win = None
     pending: List[Tuple] = []
     chunks: List[bytes] = []
 
-    def drain():
+    def drain() -> bool:
+        """Fetch the oldest group; False at a short non-final block."""
         out_d, olen_d, first = pending.pop(0)
         olen = to_host(olen_d)
         out = to_host(out_d)
@@ -500,12 +533,11 @@ def _decode_linked_chain(payloads: List[bytes], bs: int,
             if n < 0:
                 raise Lz4FrameError(f"device decode failed on block {g}")
             if n != bs and g != nblocks - 1:
-                raise DeviceLayoutUnsupported(
-                    f"linked block {g} decodes to {n} of {bs} bytes: a short "
-                    "non-final block is outside the device decoder's window "
-                    "contract")
+                return False
             chunks.append(out[i, :n].tobytes())
+        return True
 
+    full = True
     for first in range(0, nblocks, G):
         grp = payloads[first:first + G]
         rows, lens = _rows(grp, max(len(c) for c in grp), dev)
@@ -514,41 +546,48 @@ def _decode_linked_chain(payloads: List[bytes], bs: int,
             init_window_len=bs if win is not None else 0)
         win = out_d[len(grp) - 1]
         pending.append((out_d, olen_d, first))
-        if len(pending) > 1:
-            drain()
-    while pending:
-        drain()
+        if len(pending) > 1 and not drain():
+            full = False
+            break
+    while full and pending:
+        full = drain()
+    if not full:
+        return _decode_stream_blocks(frame[:starts[-1] + sizes[-1]], starts,
+                                     sizes, stored, [bs] * nblocks, bs, True,
+                                     dev)
     return b"".join(chunks)
 
 
 def decompress_frame_device(frame: bytes, device="cuda") -> Tuple[bytes, int]:
     """One-shot frame decompression with all block work on the device.
 
-    Handles block-independent frames and linked frames of 64 KB blocks.
-    Returns (content, bytes_consumed)."""
+    Handles every block size: 64 KB blocks through kernel D (linked chains,
+    or independent batches), larger ones through kernel E over the raw
+    frame.  Returns (content, bytes_consumed)."""
     dev = resolve_device(device)
     frame = bytes(frame)
     info = decode_frame_header(frame)
-    if info.block_size > BLOCK:
-        raise DeviceLayoutUnsupported(
-            f"{info.block_size}-byte blocks: the device decoder takes "
-            f"blocks of at most {BLOCK} bytes")
-    comp_blocks, stored, pos = _read_blocks(frame, info.header_size, info)
-    if info.block_independent:
-        todo = [c for c in comp_blocks if c is not None]
-        decoded = iter(decode_batch(todo, info.block_size, device=dev)
-                       if todo else [])
-        content = b"".join(s if s is not None else next(decoded)
-                           for s in stored)
-    elif not comp_blocks:
+    starts, sizes, stored, pos = _read_blocks(frame, info.header_size, info)
+    bs = info.block_size
+    if not starts:
         content = b""
+    elif bs > BLOCK:
+        # stored blocks may fill their own length, compressed ones a block
+        caps = [n if st else bs for n, st in zip(sizes, stored)]
+        content = _decode_stream_blocks(frame[:starts[-1] + sizes[-1]],
+                                        starts, sizes, stored, caps, bs,
+                                        not info.block_independent, dev)
+    elif info.block_independent:
+        todo = [frame[s:s + n] for s, n, st in zip(starts, sizes, stored)
+                if not st]
+        decoded = iter(decode_batch(todo, bs, device=dev) if todo else [])
+        content = b"".join(frame[s:s + n] if st else next(decoded)
+                           for s, n, st in zip(starts, sizes, stored))
     else:
-        if info.block_size < WINDOW:
+        if bs < WINDOW:
             raise DeviceLayoutUnsupported(
                 "linked blocks under 64 KB: the window spans several blocks")
-        payloads = [c if c is not None else _literal_block(s)
-                    for c, s in zip(comp_blocks, stored)]
-        content = _decode_linked_chain(payloads, info.block_size, dev)
+        content = _decode_linked_chain(frame, starts, sizes, stored, bs, dev)
     if info.content_checksum:
         if pos + 4 > len(frame):
             raise Lz4FrameError("truncated content checksum")
@@ -559,3 +598,35 @@ def decompress_frame_device(frame: bytes, device="cuda") -> Tuple[bytes, int]:
     if info.content_size is not None and info.content_size != len(content):
         raise Lz4FrameError("frame content size mismatch")
     return content, pos
+
+
+def decompress_legacy_device(data: bytes, device="cuda") -> Tuple[bytes, int]:
+    """Decode a legacy frame (magic 0x184C2102, independent 8 MB blocks,
+    always compressed) through kernel E over the raw bytes.  Stops at the
+    end of the input or at the next frame's magic.  Returns (content,
+    bytes_consumed)."""
+    dev = resolve_device(device)
+    data = bytes(data)
+    if len(data) < 4 or \
+            struct.unpack_from("<I", data)[0] != spec.LEGACY_MAGIC:
+        raise Lz4FrameError("not a legacy frame")
+    pos = 4
+    starts: List[int] = []
+    sizes: List[int] = []
+    while pos + 4 <= len(data):
+        size = struct.unpack_from("<I", data, pos)[0]
+        if size in (spec.FRAME_MAGIC, spec.LEGACY_MAGIC) or \
+                (size & spec.SKIPPABLE_MAGIC_MASK) == spec.SKIPPABLE_MAGIC_MIN:
+            break                                   # the next frame begins
+        pos += 4
+        if pos + size > len(data):
+            raise Lz4FrameError("truncated legacy block")
+        starts.append(pos)
+        sizes.append(size)
+        pos += size
+    if not starts:
+        return b"", pos
+    n = len(starts)
+    bs = spec.LEGACY_BLOCK_SIZE
+    return _decode_stream_blocks(data[:pos], starts, sizes, [False] * n,
+                                 [bs] * n, bs, False, dev), pos

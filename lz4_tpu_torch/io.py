@@ -1,0 +1,237 @@
+"""File-level decoding: ``.lz4`` files and streams through the device codec.
+
+Counterpart of the decode half of ``lz4_tpu/io.py`` (parity with the
+reference I/O layer, ``programs/lz4io.c``): concatenated LZ4F frames,
+legacy frames, skippable frames, pass-through of non-LZ4 input, sparse
+writing that seeks over zero runs, and multi-file operation.  Every frame
+is decoded by ``lz4_tpu_torch.device`` (kernels D and E); there is no host
+codec, so a frame outside the kernels' envelope raises
+``DeviceLayoutUnsupported`` where ``lz4_tpu`` would decode it on the host.
+
+Every function takes a ``device``; the default ``"cuda"`` raises on a
+machine without a card, and ``"cpu"`` runs the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import io
+import os
+import struct
+import sys
+import time
+from typing import BinaryIO, Optional, Tuple
+
+from . import spec
+from .device import decompress_frame_device, decompress_legacy_device
+from .frame import Lz4FrameError
+
+LZ4_EXTENSION = ".lz4"
+
+
+@dataclasses.dataclass
+class IoPrefs:
+    """The g_* knobs of lz4io.c:134-140 that decoding reads."""
+
+    sparse: bool = True             # --no-sparse clears (auto off for stdout)
+    overwrite: bool = False         # -f
+    test_mode: bool = False         # -t
+    pass_through: bool = False      # -d -f on non-lz4 input
+    remove_src: bool = False        # --rm
+    verbosity: int = 2
+
+
+class ProgressMeter:
+    """150 ms-throttled stderr progress display (parity: DISPLAYUPDATE,
+    lz4io.c:123-128): shown at default verbosity (>=2) once more than
+    16 MB has been processed, refreshed at most every 150 ms, erased by
+    ``done()``.  Streams of unknown size show MB processed; known sizes
+    add the share done, and the ratio so far when output is counted."""
+
+    INTERVAL = 0.150
+    MIN_BYTES = 16 * 1024 * 1024
+
+    def __init__(self, prefs: IoPrefs, verb: str,
+                 total: Optional[int] = None):
+        self.enabled = prefs.verbosity >= 2
+        self.verb = verb
+        self.total = total
+        self.next_at = time.monotonic() + self.INTERVAL
+        self.shown = False
+
+    def update(self, processed: int, produced: int) -> None:
+        if not self.enabled or processed < self.MIN_BYTES:
+            return
+        now = time.monotonic()
+        if now < self.next_at:
+            return
+        self.next_at = now + self.INTERVAL
+        msg = f"\r{self.verb} : {processed >> 20} MB"
+        if self.total:
+            msg += f" ({100.0 * processed / self.total:.1f}%)"
+        if produced and processed:
+            msg += f"  ==> {100.0 * produced / processed:.2f}%"
+        sys.stderr.write(msg + "   ")
+        sys.stderr.flush()
+        self.shown = True
+
+    def done(self) -> None:
+        if self.shown:
+            sys.stderr.write("\r" + " " * 60 + "\r")
+            sys.stderr.flush()
+            self.shown = False
+
+
+class SparseWriter:
+    """Zero-run skipping writer (parity: LZ4IO_fwriteSparse,
+    lz4io.c:641-726).  Seeks over long zero runs; the caller truncates the
+    file to ``written`` after ``close()``."""
+
+    GRAIN = 4096
+
+    def __init__(self, f: BinaryIO, enabled: bool):
+        self.f = f
+        self.enabled = enabled and f.seekable()
+        self.pending_zeros = 0
+        self.written = 0
+
+    def write(self, data: bytes) -> None:
+        self.written += len(data)
+        if not self.enabled:
+            self.f.write(data)
+            return
+        view = memoryview(data)
+        zeros = bytes(self.GRAIN)
+        while view:
+            take = min(len(view), self.GRAIN)
+            piece = view[:take]
+            if piece == zeros[:take]:
+                self.pending_zeros += take
+            else:
+                if self.pending_zeros:
+                    self.f.seek(self.pending_zeros, io.SEEK_CUR)
+                    self.pending_zeros = 0
+                self.f.write(piece)
+            view = view[take:]
+
+    def close(self) -> None:
+        if self.pending_zeros and self.enabled:
+            # materialize the final hole (lz4io writes a last byte)
+            self.f.seek(self.pending_zeros - 1, io.SEEK_CUR)
+            self.f.write(b"\x00")
+            self.pending_zeros = 0
+
+
+def decompress_stream(src: BinaryIO, dst, prefs: IoPrefs,
+                      device="cuda") -> Tuple[int, int]:
+    """Decode all concatenated frames from ``src`` into ``dst``; returns
+    (read, written).
+
+    Magic dispatch as lz4io.c:904-956: LZ4F frames, legacy frames and
+    skippable frames (skipped); unknown input is passed through when
+    ``prefs.pass_through`` is set and it is the first stream, an error when
+    it is the first stream otherwise, and the end of the input after a
+    valid stream (trailing garbage stops without error)."""
+    total_out = 0
+    buf = src.read()
+    pos = 0
+    first = True
+    meter = ProgressMeter(prefs, "Decoded", None)
+    while pos < len(buf):
+        if len(buf) - pos < 4:
+            if first and prefs.pass_through:
+                dst.write(buf[pos:])
+                total_out += len(buf) - pos
+                pos = len(buf)
+                break
+            if first:
+                raise Lz4FrameError("input too short")
+            # trailing garbage after a valid stream: stop without error
+            # (lz4io.c:948-952 "Stream followed by unrecognized data")
+            break
+        magic = struct.unpack_from("<I", buf, pos)[0]
+        if magic == spec.FRAME_MAGIC:
+            # lz4_tpu's _decode_one_frame hands DeviceLayoutUnsupported to
+            # its host codec; the port has none, so the error propagates
+            content, used = decompress_frame_device(buf[pos:], device=device)
+            dst.write(content)
+            total_out += len(content)
+            pos += used
+        elif magic == spec.LEGACY_MAGIC:
+            content, used = decompress_legacy_device(buf[pos:], device=device)
+            dst.write(content)
+            total_out += len(content)
+            pos += used
+        elif (magic & spec.SKIPPABLE_MAGIC_MASK) == spec.SKIPPABLE_MAGIC_MIN:
+            if len(buf) - pos < 8:
+                raise Lz4FrameError("truncated skippable frame")
+            size = struct.unpack_from("<I", buf, pos + 4)[0]
+            pos += 8 + size
+        else:
+            # unknown magic: pass the whole input through when forced on
+            # the FIRST stream (lz4io.c:946-952 pass-through contract);
+            # after a valid stream, stop without error
+            if first and prefs.pass_through:
+                dst.write(buf[pos:])
+                total_out += len(buf) - pos
+                pos = len(buf)
+            elif first:
+                raise Lz4FrameError(f"unrecognized header {magic:#010x}")
+            else:
+                break
+        first = False
+        meter.update(total_out, 0)
+    meter.done()
+    return pos, total_out
+
+
+def _open_dst(path: str, prefs: IoPrefs) -> BinaryIO:
+    if path == "-":
+        return sys.stdout.buffer
+    if os.path.exists(path) and not prefs.overwrite:
+        raise FileExistsError(f"{path} already exists; use -f to overwrite")
+    return open(path, "wb")
+
+
+def decompress_filename(src_path: str, dst_path: str, prefs: IoPrefs,
+                        device="cuda") -> Tuple[int, int]:
+    """Decode ``src_path`` ("-" = stdin) to ``dst_path`` ("-" = stdout);
+    returns (read, written).  Test mode (-t) decodes without writing."""
+    src = sys.stdin.buffer if src_path == "-" else open(src_path, "rb")
+    try:
+        if prefs.test_mode:
+            return decompress_stream(src, io.BytesIO(), prefs, device)
+        dst = _open_dst(dst_path, prefs)
+        sparse = SparseWriter(dst, prefs.sparse
+                              and dst is not sys.stdout.buffer)
+        try:
+            r, w = decompress_stream(src, sparse, prefs, device)
+            sparse.close()
+            if sparse.enabled:
+                dst.truncate(sparse.written)
+        finally:
+            if dst is not sys.stdout.buffer:
+                dst.close()
+    finally:
+        if src is not sys.stdin.buffer:
+            src.close()
+    if prefs.remove_src and src_path != "-":
+        os.unlink(src_path)
+    return r, w
+
+
+def decompress_multiple(paths, prefs: IoPrefs, device="cuda") -> int:
+    """-m -d: each ``file.lz4`` -> ``file``; returns the number of files
+    that failed (each reported on stderr)."""
+    errors = 0
+    for p in paths:
+        if not p.endswith(LZ4_EXTENSION):
+            print(f"lz4: {p}: unknown suffix, skipping", file=sys.stderr)
+            errors += 1
+            continue
+        try:
+            decompress_filename(p, p[:-len(LZ4_EXTENSION)], prefs, device)
+        except Exception as e:  # one bad file must not stop the others
+            print(f"lz4: {p}: {e}", file=sys.stderr)
+            errors += 1
+    return errors

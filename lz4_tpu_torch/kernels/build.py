@@ -1,10 +1,11 @@
 """Builds the port's native code at first use and loads it with ctypes.
 
-* The CUDA kernels: every ``lz4_tpu_torch/csrc/*.cu`` goes through one
-  ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` call into one
-  shared library with a plain C interface (no PyTorch headers, so the build
-  takes seconds).  Each C entry point launches its kernel on the stream it
-  is given and returns ``cudaGetLastError()``.
+* The CUDA kernels: every ``lz4_tpu_torch/csrc/*.cu`` is compiled by its
+  own ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c``, all started
+  together, and one ``nvcc -shared`` links the objects into one shared
+  library with a plain C interface (no PyTorch headers, so the build takes
+  seconds).  Each C entry point launches its kernels on the stream it is
+  given and returns ``cudaGetLastError()``.
 * Host helpers compiled with ``cc`` (the one-shot XXH32 of
   ``native/lz4t_native.c`` and the streaming rounds of
   ``csrc/xxh32_stream.c``).
@@ -25,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Callable, List, Sequence
 
@@ -33,7 +35,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "lz4_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +48,7 @@ _SIGNATURES = {
     "lz4tt_pack": [_P, _I, _P, _L, _P, _P, _P, _P, _P, _I, _P],
     "lz4tt_decode_linked": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P],
     "lz4tt_decode_batch": [_P, _I, _P, _P, _P, _I, _P, _I, _P],
+    "lz4tt_decode_stream": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _kernels = None
@@ -74,22 +77,36 @@ def _digest(paths: Sequence[Path], flags: Sequence[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_together(stem: str, cmds: Sequence[List[str]]) -> None:
+    """Start every command at once, wait for all, and raise with the
+    output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise BuildError(f"build of {stem} failed ({' '.join(cmd)}):\n"
+                             f"{out}\n{err}")
+
+
 def build_shared(stem: str, inputs: Sequence[Path], flags: Sequence[str],
-                 command: Callable[[Path], List[str]]) -> Path:
-    """Build ``command(out_path)`` into BUILD_DIR unless a library for the
-    same ``inputs`` and ``flags`` exists; returns the library's path."""
+                 commands: Callable[[Path], List[List[str]]]) -> Path:
+    """Build a library into BUILD_DIR unless one for the same ``inputs`` and
+    ``flags`` exists; returns its path.  ``commands(tmp)`` lists the
+    commands that write it to ``tmp``, in a scratch directory of their own:
+    all but the last (one compile per source) start together, and the last
+    (the link) runs once they have all succeeded."""
     out = BUILD_DIR / f"{stem}_{_digest(inputs, flags)}.so"
     with _build_lock():
         if out.exists():
             return out
-        tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = command(tmp)
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise BuildError(f"build of {stem} failed ({' '.join(cmd)}):\n"
-                             f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            tmp = Path(work) / out.name
+            *compiles, link = commands(tmp)
+            _run_together(stem, compiles)
+            _run_together(stem, [link])
+            os.replace(tmp, out)
     return out
 
 
@@ -111,10 +128,14 @@ def kernels_lib() -> ctypes.CDLL:
         sources = sorted(CSRC.glob("*.cu"))
         inputs = sorted(CSRC.glob("*.cu*"))
         nvcc = find_nvcc()
-        path = build_shared(
-            "lz4tt_kernels", inputs, NVCC_FLAGS,
-            lambda out: [nvcc, *NVCC_FLAGS, "-o", str(out),
-                         *map(str, sources)])
+
+        def commands(out: Path) -> List[List[str]]:
+            objs = [str(out.with_name(s.stem + ".o")) for s in sources]
+            return [*([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                      for s, o in zip(sources, objs)),
+                    [nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *objs]]
+
+        path = build_shared("lz4tt_kernels", inputs, NVCC_FLAGS, commands)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -38,8 +38,8 @@ def _load_native():
             try:
                 path = build.build_shared(
                     "lz4t_native", _NATIVE_SRCS, flags,
-                    lambda out: [cc, *flags, *map(str, _NATIVE_SRCS), "-o",
-                                 str(out)])
+                    lambda out: [[cc, *flags, *map(str, _NATIVE_SRCS), "-o",
+                                  str(out)]])
                 lib = ctypes.CDLL(str(path))
             except (build.BuildError, OSError):
                 return None

@@ -14,6 +14,9 @@ def compress_bound(n: int) -> int:
 
 # Frame format (lz4_Frame_format.md, spec v1.5.1)
 FRAME_MAGIC = 0x184D2204
+LEGACY_MAGIC = 0x184C2102
+SKIPPABLE_MAGIC_MIN = 0x184D2A50   # 0x184D2A50 .. 0x184D2A5F all valid
+SKIPPABLE_MAGIC_MASK = 0xFFFFFFF0
 FLG_VERSION = 0b01           # 2-bit version field, must be 01
 MIN_FRAME_HEADER_SIZE = 7    # magic + FLG + BD + HC
 UNCOMPRESSED_BIT = 0x80000000  # high bit of a block size: stored, not compressed
@@ -21,6 +24,7 @@ UNCOMPRESSED_BIT = 0x80000000  # high bit of a block size: stored, not compresse
 # BD byte block-max-size IDs -> byte sizes
 BLOCK_SIZES = {4: 64 * 1024, 5: 256 * 1024, 6: 1024 * 1024, 7: 4 * 1024 * 1024}
 DEFAULT_BLOCK_SIZE_ID = 7
+LEGACY_BLOCK_SIZE = 8 * 1024 * 1024   # legacy frames: fixed 8MB blocks
 
 # LZ4 streaming window
 WINDOW_SIZE = 64 * 1024

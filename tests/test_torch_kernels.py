@@ -347,7 +347,9 @@ def test_build_shared_caches_by_source_and_reports_failures(tmp_path,
     flags = ["-O2", "-fPIC", "-shared"]
 
     def cmd(out):
-        return [cc, *flags, str(src), "-o", str(out)]
+        obj = str(out.with_name("k.o"))
+        return [[cc, "-O2", "-fPIC", "-c", str(src), "-o", obj],
+                [cc, "-shared", obj, "-o", str(out)]]
 
     first = build.build_shared("k", [src], flags, cmd)
     assert build.build_shared("k", [src], flags, cmd) == first

@@ -34,6 +34,25 @@ for prefs in (FramePreferences(block_size_id=4),
     frame = compress_frame_device(data, prefs, device="cpu")
     assert decompress_frame_device(frame, device="cpu") == (data, len(frame))
 
+# a 256 KB-block frame and a legacy file of its payloads, through the
+# file-level decoder (the stream kernel's plain version)
+import io, struct
+import chip_smoke
+from lz4_tpu_torch import io as tio, spec
+big = data * 2
+frame = compress_frame_device(
+    big, FramePreferences(block_size_id=5, block_independent=True),
+    block_size=262144, device="cpu")
+recs = chip_smoke.frame_payloads(frame, 7)
+assert len(recs) == 2 and not any(st for _, st in recs)
+legacy = (struct.pack("<I", spec.LEGACY_MAGIC)
+          + chip_smoke.block_records([p for p, _ in recs]))
+out = io.BytesIO()
+assert tio.decompress_stream(io.BytesIO(frame + legacy), out, tio.IoPrefs(),
+                             device="cpu") == (len(frame) + len(legacy),
+                                               2 * len(big))
+assert out.getvalue() == big + big
+
 assert sys.modules["jax"] is None
 bad = [m for m in sys.modules
        if m.startswith("jax.") or m == "lz4_tpu" or m.startswith("lz4_tpu.")]

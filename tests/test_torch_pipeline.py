@@ -1,8 +1,8 @@
 """The port's frame pipeline (lz4_tpu_torch.device) held against lz4_tpu.tpu.
 
 Frames must be byte-identical for the same input and settings, each package
-must decode the other's frames, and frames outside the port's envelope must
-raise (the port has no host codec to fall back to).  The port runs its
+must decode the other's frames, and corrupt frames must raise (the port has
+no host codec to fall back to).  The port runs its
 kernels' plain versions (device="cpu"); the JAX side runs interpret mode.
 """
 
@@ -16,6 +16,7 @@ from lz4_tpu.frame import FramePreferences as JaxPrefs
 from lz4_tpu.utils.datagen import gen_buffer, incompressible
 from lz4_tpu_torch import device as tdev
 from lz4_tpu_torch.frame import FramePreferences, Lz4FrameError
+from lz4_tpu_torch.kernels import common
 
 from .test_torch_kernels import mixed_stream
 
@@ -138,23 +139,46 @@ def test_payload_over_bound_raises_frame_error():
 
 
 def test_blocks_over_64k_raise_layout_unsupported():
+    """A frame of 256 KB blocks decodes through the stream kernel to
+    lz4_tpu's bytes."""
     jp = JaxPrefs(block_size_id=5, block_independent=True)
     host = FrameCompressor(jp)
-    frame = host.begin() + host.update(mixed_stream(100_000, 5)) + host.end()
-    with pytest.raises(tdev.DeviceLayoutUnsupported):
-        tdev.decompress_frame_device(frame, device=CPU)
+    data = mixed_stream(100_000, 5)
+    frame = host.begin() + host.update(data) + host.end()
+    assert tdev.decompress_frame_device(frame, device=CPU) == \
+        jtpu.decompress_frame_device(frame) == (data, len(frame))
 
 
 def test_flushed_short_block_raises_layout_unsupported(monkeypatch):
+    """A linked chain with a flushed short block decodes to its input:
+    kernel D finds the short block and kernel E decodes the chain again."""
     monkeypatch.setattr(tdev, "DEC_GROUP_BLOCKS", 2)
     seg = mixed_stream(W + 30_000, 8)
     c = tdev.DeviceFrameCompressor(FramePreferences(block_size_id=4),
                                    device=CPU)
     frame = c.begin() + c.update(seg) + c.flush() + c.update(seg) + c.end()
-    with pytest.raises(tdev.DeviceLayoutUnsupported):
-        tdev.decompress_frame_device(frame, device=CPU)
+    common.reset_counts()
+    assert tdev.decompress_frame_device(frame, device=CPU) == \
+        (seg + seg, len(frame))
+    assert common.PLAIN_CALLS["decode_linked"] >= 1
+    assert common.PLAIN_CALLS["decode_stream"] == 1
     # the JAX package hands the same frame to its host codec
     assert jtpu.decompress_frame_device(frame)[0] == seg + seg
+
+
+def test_flushed_chain_reports_a_corrupt_block_by_index():
+    seg = mixed_stream(W + 30_000, 9)
+    c = tdev.DeviceFrameCompressor(FramePreferences(block_size_id=4),
+                                   device=CPU)
+    frame = bytearray(c.begin() + c.update(seg) + c.flush() + c.update(seg)
+                      + c.end())
+    pos = 7
+    for _ in range(2):                  # skip blocks 0 and 1 (the short one)
+        pos += 4 + (int.from_bytes(frame[pos:pos + 4], "little")
+                    & 0x7FFFFFFF)
+    frame[pos + 4:pos + 8] = bytes(4)   # block 2: a zero offset
+    with pytest.raises(Lz4FrameError, match="block 2"):
+        tdev.decompress_frame_device(bytes(frame), device=CPU)
 
 
 def test_corrupt_block_raises_frame_error_with_index():

@@ -1,0 +1,436 @@
+"""The port's stream decoder (kernel E's plain version), its frame and legacy
+routes and the file-level decoder (lz4_tpu_torch.io), held against lz4_tpu.
+
+Both packages get the same bytes.  The JAX side runs its stream kernel in
+interpret mode, whose cost grows with the number of LZ4 sequences, so the
+inputs here are long but sparse (few sequences per KB: repeats, zero runs,
+short noise).  Codec outputs are integers: every comparison is exact
+(lengths, -1 verdicts and decoded bytes).
+"""
+
+import dataclasses
+import io
+import struct
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from lz4_tpu import io as jio
+from lz4_tpu import spec as jspec
+from lz4_tpu import tpu as jtpu
+from lz4_tpu.frame import FrameCompressor, FrameDecompressor
+from lz4_tpu.frame import Lz4FrameError as JaxFrameError
+from lz4_tpu.frame import FramePreferences as JaxPrefs
+from lz4_tpu.frame import compress_legacy, decompress_legacy, \
+    make_skippable_frame
+from lz4_tpu.kernels import decode_kernel as jdec
+from lz4_tpu.ops.block_np import compress_block, decompress_block
+from lz4_tpu.utils.datagen import gen_buffer, incompressible
+from lz4_tpu_torch import device as tdev
+from lz4_tpu_torch import io as tio
+from lz4_tpu_torch import spec as tspec
+from lz4_tpu_torch.frame import (FramePreferences, Lz4FrameError,
+                                 encode_frame_header)
+from lz4_tpu_torch.kernels import common
+from lz4_tpu_torch.kernels import decode_kernel as tdec
+
+CPU = "cpu"
+KB = 1024
+FX = Path(__file__).parent / "fixtures"
+
+
+def sparse_data(n: int, seed: int) -> bytes:
+    """``n`` bytes with few LZ4 sequences: datagen segments repeated, zero
+    runs and short noise, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    parts, size, k = [], 0, 0
+    while size < n:
+        seg = gen_buffer(int(rng.integers(500, 3000)), 0.6, seed * 100 + k)
+        parts += [seg * int(rng.integers(5, 40)),
+                  bytes(int(rng.integers(100, 5000))),
+                  rng.integers(0, 256, int(rng.integers(10, 300)),
+                               dtype=np.uint8).tobytes()]
+        size += sum(map(len, parts[-3:]))
+        k += 1
+    return b"".join(parts)[:n]
+
+
+def _payloads(chunks, linked):
+    """Compressed blocks of ``chunks``; linked blocks match into the 64 KB
+    of content before them."""
+    out, prev = [], b""
+    for c in chunks:
+        out.append(compress_block(c, dict_=prev[-65536:] if linked else b""))
+        prev += c
+    return out
+
+
+def _assert_same(j_out, j_olen, t_out, t_olen):
+    """Equal olen, and equal bytes over the good blocks' total."""
+    j_olen = np.asarray(j_olen)
+    t_olen = t_olen.numpy()
+    assert (j_olen == t_olen).all(), (j_olen, t_olen)
+    total = int(t_olen[t_olen > 0].sum())
+    j_flat = np.asarray(j_out).astype(np.uint8).reshape(-1)[:total]
+    assert j_flat.tobytes() == t_out[:total].numpy().tobytes()
+    return t_out[:total].numpy().tobytes(), list(t_olen)
+
+
+# ---------------------------------------------------------------------------
+# decode_stream / decode_stream_raw against lz4_tpu's stream kernel
+# ---------------------------------------------------------------------------
+
+STREAM_CASES = {
+    # name: (block size, linked, chunk sizes)
+    "independent_256k": (256 * KB, False, [256 * KB, 256 * KB, 70_000]),
+    "linked_256k": (256 * KB, True, [256 * KB, 256 * KB, 70_000]),
+    "linked_1m": (1 << 20, True, [1 << 20, 150_000]),
+    # a flushed short mid-stream block keeps its successors' caps
+    "short_midstream": (256 * KB, False, [256 * KB, 1000, 256 * KB]),
+    "short_midstream_linked": (256 * KB, True, [256 * KB, 1000, 256 * KB]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+def test_decode_stream_matches_jax(case):
+    bs, linked, sizes = STREAM_CASES[case]
+    data = sparse_data(sum(sizes), len(case))
+    chunks, pos = [], 0
+    for n in sizes:
+        chunks.append(data[pos:pos + n])
+        pos += n
+    payloads = _payloads(chunks, linked)
+    want = jdec.decode_stream(payloads, bs, len(data), linked=linked)
+    got = tdec.decode_stream(payloads, bs, len(data), linked=linked,
+                             device=CPU)
+    content, olen = _assert_same(*want, *got)
+    assert content == data and olen == sizes
+
+
+def _raw_layout():
+    """A flat buffer of blocks at odd offsets: compressed, stored, an empty
+    compressed block, a literal run ending exactly at clen, a stored block
+    over its cap, one that reaches into the previous blocks, a truncated
+    one.  Returns (flat, bstart, clen, stored, caps, the blocks' bytes)."""
+    a = sparse_data(100_000, 41)
+    b = incompressible(1000, 5)
+    lit = b"exactly at clen!!!!!"
+    c = sparse_data(600, 42)
+    d = (a[-3000:] + sparse_data(30_000, 43))
+    blocks = [
+        (compress_block(a), False, 256 * KB),
+        (b, True, 256 * KB),
+        (b"", False, 256 * KB),
+        (chip_smoke.literal_head(len(lit)) + lit, False, 256 * KB),
+        (c, True, 500),
+        (compress_block(d, dict_=a + b + lit), False, 256 * KB),
+        (compress_block(a)[:-7], False, 256 * KB),
+    ]
+    flat = bytearray(b"\x07\x01\x02")
+    bstart, clen = [], []
+    for p, _, _ in blocks:
+        bstart.append(len(flat))
+        clen.append(len(p))
+        flat += p + b"\x55"
+    return (np.frombuffer(bytes(flat), np.uint8), bstart, clen,
+            [int(s) for _, s, _ in blocks], [c_ for _, _, c_ in blocks],
+            [a, b, None, lit, None, d, None])
+
+
+@pytest.mark.parametrize("linked", [False, True])
+def test_decode_stream_raw_matches_jax(linked):
+    flat, bstart, clen, stored, caps, plain = _raw_layout()
+    want = jdec.decode_stream_raw(flat, bstart, clen, stored, 256 * KB,
+                                  sum(caps), linked=linked, out_caps=caps)
+    got = tdec.decode_stream_raw(torch.from_numpy(flat.copy()), bstart, clen,
+                                 stored, 256 * KB, sum(caps), linked=linked,
+                                 out_caps=caps)
+    _, olen = _assert_same(*want, *got)
+    expect = [len(x) if x is not None else -1 for x in plain]
+    if not linked:
+        expect[5] = -1            # its first match reaches before the block
+    assert olen == expect
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_decode_stream_bit_flip_verdicts_match_jax(seed):
+    """A bit flip may still leave a valid stream: the verdict and the
+    decoded length equal lz4_tpu's, and the host oracle's."""
+    rng = np.random.default_rng(seed)
+    data = sparse_data(300_000, 9)
+    bs = 256 * KB
+    linked = bool(seed % 2)
+    payloads = [bytearray(p) for p in
+                _payloads([data[:bs], data[bs:]], linked)]
+    k = seed % 2
+    for _ in range(1 + seed):
+        i = int(rng.integers(len(payloads[k])))
+        payloads[k][i] ^= 1 << int(rng.integers(8))
+    payloads = [bytes(p) for p in payloads]
+    want = jdec.decode_stream(payloads, bs, len(data), linked=linked)
+    got = tdec.decode_stream(payloads, bs, len(data), linked=linked,
+                             device=CPU)
+    _, olen = _assert_same(*want, *got)
+    if k == 0:
+        try:
+            assert olen[0] == len(decompress_block(payloads[0], bs))
+        except Exception as exc:          # the oracle's own error type
+            assert olen[0] == -1, exc
+
+
+def test_decode_stream_noise_matches_jax():
+    rng = np.random.default_rng(11)
+    payloads = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+                for n in rng.integers(0, 3000, 12)]
+    for linked in (False, True):
+        want = jdec.decode_stream(payloads, 64 * KB, 0, linked=linked)
+        got = tdec.decode_stream(payloads, 64 * KB, 0, linked=linked,
+                                 device=CPU)
+        _assert_same(*want, *got)
+
+
+def test_decode_stream_checks_its_arguments(monkeypatch):
+    flat = torch.zeros(100, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="multiple of 64KB"):
+        tdec.decode_stream_raw(flat, [0], [10], [0], 1000, 0)
+    with pytest.raises(ValueError, match="inside flat"):
+        tdec.decode_stream_raw(flat, [95], [10], [0], 64 * KB, 0)
+    with pytest.raises(ValueError, match="one entry per block"):
+        tdec.decode_stream_raw(flat, [0, 5], [10], [0, 0], 64 * KB, 0)
+    with pytest.raises(ValueError, match="negative"):
+        tdec.decode_stream_raw(flat, [0], [1], [0], 64 * KB, 0,
+                               out_caps=[-1])
+    monkeypatch.setattr(tdec, "STREAM_MAX_INPUT", 99)
+    with pytest.raises(tdec.StreamEnvelopeError, match="int32"):
+        tdec.decode_stream_raw(flat, [0], [1], [0], 64 * KB, 0)
+
+
+def test_decode_stream_counts_plain_calls():
+    common.reset_counts()
+    tdec.decode_stream([compress_block(b"x" * 100)], 64 * KB, 100,
+                       device=CPU)
+    assert common.PLAIN_CALLS["decode_stream"] == 1
+    assert common.LAUNCHES["decode_stream"] == 0
+
+
+# ---------------------------------------------------------------------------
+# frames of large blocks, legacy files, fixtures
+# ---------------------------------------------------------------------------
+
+FRAME_CASES = [
+    # (block size id, independent, checksums)
+    (5, True, False), (5, False, True), (6, True, True), (6, False, False),
+    (7, True, True), (7, False, False)]
+
+
+def _host_frame(data, **kw):
+    c = FrameCompressor(JaxPrefs(**kw))
+    return c.begin() + c.update(data) + c.end()
+
+
+@pytest.mark.parametrize("bsid,independent,checksums", FRAME_CASES)
+def test_large_block_frames_match_jax(bsid, independent, checksums):
+    data = sparse_data(400_000, bsid) + incompressible(50_000, bsid)
+    frame = _host_frame(data, block_size_id=bsid,
+                        block_independent=independent,
+                        content_checksum=checksums, block_checksum=checksums,
+                        content_size=len(data) if checksums else None)
+    got = tdev.decompress_frame_device(frame + b"tail", device=CPU)
+    assert got == jtpu.decompress_frame_device(frame + b"tail") \
+        == (data, len(frame))
+
+
+def test_stored_block_over_block_size_is_accepted_like_jax():
+    """A stored block longer than block_size: lz4_tpu accepts it (its cap
+    is the stored length), and so does the port."""
+    big = incompressible(300 * KB, 9)
+    tail = sparse_data(50_000, 3)
+    prefs = FramePreferences(block_size_id=5, block_independent=True)
+    frame = (encode_frame_header(prefs)
+             + struct.pack("<I", len(big) | tspec.UNCOMPRESSED_BIT) + big
+             + chip_smoke.block_records([compress_block(tail)])
+             + struct.pack("<I", 0))
+    assert tdev.decompress_frame_device(frame, device=CPU) == \
+        jtpu.decompress_frame_device(frame) == (big + tail, len(frame))
+
+
+def test_corrupt_large_block_raises_frame_error_with_index():
+    """lz4_tpu raises DeviceLayoutUnsupported here and re-decodes on its
+    host; the port raises Lz4FrameError naming the block."""
+    data = sparse_data(600_000, 4)
+    frame = bytearray(_host_frame(data, block_size_id=5,
+                                  block_independent=True))
+    recs = chip_smoke.frame_payloads(bytes(frame), 7)
+    pos = 7 + 4 + len(recs[0][0]) + 4 + len(recs[1][0])
+    frame[pos + 4:pos + 8] = b"\x00\x00\x00\x00"    # block 2: offset 0
+    with pytest.raises(Lz4FrameError, match="block 2") as exc:
+        tdev.decompress_frame_device(bytes(frame), device=CPU)
+    assert not isinstance(exc.value, tdev.DeviceLayoutUnsupported)
+    with pytest.raises(jtpu.DeviceLayoutUnsupported, match="block 2"):
+        jtpu.decompress_frame_device(bytes(frame))
+
+
+def test_legacy_matches_jax():
+    data = sparse_data(300_000, 6)
+    frame = compress_legacy(data)
+    nxt = _host_frame(b"next", block_size_id=4)
+    got = tdev.decompress_legacy_device(frame + nxt, device=CPU)
+    assert got == jtpu.decompress_legacy_device(frame + nxt) \
+        == decompress_legacy(frame + nxt) == (data, len(frame))
+    with pytest.raises(Lz4FrameError, match="not a legacy frame"):
+        tdev.decompress_legacy_device(nxt, device=CPU)
+    with pytest.raises(Lz4FrameError, match="truncated legacy block"):
+        tdev.decompress_legacy_device(frame[:-10], device=CPU)
+
+
+@pytest.mark.parametrize("name", ["default.lz4", "hc9_b5_linked.lz4",
+                                  "legacy.lz4"])
+def test_fixture_files_decode_to_golden_input(name):
+    src = io.BytesIO((FX / name).read_bytes())
+    out = io.BytesIO()
+    tio.decompress_stream(src, out, tio.IoPrefs(), device=CPU)
+    assert out.getvalue() == (FX / "golden_input.bin").read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# lz4_tpu_torch.io against lz4_tpu.io (host codec)
+# ---------------------------------------------------------------------------
+
+def _io_inputs():
+    a = sparse_data(200_000, 21)
+    b = sparse_data(90_000, 22)
+    f1 = _host_frame(a, block_size_id=5, content_checksum=True)
+    f2 = _host_frame(b, block_size_id=4, block_independent=True)
+    leg = compress_legacy(b)
+    skip = make_skippable_frame(b"user data", 3)
+    return {
+        "concatenated": (f1 + f2 + f1, False),
+        "skippable": (skip + f2 + skip + f1, False),
+        "legacy_then_frame": (leg + f1, False),
+        "trailing_garbage": (f2 + b"\x01\x02\x03\x04garbage", False),
+        "trailing_short": (f2 + b"\x01\x02", False),
+        "pass_through": (b"not an lz4 stream at all", True),
+        "pass_through_short": (b"ab", True),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_io_inputs()))
+def test_decompress_stream_matches_jax_host(case):
+    data, pass_through = _io_inputs()[case]
+    j_out, t_out = io.BytesIO(), io.BytesIO()
+    want = jio.decompress_stream(io.BytesIO(data), j_out, jio.IoPrefs(
+        use_device=False, pass_through=pass_through))
+    got = tio.decompress_stream(io.BytesIO(data), t_out, tio.IoPrefs(
+        pass_through=pass_through), device=CPU)
+    assert got == want
+    assert t_out.getvalue() == j_out.getvalue()
+
+
+@pytest.mark.parametrize("data", [b"\x05\x06\x07\x08", b"\x01"])
+def test_decompress_stream_rejects_unknown_first_stream(data):
+    with pytest.raises(Lz4FrameError):
+        tio.decompress_stream(io.BytesIO(data), io.BytesIO(), tio.IoPrefs(),
+                              device=CPU)
+    with pytest.raises(JaxFrameError):
+        jio.decompress_stream(io.BytesIO(data), io.BytesIO(),
+                              jio.IoPrefs(use_device=False))
+
+
+def test_frame_past_the_stream_envelope_propagates(monkeypatch):
+    """lz4_tpu's io hands DeviceLayoutUnsupported to its host codec; the
+    port has none, so the error reaches the caller."""
+    frame = _host_frame(b"abc" * 1000, block_size_id=5)
+    monkeypatch.setattr(tdec, "STREAM_MAX_INPUT", len(frame) - 10)
+    with pytest.raises(tdev.DeviceLayoutUnsupported, match="int32"):
+        tio.decompress_stream(io.BytesIO(frame), io.BytesIO(), tio.IoPrefs(),
+                              device=CPU)
+
+
+@pytest.mark.parametrize("sparse", [True, False])
+def test_sparse_writer_file_bytes(tmp_path, sparse):
+    data = (b"head" + bytes(3 * 4096 + 17) + b"middle" + bytes(2 * 4096)
+            + b"x" * 5000 + bytes(4096 * 3))
+    for mod, name in ((tio, "port"), (jio, "jax")):
+        path = tmp_path / name
+        with open(path, "wb") as f:
+            w = mod.SparseWriter(f, sparse)
+            for i in range(0, len(data), 3000):
+                w.write(data[i:i + 3000])
+            w.close()
+            if w.enabled:
+                f.truncate(w.written)
+            assert w.written == len(data)
+    assert (tmp_path / "port").read_bytes() == data == \
+        (tmp_path / "jax").read_bytes()
+
+
+def test_decompress_filename_and_multiple(tmp_path):
+    data = sparse_data(150_000, 31) + bytes(20_000)
+    frame = _host_frame(data, block_size_id=6, content_checksum=True)
+    src = tmp_path / "a.bin.lz4"
+    src.write_bytes(frame)
+    prefs = tio.IoPrefs()
+    assert tio.decompress_filename(str(src), str(tmp_path / "out"), prefs,
+                                   device=CPU) == (len(frame), len(data))
+    assert (tmp_path / "out").read_bytes() == data
+    with pytest.raises(FileExistsError):
+        tio.decompress_filename(str(src), str(tmp_path / "out"), prefs,
+                                device=CPU)
+    test = dataclasses.replace(prefs, test_mode=True)
+    assert tio.decompress_filename(str(src), "", test, device=CPU) == \
+        (len(frame), len(data))
+    (tmp_path / "b.bin.lz4").write_bytes(b"garbage!")
+    (tmp_path / "c.txt").write_bytes(b"")
+    paths = [str(src), str(tmp_path / "b.bin.lz4"), str(tmp_path / "c.txt")]
+    assert tio.decompress_multiple(paths, prefs, device=CPU) == 2
+    assert (tmp_path / "a.bin").read_bytes() == data
+
+
+def test_progress_meter_writes_after_16mb(capsys, monkeypatch):
+    m = tio.ProgressMeter(tio.IoPrefs(), "Decoded", 64 << 20)
+    monkeypatch.setattr(m, "next_at", 0.0)
+    m.update(1 << 20, 0)                       # under 16 MB: silent
+    m.update(32 << 20, 16 << 20)
+    m.done()
+    err = capsys.readouterr().err
+    assert "Decoded : 32 MB (50.0%)  ==> 50.00%" in err
+    quiet = tio.ProgressMeter(tio.IoPrefs(verbosity=1), "Decoded")
+    quiet.update(32 << 20, 0)
+    assert capsys.readouterr().err == ""
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke's merging of 256 KB payloads into 4 MB / 8 MB blocks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("group", [2, 4])
+def test_merged_blocks_decode_to_their_content(group):
+    """Independent 256 KB payloads (and a stored one) merged into blocks of
+    ``group`` payloads, as chip_smoke builds its -B7 frames and legacy
+    files, decode through lz4_tpu's host decoder and the port."""
+    bs = 256 * KB
+    data = (sparse_data(3 * bs, 51) + incompressible(bs, 52)
+            + gen_buffer(bs, 0.7, 53) + b"z" * 1000)
+    prefs = JaxPrefs(block_size_id=5, block_independent=True)
+    frame = _host_frame(data, **dataclasses.asdict(prefs))
+    recs = chip_smoke.frame_payloads(frame, 7)
+    assert any(st for _, st in recs)
+    merged = chip_smoke.merged_blocks(recs, group)
+    assert len(merged) == -(-len(recs) // group)
+    for i, blk in enumerate(merged):
+        want = data[i * group * bs:(i + 1) * group * bs]
+        assert decompress_block(blk, len(want)) == want
+    legacy = (struct.pack("<I", jspec.LEGACY_MAGIC)
+              + chip_smoke.block_records(merged))
+    assert decompress_legacy(legacy) == (data, len(legacy))
+    assert tdev.decompress_legacy_device(legacy, device=CPU) == \
+        (data, len(legacy))
+    b7 = (encode_frame_header(FramePreferences(
+        block_size_id=7, block_independent=True))
+        + chip_smoke.block_records(merged) + struct.pack("<I", 0))
+    d = FrameDecompressor()
+    assert d.feed(b7) == (len(b7), data)
+    assert tdev.decompress_frame_device(b7, device=CPU) == (data, len(b7))
