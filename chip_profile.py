@@ -11,7 +11,10 @@ decompress_frame_device; for each stream cell (the files of chip_smoke.py's
 stream phase: a -B7 independent frame with a content checksum, a -B5
 linked frame, a legacy file, a 64 KB linked frame with flushed short
 blocks) it decodes the file through decompress_frame_device or
-decompress_legacy_device.  Each step runs twice: once untraced (wall time
+decompress_legacy_device; for each scatter-gather cell (chip_smoke.py's sg
+phase layouts over the first 16 MiB: 4 KB iovecs into 4 KB iovecs, and
+ragged iovecs) it runs lz4_tpu_torch.sg.sg_compress, then sg_decompress
+back into the input iovecs.  Each step runs twice: once untraced (wall time
 only) and once under torch.profiler with CUDA activity.  From the traced
 pass's Chrome trace it reports:
 
@@ -38,6 +41,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 CELLS = (("mm8", 8, False), ("mm4", 4, False), ("mm8_checksum", 8, True))
 STREAM_CELLS = ("b7", "b5_linked", "legacy", "flushed")  # chip_smoke files
+SG_CELLS = ("4k", "ragged")        # chip_smoke.sg_layouts
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -76,8 +80,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import real_text_corpus, stream_files
+    from chip_smoke import filled, real_text_corpus, sg_layouts, stream_files
     from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import sg
     from lz4_tpu_torch.frame import FramePreferences
     from lz4_tpu_torch.kernels import build
 
@@ -90,11 +95,14 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     build.kernels_lib()
     corpus = real_text_corpus(args.mib << 20)
-    mb = len(corpus) / 1e6
     warm = corpus[:16 << 20]
     prefs0 = FramePreferences(block_size_id=4)
     D.decompress_frame_device(D.compress_frame_device(warm, prefs0,
                                                       min_match=8))
+    w_ins = [warm[i:i + 4096] for i in range(0, 1 << 20, 4096)]
+    w_caps = [4096] * 272
+    w_total, _, w_outs = sg.sg_compress(w_ins, w_caps)
+    sg.sg_decompress(filled(w_outs, w_caps, w_total), [4096] * len(w_ins))
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -105,9 +113,11 @@ def main() -> int:
 
     results = {}
 
-    def measure(key, fn, want=None):
+    def measure(key, fn, want=None, content=None):
         """Run ``fn`` untraced, then traced; record the step under ``key``
-        and return its result (which must equal ``want`` when given)."""
+        and return its result (which must equal ``want`` when given).  MB/s
+        counts ``content`` bytes (the corpus by default)."""
+        mb = (len(corpus) if content is None else content) / 1e6
         res, wall = timed(fn)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -142,6 +152,19 @@ def main() -> int:
                   else D.decompress_frame_device)
         measure(f"stream_{name}/decompress", lambda: decode(files[name])[0],
                 corpus)
+    del files
+    layouts = sg_layouts(corpus)
+    for name in SG_CELLS:
+        _, ins, caps = layouts[name]
+        content = sum(map(len, ins))
+        total, _, outs = measure(f"sg_{name}/compress",
+                                 lambda: sg.sg_compress(ins, caps),
+                                 content=content)
+        results[f"sg_{name}/compress"]["ratio"] = total / content
+        comp = filled(outs, caps, total)
+        measure(f"sg_{name}/decompress",
+                lambda: sg.sg_decompress(comp, [len(b) for b in ins])[1],
+                ins, content=content)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "corpus_bytes": len(corpus), "cells": results}))
     return 0

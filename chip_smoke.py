@@ -13,6 +13,12 @@
    4 MB block, stored blocks, a flushed chain with short mid-stream blocks,
    corrupted payloads, noise) in both modes, and timed on a 4 MB block in
    three alternating rounds of the two modes and on the 64 MiB -B7 frame.
+   Kernels G (the SG chain encoder) and F (the SG chain decoder) are held
+   against their plain versions on small lists (4 KB, 64 KB and ragged
+   iovecs, min_match 8, acceleration 2, small caps that force capacity
+   stops and zero-pads, mixed bytes; corrupted payloads and noise as SG
+   chains) and at every launch step 7 makes, and timed on the '4k' walk
+   and its chain in three rounds each.
 4. Runs the main path at full size: a 64 MiB real-text corpus (the Python
    stdlib sources, built the way bench.py builds its corpus) through
    compress_frame_device and decompress_frame_device, at min_match=8 /
@@ -34,11 +40,20 @@
    The -B7 and legacy files merge kernel B's 256 KB payloads into 4 MB and
    8 MB blocks (``merge_payloads``): nothing on the card host writes
    larger blocks.
-7. Decodes a 1 MB frame written by the kernels with the plain versions.
+7. The scatter-gather path, with its own counter reset and read: the first
+   16 MiB of the corpus as 4 KB iovecs into 4 KB iovecs ('4k'), as ragged
+   iovecs ('ragged'), and the first 4 MiB as 256 KB iovecs into one buffer
+   ('large', written over kernel B, decoded by kernel E), each through
+   lz4_tpu_torch.sg.sg_compress and sg_decompress on the card, byte-exact;
+   the '4k' and 'ragged' frames also through decompress_frame_device (every
+   SG frame is an LZ4F frame).  Kernels G, F and E must launch, and no
+   plain version run.
+8. Decodes a 1 MB frame written by the kernels with the plain versions.
 
 Prints a JSON line of the kernels (each with the launch count of the phase
-that drives it, and every phase's counts), then, as its last line,
-{"ok": true, "device": {...}}.  Exits non-zero on any failure, and when no
+that drives it, every phase's counts, its time on the card, its plain
+version's, and its bound: the bytes the timed call must read and write at
+3.35 TB/s), then, as its last line, {"ok": true, "device": {...}}.  Exits non-zero on any failure, and when no
 card is present.  Writes nothing outside build/ (the kernel library and
 the temporary directory of step 6).
 """
@@ -58,7 +73,7 @@ MAIN_POINTS = ((8, 1, False), (4, 1, False), (8, 1, True))
 
 # name -> (route, source, the Pallas launch it replaces, the phase whose
 # launch count it reports: "main" = step 4, "entry" = step 5, "stream" =
-# step 6)
+# step 6, "sg" = step 7)
 KERNELS = {
     "encode_linked": ("cuda", "lz4_tpu_torch/csrc/encode.cu",
                       "lz4_tpu/kernels/encode_kernel.py:744", "main"),
@@ -72,6 +87,10 @@ KERNELS = {
                      "lz4_tpu/kernels/decode_kernel.py:834", "entry"),
     "decode_stream": ("cuda", "lz4_tpu_torch/csrc/stream.cu",
                       "lz4_tpu/kernels/decode_kernel.py:1636", "stream"),
+    "decode_sg": ("cuda", "lz4_tpu_torch/csrc/sg_decode.cu",
+                  "lz4_tpu/kernels/decode_kernel.py:889", "sg"),
+    "sg_encode_chain": ("cuda", "lz4_tpu_torch/csrc/sg_chain.cu",
+                        "lz4_tpu/kernels/destsize_kernel.py:594", "sg"),
 }
 
 
@@ -404,6 +423,177 @@ def stream_phase(files: dict, corpus: bytes, dev, fixtures: Path,
         f"file: {mb / dt:.1f} MB/s ({dt:.3f} s) file to file, byte-exact")
 
 
+# -- the scatter-gather path (kernels G and F): layouts, cases, the phase -----
+SG_BYTES = 16 << 20                # the sg phase's content: the corpus head
+SG_IOVEC = 4096
+SG_LARGE_BYTES, SG_LARGE_IOVEC = 4 << 20, 256 << 10
+
+
+def ragged_iovecs(data: bytes, seed: int, max_in: int, min_cap: int,
+                  max_cap: int, room: float):
+    """Input iovecs of 1..max_in bytes over ``data`` and output caps in
+    min_cap..max_cap (the first at least SG_MIN_FIRST_OUT) until they hold
+    ``room`` times the content, from ``random.Random(seed)``."""
+    import random
+
+    from lz4_tpu_torch import spec
+    rng = random.Random(seed)
+    ins, pos = [], 0
+    while pos < len(data):
+        n = min(rng.randint(1, max_in), len(data) - pos)
+        ins.append(data[pos:pos + n])
+        pos += n
+    caps = []
+    while sum(caps) < room * len(data) + 65536:
+        caps.append(rng.randint(min_cap, max_cap))
+    caps[0] = max(caps[0], spec.SG_MIN_FIRST_OUT)
+    return ins, caps
+
+
+def sg_layouts(corpus: bytes) -> dict:
+    """The sg phase's layouts over the head of the corpus: name -> (what,
+    input iovecs, output caps).  '4k': 4 KB input iovecs into 17/16 as
+    many 4 KB output iovecs (the fork's sgtest pattern, 16 x 4 KB -> 17 x
+    4 KB, scaled up); 'ragged': test_sg.py's fuzz distribution (inputs of
+    1..80,000 bytes, outputs of 10..90,000) over the same bytes; 'large':
+    16 iovecs of 256 KB into one output buffer (blocks over 64 KB)."""
+    from lz4_tpu_torch import spec
+    data = corpus[:SG_BYTES]
+    n = len(data) // SG_IOVEC
+    large = corpus[:SG_LARGE_BYTES]
+    return {
+        "4k": (f"{n} x 4 KB -> {n * 17 // 16} x 4 KB",
+               [data[i:i + SG_IOVEC] for i in range(0, len(data), SG_IOVEC)],
+               [SG_IOVEC] * (n * 17 // 16)),
+        "ragged": ("ragged iovecs", *ragged_iovecs(
+            data, 0xD57, 80_000, spec.SG_MIN_OUT_BUF, 90_000, 1.125)),
+        "large": (f"{len(large) // SG_LARGE_IOVEC} x 256 KB -> one buffer",
+                  [large[i:i + SG_LARGE_IOVEC]
+                   for i in range(0, len(large), SG_LARGE_IOVEC)],
+                  [len(large) + 65536]),
+    }
+
+
+def kernel_b_dest_size(dev):
+    """A destSize compressor over kernel B for the 'large' layout: the whole
+    piece as one independent block (up to 256 KB), or (0, b"") when that
+    block does not fit.  An independent block is valid in a linked frame;
+    nothing on the card host writes SG blocks over 64 KB otherwise, since
+    the chain encoder caps a step at 64 KB."""
+    from lz4_tpu_torch import device as D
+
+    def compress(src, capacity, dict_, acceleration):
+        rows, lens = D.encode_batch([src], block_size=SG_LARGE_IOVEC,
+                                    acceleration=acceleration, device=dev)
+        block = rows[0, :int(lens[0])].tobytes()
+        return (len(src), block) if len(block) <= capacity else (0, b"")
+
+    return compress
+
+
+def filled(outs, caps, total):
+    """The filled prefix of an SG output list (what a caller sends on)."""
+    got, rem = [], total
+    for b, c in zip(outs, caps):
+        if rem <= 0:
+            break
+        got.append(b[:min(c, rem)])
+        rem -= min(c, rem)
+    return got
+
+
+def sg_chain_cases(text: bytes, mixed: bytes):
+    """Kernel G's inputs at small sizes: (what, input iovecs, output caps,
+    acceleration, min_match)."""
+    def cut(data, n):
+        return [data[i:i + n] for i in range(0, len(data), n)]
+
+    ragged = ragged_iovecs(text[:1 << 20], 5, 80_000, 10, 90_000, 1.25)
+    stops = ragged_iovecs(text[:200_000], 7, 9_000, 10, 400, 1.5)
+    return [
+        ("16 x 4 KB -> 17 x 4 KB", cut(text[:W], 4096), [4096] * 17, 1, 4),
+        ("16 x 64 KB -> 20 x 60,000", cut(text[:16 * W], W), [60_000] * 20,
+         1, 4),
+        ("ragged 1 MB", *ragged, 1, 4),
+        ("16 x 4 KB, min_match 8", cut(text[W:2 * W], 4096), [4096] * 17,
+         1, 8),
+        ("16 x 64 KB, acceleration 2", cut(text[:16 * W], W),
+         [70_000] * 16, 2, 4),
+        ("small caps: capacity stops and zero-pads", *stops, 1, 4),
+        ("mixed bytes, 8 KB -> 9,000", cut(mixed, 8192),
+         [9000] * (len(mixed) // 8192 + 2), 1, 4),
+    ]
+
+
+def sg_phase(layouts: dict, dev, log_times: dict) -> None:
+    """The scatter-gather path at full size, through the entry points a
+    user calls: every layout through lz4_tpu_torch.sg.sg_compress, then
+    sg_decompress back into the input iovecs, byte-exact; the '4k' and
+    'ragged' frames also through decompress_frame_device.  Records MB/s and
+    the host walk's share in ``log_times``."""
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import sg
+
+    for name, (what, ins, caps) in layouts.items():
+        content = b"".join(ins)
+        mb = len(content) / 1e6
+        codec = kernel_b_dest_size(dev) if name == "large" else None
+        t0 = time.perf_counter()
+        total, consumed, outs = sg.sg_compress(ins, caps,
+                                               dest_size_compress=codec,
+                                               device=dev)
+        t_c = time.perf_counter() - t0
+        if consumed != len(content) or total <= 0:
+            raise SmokeFailure(f"sg phase: {what} compressed {consumed} of "
+                               f"{len(content)} bytes")
+        comp = filled(outs, caps, total)
+        sizes = [len(b) for b in ins]
+        t0 = time.perf_counter()
+        n, dec = sg.sg_decompress(comp, sizes, device=dev)
+        t_d = time.perf_counter() - t0
+        if n != len(content) or dec != ins:
+            raise SmokeFailure(f"sg phase: {what} does not round-trip")
+        # the host walks alone: the compress walk replaying the chain
+        # encoder's records, and the decode walk collecting the chain
+        walk_c = None
+        if codec is None:
+            t0 = time.perf_counter()
+            scripted = sg._sg_device_scripted(ins, caps, None, None, 1, dev)
+            t1 = time.perf_counter()
+            if sg.sg_compress(ins, caps, dest_size_compress=scripted) != \
+                    (total, consumed, outs):
+                raise SmokeFailure(f"sg phase: {what} replays differently")
+            walk_c = time.perf_counter() - t1
+        t0 = time.perf_counter()
+        sg.collect_chain(comp, sizes)
+        walk_d = time.perf_counter() - t0
+        line = (f"[sg] {what}: {total} bytes (ratio "
+                f"{total / len(content):.6f}), sg_compress {mb / t_c:.1f} MB/s "
+                f"({t_c:.3f} s"
+                + (f", host walk {walk_c:.3f} s = {walk_c / t_c:.1%}"
+                   if walk_c is not None else ", kernel B per block")
+                + f"), sg_decompress {mb / t_d:.1f} MB/s ({t_d:.3f} s, host "
+                f"walk {walk_d:.3f} s = {walk_d / t_d:.1%}), byte-exact")
+        if name != "large":
+            frame = b"".join(comp)
+            t0 = time.perf_counter()
+            out, used = D.decompress_frame_device(frame, device=dev)
+            t_f = time.perf_counter() - t0
+            if out != content or used != len(frame):
+                raise SmokeFailure(f"sg phase: the {what} frame does not "
+                                   "decode as an LZ4F frame")
+            line += (f"; as one LZ4F frame through decompress_frame_device "
+                     f"{mb / t_f:.1f} MB/s, byte-exact")
+        log(line)
+        log_times[name] = {"compress_s": t_c, "decompress_s": t_d,
+                           "compress_walk_s": walk_c, "decompress_walk_s":
+                           walk_d, "frame_bytes": total,
+                           "content_bytes": len(content)}
+
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 rate (NVIDIA data sheet)
+
+
 def main() -> int:
     import torch
 
@@ -413,9 +603,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import sg
     from lz4_tpu_torch.frame import FramePreferences
     from lz4_tpu_torch.kernels import build, common
     from lz4_tpu_torch.kernels import decode_kernel as dec
+    from lz4_tpu_torch.kernels import destsize_kernel as dsk
     from lz4_tpu_torch.kernels import encode_kernel as enc
     from lz4_tpu_torch.kernels.pack_kernel import pack_frame_payloads
 
@@ -436,8 +628,17 @@ def main() -> int:
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    stats = {k: {"max_abs_err": 0, "ms": None, "plain_ms": None}
-             for k in KERNELS}
+    stats = {k: {"max_abs_err": 0, "ms": None, "plain_ms": None,
+                 "library_ms": None} for k in KERNELS}
+
+    def set_bound(kernel, bytes_in, bytes_out):
+        """The least time of the timed call: its inputs read once and its
+        outputs written once at the card's memory rate (no PyTorch call
+        computes an LZ4 codec, so library_ms stays null)."""
+        stats[kernel].update(
+            bytes_in=int(bytes_in), bytes_out=int(bytes_out),
+            bound_ms=(int(bytes_in) + int(bytes_out)) / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes")
 
     def cmp_rows(kernel, what, k_out, k_olen, p_out, p_olen):
         """Exact comparison of out[:olen] rows and olen; records the max
@@ -539,6 +740,10 @@ def main() -> int:
         lambda: enc.scan_linked(*cpu))
     k = enc.scan_linked(*card)
     cmp_rows("encode_linked", "64 blocks mm=8 (main-path chunk)", *k, *p)
+    # the window and chunk, the candidate and jump tables, the lengths
+    set_bound("encode_linked", card[0].numel() + 4 * (
+        card[3].numel() + card[4].numel() + card[1].numel() + 1),
+        int(k[1].sum()))
     stream_d = card[0]
     t_tab = time_card(lambda: enc.linked_tables(stream_d, 64, 8,
                                                 card[2]))
@@ -557,6 +762,7 @@ def main() -> int:
         lambda: pack_frame_payloads(a_out.reshape(64, -1).cpu(),
                                     a_olen.reshape(64).cpu(),
                                     blocks_d.cpu(), lens64))
+    set_bound("pack", int(a_olen.sum()) + 2 * 4 * 64, int(k_total))
     # a stored block and a padding row, too
     olen_mix = a_olen.reshape(64).clone()
     olen_mix[3] = W + 5
@@ -586,6 +792,8 @@ def main() -> int:
             a_out.reshape(64, -1).cpu(), a_olen.reshape(64).cpu(), W,
             win_d.cpu(), W))
     cmp_rows("decode_linked", "64-block chain with init window", *k, *p)
+    set_bound("decode_linked", int(a_olen.sum()) + W + 4 * 64,
+              int(k[1].sum()))
     if k[0].cpu().reshape(-1).numpy().tobytes() != chunk:
         raise SmokeFailure("linked decode of kernel A's chunk is not the "
                            "chunk")
@@ -616,6 +824,9 @@ def main() -> int:
         else:
             p = enc.scan_blocks(*cpu_b)
         k = enc.scan_blocks(*card_b)
+        if mm == 8:
+            set_bound("encode", int(blens.sum()) + 4 * (
+                delta.numel() + jump.numel() + 64), int(k[1].sum()))
         cmp_rows("encode", f"64 rows of <= 64 KB mm={mm}", *k, *p)
     b_out, b_olen = k
     db_args = (b_out, b_olen, W)
@@ -625,6 +836,8 @@ def main() -> int:
     p, stats["decode_batch"]["plain_ms"] = time_host(
         lambda: dec.decode_blocks(b_out.cpu(), b_olen.cpu(), W))
     cmp_rows("decode_batch", "kernel B's 64 rows", *k, *p)
+    set_bound("decode_batch", int(b_olen.sum()) + 4 * 64,
+              int(k[1].clamp(min=0).sum()))
 
     # corrupted streams: truncations, bit flips, length bombs, bad offsets
     gen = torch.Generator().manual_seed(1234)
@@ -762,6 +975,7 @@ def main() -> int:
         cmp_stream(f"one 4 MB block (timed), "
                    f"{'linked' if linked else 'independent'}", k, p)
     stats["decode_stream"]["plain_ms"] = plain_ms[True]
+    set_bound("decode_stream", n7[0] + 16, MB4 + 4)
     stats["decode_stream"]["plain_ms_independent"] = plain_ms[False]
     t16 = time_card(lambda: dec.decode_stream_raw(
         b7_d, s7, n7, d7, MB4, 0, linked=False))
@@ -779,6 +993,147 @@ def main() -> int:
     log("[time] decode_stream plain version, whole files: " + ", ".join(
         f"{f} {t:.1f} ms" for f, t in plain_full.items()))
     del b7_d, b7_h, launches
+
+    # -- 3g. kernels G and F: small cases, every sg-phase launch, times -----
+    def cmp_chain(what, k, p):
+        """Exact comparison of two sg_encode_chain results: every step's
+        boff, blen, consumed, isz and osz, and the block bytes."""
+        torch.cuda.synchronize()
+        (kb, *kr), (pb, *pr) = k, p
+        err = max(int((a.cpu().long() - b.long()).abs().max())
+                  for a, b in zip(kr, pr))
+        if len(pb):
+            err = max(err, int((kb[:len(pb)].cpu().int() - pb.int())
+                               .abs().max()))
+        stats["sg_encode_chain"]["max_abs_err"] = max(
+            stats["sg_encode_chain"]["max_abs_err"], err)
+        log(f"[compare] {'sg_encode_chain':14s} {what}: steps="
+            f"{int((pr[1] >= 0).sum())} of {len(pr[1])} block bytes="
+            f"{len(pb)} max_abs_err={err}")
+        if err:
+            raise SmokeFailure(f"sg_encode_chain disagrees with its plain "
+                               f"version on {what}")
+
+    def cmp_sg(what, k, p):
+        """Exact comparison of two decode_blocks_sg_raw results: olen and
+        every output byte (both start from zeros)."""
+        torch.cuda.synchronize()
+        (k_out, k_olen), (p_out, p_olen) = k, p
+        err = int((k_olen.cpu().long() - p_olen.long()).abs().max())
+        if len(p_out):
+            err = max(err, int((k_out.cpu().int() - p_out.int()).abs().max()))
+        stats["decode_sg"]["max_abs_err"] = max(
+            stats["decode_sg"]["max_abs_err"], err)
+        log(f"[compare] {'decode_sg':14s} {what}: blocks={len(p_olen)} "
+            f"rejected={int((p_olen < 0).sum())} bytes={len(p_out)} "
+            f"max_abs_err={err}")
+        if err:
+            raise SmokeFailure(f"decode_sg disagrees with its plain version "
+                               f"on {what}")
+
+    def chain_args(ins, caps, acc=1, mm=4):
+        """sg_encode_chain's arguments for a list, on the card and on the
+        CPU, as sg_compress makes them."""
+        flat_h, ends = dsk.sg_chain_input(ins, "cpu")
+        rest = (ends, caps, sum(caps), acc, mm)
+        return (flat_h.to(cuda), *rest), (flat_h, *rest)
+
+    def sg_chain_of(ins, caps):
+        """(payloads, sizes) of the chain in the frame the card writes for
+        a list, as sg_decompress collects them."""
+        total, _, outs = sg.sg_compress(ins, caps, device=cuda)
+        _, payloads, sizes = sg.collect_chain(filled(outs, caps, total),
+                                              [len(b) for b in ins])
+        return payloads, sizes
+
+    def sg_decode_args(payloads, sizes):
+        """decode_blocks_sg_raw's arguments, on the card and on the CPU."""
+        flat, bstart, clen = dec.join_payloads(payloads, "cpu")
+        return (flat.to(cuda), bstart, clen, sizes), (flat, bstart, clen,
+                                                      sizes)
+
+    def time_rounds(fn, rounds=3):
+        """CUDA-event ms of ``rounds`` single launches."""
+        out = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b))
+        return out
+
+    mixed_sg = mixed_bytes(600_000, corpus[:1 << 20], 77)
+    for what, ins, caps, acc, mm in sg_chain_cases(corpus, mixed_sg):
+        card, cpu = chain_args(ins, caps, acc, mm)
+        cmp_chain(what, dsk.sg_encode_chain(*card), dsk.sg_encode_chain(*cpu))
+        if (acc, mm) == (1, 4):         # the frames sg_compress writes
+            kf, pf = sg_decode_args(*sg_chain_of(ins, caps))
+            cmp_sg(what, dec.decode_blocks_sg_raw(*kf),
+                   dec.decode_blocks_sg_raw(*pf))
+    for what, rows, sizes in (("48 corrupted streams", comp_rows, [W] * 48),
+                              ("64 payloads of noise", noise_rows,
+                               [4096] * 64)):
+        kf, pf = sg_decode_args(rows, sizes)
+        cmp_sg(f"{what} as an SG chain", dec.decode_blocks_sg_raw(*kf),
+               dec.decode_blocks_sg_raw(*pf))
+    # every launch of G and F the sg phase makes, on the whole layout
+    layouts = sg_layouts(corpus)
+    sg_plain, timed = {}, {}
+    for lay in ("4k", "ragged"):
+        what, ins, caps = layouts[lay]
+        card, cpu = chain_args(ins, caps)
+        k = dsk.sg_encode_chain(*card)
+        p, sg_plain[f"G {lay}"] = time_host(
+            lambda: dsk.sg_encode_chain(*cpu))
+        cmp_chain(f"{what} (the sg phase's launch)", k, p)
+        payloads, sizes = sg_chain_of(ins, caps)
+        kf, pf = sg_decode_args(payloads, sizes)
+        k2 = dec.decode_blocks_sg_raw(*kf)
+        p2, sg_plain[f"F {lay}"] = time_host(
+            lambda: dec.decode_blocks_sg_raw(*pf))
+        cmp_sg(f"{what} (the sg phase's launch)", k2, p2)
+        if lay == "4k":
+            T = len(p[1])
+            # content, input ends and caps in; blocks and step records out
+            set_bound("sg_encode_chain", len(cpu[0]) - dsk.TAIL
+                      + 4 * (len(cpu[1]) + len(caps)),
+                      len(p[0]) + T * (8 + 4 * 4))
+            # payloads and per-block offsets, lengths and caps in; content
+            # and olen out
+            set_bound("decode_sg", sum(map(len, payloads))
+                      + len(sizes) * (8 + 8 + 4 + 4),
+                      sum(sizes) + 4 * len(sizes))
+            timed = {"G": card, "F": kf}
+        del k, p, k2, p2
+    what, ins, caps = layouts["large"]
+    total, _, outs = sg.sg_compress(ins, caps, device=cuda,
+                                    dest_size_compress=kernel_b_dest_size(
+                                        cuda))
+    _, payloads, sizes = sg.collect_chain(filled(outs, caps, total),
+                                          [len(b) for b in ins])
+    args = (-(-max(sizes) // W) * W, total, True, sizes)
+    cmp_stream(f"{what} (the sg phase's launch)",
+               dec.decode_stream(payloads, *args, device=cuda),
+               dec.decode_stream(payloads, *args, device="cpu"))
+    g_ms = time_rounds(lambda: dsk.sg_encode_chain(*timed["G"]))
+    f_ms = time_rounds(lambda: dec.decode_blocks_sg_raw(*timed["F"]))
+    for kname, rounds, tag in (("sg_encode_chain", g_ms, "G"),
+                               ("decode_sg", f_ms, "F")):
+        stats[kname].update(ms=sorted(rounds)[1], ms_rounds=rounds,
+                            plain_ms=sg_plain[f"{tag} 4k"],
+                            plain_ms_ragged=sg_plain[f"{tag} ragged"])
+    mb = SG_BYTES / 1e3
+    log(f"[time] sg_encode_chain, {layouts['4k'][0]} walk: rounds "
+        f"{[round(t, 3) for t in g_ms]} ms ({mb / sorted(g_ms)[1]:.1f} "
+        f"MB/s); decode_blocks_sg_raw on its chain: rounds "
+        f"{[round(t, 3) for t in f_ms]} ms ({mb / sorted(f_ms)[1]:.1f} "
+        f"MB/s); plain versions: " + ", ".join(
+            f"{k} {t:.1f} ms" for k, t in sg_plain.items()))
+    del timed
 
     def phase_counts(phase, need):
         """Read the counters after a phase: every kernel in ``need`` must
@@ -839,7 +1194,8 @@ def main() -> int:
         log(f"[entry] {what}: ratio {len(frame) / len(data):.6f}, "
             f"round trip byte-exact")
     counts["entry"] = phase_counts(
-        "entry points", [k for k, v in KERNELS.items() if v[3] != "stream"])
+        "entry points",
+        [k for k, v in KERNELS.items() if v[3] in ("main", "entry")])
 
     # -- 6. the stream path at full size -------------------------------------
     common.reset_counts()
@@ -849,7 +1205,15 @@ def main() -> int:
                                     ["decode_stream", "decode_linked"])
     del files
 
-    # -- 7. the plain decoder reads a frame the kernels wrote -----------------
+    # -- 7. the scatter-gather path at full size ----------------------------
+    common.reset_counts()
+    sg_times = {}
+    sg_phase(layouts, cuda, sg_times)
+    counts["sg"] = phase_counts("sg path", ["sg_encode_chain", "decode_sg",
+                                            "decode_stream"])
+    del layouts
+
+    # -- 8. the plain decoder reads a frame the kernels wrote -----------------
     data = corpus[8 << 20:9 << 20]
     frame = D.compress_frame_device(data, FramePreferences(block_size_id=4),
                                     min_match=8)
@@ -857,12 +1221,16 @@ def main() -> int:
         raise SmokeFailure("plain decoder disagrees on a kernel-written frame")
     log("[check] plain decoder reads a 1 MB frame written by the kernels")
 
+    unbound = [k for k in KERNELS if "bound_ms" not in stats[k]]
+    if unbound:
+        raise SmokeFailure(f"no bound computed for {unbound}")
     report = {"kernels": [
         {"name": k, "route": route, "source": src, "replaces": rep,
          "launches": counts[phase][k], "counted_in": phase,
          "launches_by_phase": {p: c[k] for p, c in counts.items()},
          **stats[k]}
-        for k, (route, src, rep, phase) in KERNELS.items()]}
+        for k, (route, src, rep, phase) in KERNELS.items()],
+        "sg_phase": sg_times}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

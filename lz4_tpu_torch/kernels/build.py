@@ -6,9 +6,8 @@
   library with a plain C interface (no PyTorch headers, so the build takes
   seconds).  Each C entry point launches its kernels on the stream it is
   given and returns ``cudaGetLastError()``.
-* Host helpers compiled with ``cc`` (the one-shot XXH32 of
-  ``native/lz4t_native.c`` and the streaming rounds of
-  ``csrc/xxh32_stream.c``).
+* Host helpers compiled with ``cc`` (the one-shot XXH32 and the streaming
+  rounds of ``csrc/xxh32_stream.c``).
 
 Outputs go to ``build/lz4_tpu_torch/`` beside the package (listed in
 ``.gitignore``), named by a hash of their sources and flags, so an edited
@@ -49,6 +48,9 @@ _SIGNATURES = {
     "lz4tt_decode_linked": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P],
     "lz4tt_decode_batch": [_P, _I, _P, _P, _P, _I, _P, _I, _P],
     "lz4tt_decode_stream": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "lz4tt_decode_sg": [_P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "lz4tt_sg_encode_chain": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _P],
 }
 
 _kernels = None

@@ -1,8 +1,8 @@
-"""Safe LZ4 block decoders: kernel D, in two modes, and the stream decoder
-(kernel E).
+"""Safe LZ4 block decoders: kernel D, in two modes, the stream decoder
+(kernel E) and the scatter-gather chain decoder (kernel F).
 
 Counterpart of ``lz4_tpu/kernels/decode_kernel.py`` (``_make_decode_kernel``
-in modes ``linked`` and ``batch``, without dictionary rows and not
+in modes ``linked``, ``batch`` and ``sg``, without dictionary rows and not
 resumable, and ``_make_stream_decode_kernel``).  The block semantics are
 those of the JAX kernels' general path:
 
@@ -18,10 +18,13 @@ and empty otherwise; block 0 may take an initial window.
 ``decode_blocks`` decodes independent rows.  ``decode_stream_raw`` (and
 ``decode_stream`` over a list of payloads) decodes one frame's chain of any
 block size into one flat output (see ``decode_stream_plain``).
+``decode_blocks_sg_raw`` (and ``decode_blocks_sg`` over [B, M] rows) decodes
+an SG frame's blocks into one continuous output at fixed offsets (see
+``decode_blocks_sg_plain``).
 
-Each wrapper launches ``csrc/decode.cu`` (D) or ``csrc/stream.cu`` (E) for
-tensors on the card and runs the plain Python decoder below for tensors on
-the CPU.
+Each wrapper launches ``csrc/decode.cu`` (D), ``csrc/stream.cu`` (E) or
+``csrc/sg_decode.cu`` (F) for tensors on the card and runs the plain Python
+decoder below for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -346,11 +349,116 @@ def decode_stream(payloads: Sequence[bytes], block_size: int,
     """``decode_stream_raw`` over a list of compressed payloads in stream
     order (stored blocks wrapped as literal-only blocks by the caller),
     joined into one buffer on ``device``.  Same returns."""
+    flat, bstart, clen = join_payloads(payloads, device)
+    return decode_stream_raw(flat, bstart, clen, np.zeros_like(clen),
+                             block_size, content_cap, linked,
+                             out_caps=out_caps)
+
+
+def join_payloads(payloads: Sequence[bytes], device):
+    """Payloads joined into one uint8 tensor on ``device``, with each one's
+    offset and length (int64 numpy [B])."""
     payloads = [bytes(p) for p in payloads]
     clen = np.array([len(p) for p in payloads], np.int64)
     bstart = np.concatenate([[0], np.cumsum(clen)[:-1]]) if len(clen) \
         else clen
-    flat = to_device(b"".join(payloads), device)
-    return decode_stream_raw(flat, bstart, clen, np.zeros_like(clen),
-                             block_size, content_cap, linked,
-                             out_caps=out_caps)
+    return to_device(b"".join(payloads), device), bstart, clen
+
+
+# ---------------------------------------------------------------------------
+# kernel F: the scatter-gather chain decoder
+# ---------------------------------------------------------------------------
+
+SG_BLOCK_CAP = 65536       # no SG chain block decodes past 64 KB here
+
+
+def decode_blocks_sg_plain(flat: bytes, bstart: Sequence[int],
+                           clen: Sequence[int], sizes: Sequence[int]
+                           ) -> Tuple[bytes, List[int]]:
+    """Plain version of kernel F, with the semantics of the TPU kernel in
+    mode ``sg``: block k (``clen[k]`` bytes at ``flat[bstart[k]:]``) decodes
+    into one continuous output at ``cum[k] = sum(sizes[:k])``, into at most
+    ``sizes[k]`` bytes, with the 64 KB of that output just before ``cum[k]``
+    as its window (across block boundaries).  A failed block reports -1 and
+    keeps the bytes it wrote before the failing sequence; it moves no later
+    block.  Returns (the output, sum(sizes) bytes, zero where nothing was
+    written; olen per block)."""
+    out = bytearray(sum(sizes))
+    olen = []
+    cum = 0
+    for s, n, cap in zip(bstart, clen, sizes):
+        window = bytes(out[max(cum - MAX_OFFSET, 0):cum])
+        r, dec = decode_block_plain(flat[s:s + n], n, cap, window)
+        out[cum:cum + len(dec)] = dec
+        olen.append(r)
+        cum += cap
+    return bytes(out), olen
+
+
+def decode_blocks_sg_raw(flat: torch.Tensor, bstart, clen, out_sizes):
+    """Decode an SG chain: kernel F on the card, the plain version on the
+    CPU.
+
+    Args:
+      flat: [L] uint8 buffer holding every payload.
+      bstart, clen: per-block byte offset into ``flat`` and payload length
+        (sequences or tensors); every block must lie inside ``flat``.
+      out_sizes: per-block decoded sizes, each at most 64 KB: block k's
+        output starts at ``sum(out_sizes[:k])`` and may not pass its size.
+
+    Returns (out [sum(out_sizes)] uint8: the continuous content from byte
+    0, olen [B] int32; -1 = malformed), on ``flat``'s device.  Bytes of a
+    block that failed are not part of the result.
+    """
+    check(flat, "flat", torch.uint8, 1)
+    bstart = _host_ints(bstart, "bstart")
+    B = len(bstart)
+    clen = _host_ints(clen, "clen", B)
+    sizes = _host_ints(out_sizes, "out_sizes", B)
+    L = flat.shape[0]
+    if (bstart < 0).any() or (clen < 0).any() or (bstart + clen > L).any():
+        raise ValueError("every block must lie inside flat")
+    if (sizes < 0).any() or (sizes > SG_BLOCK_CAP).any():
+        raise ValueError("sg kernel blocks are limited to 64KB outputs")
+    total = int(sizes.sum())
+    N = -(-max(int(sizes.max(initial=1)), 1) // 128) * 128
+    if total + 65536 + N + 256 >= 2 ** 31 or L >= 2 ** 31:
+        # the JAX kernel's int32 addressing limit, kept as the envelope
+        raise ValueError("decode_blocks_sg output space exceeds the "
+                         "kernel's int32 addressing limit")
+    if not use_kernel(flat):
+        PLAIN_CALLS["decode_sg"] += 1
+        data, olen = decode_blocks_sg_plain(
+            flat.numpy().tobytes(), bstart.tolist(), clen.tolist(),
+            sizes.tolist())
+        return to_device(data, "cpu"), torch.tensor(olen, dtype=torch.int32)
+    dev = flat.device
+    # zeroed, like the plain version: a failed block's unwritten bytes (and
+    # the windows that reach them) read zeros in both
+    out = torch.zeros((total,), dtype=torch.uint8, device=dev)
+    olen = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out, olen
+    cum = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    offs = torch.from_numpy(np.stack([bstart, cum])).to(dev)
+    meta = torch.from_numpy(np.stack([clen, sizes]).astype(np.int32)).to(dev)
+    err = build.kernels_lib().lz4tt_decode_sg(
+        flat.data_ptr(), offs[0].data_ptr(), meta[0].data_ptr(),
+        meta[1].data_ptr(), offs[1].data_ptr(), B, out.data_ptr(),
+        olen.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch("decode_sg", err)
+    LAUNCHES["decode_sg"] += 1
+    return out, olen
+
+
+def decode_blocks_sg(comp: torch.Tensor, comp_lens: torch.Tensor,
+                     out_sizes):
+    """``decode_blocks_sg_raw`` over [B, M] uint8 payload rows and [B] int32
+    lengths (clamped to [0, M]), in the JAX function's argument order.
+    Returns (out [sum(out_sizes)] uint8, olen [B] int32); the JAX function's
+    output holds the same content from byte 65536 of its space."""
+    _check_comp(comp, comp_lens)
+    B, M = comp.shape
+    clen = comp_lens.cpu().numpy().astype(np.int64).clip(0, M)
+    return decode_blocks_sg_raw(comp.reshape(-1), np.arange(B) * M, clen,
+                                out_sizes)

@@ -2,10 +2,10 @@
 checksums.
 
 Counterpart of ``lz4_tpu/ops/xxhash_np.py`` and ``xxhash_native.py``.  The
-one-shot hash comes from the repo's ``native/lz4t_native.c`` and the stripe
-rounds of the streaming state from ``csrc/xxh32_stream.c``, compiled with
-``cc`` into one library in the port's build directory at first use; without
-a compiler or those sources both fall back to the pure-Python code below.
+one-shot hash and the stripe rounds of the streaming state come from the
+port's own ``csrc/xxh32_stream.c``, compiled with ``cc`` into a library in
+the port's build directory at first use; without a compiler both fall back
+to the pure-Python code below.
 """
 
 from __future__ import annotations
@@ -22,8 +22,7 @@ P32_3 = 3266489917
 P32_4 = 668265263
 P32_5 = 374761393
 
-_NATIVE_SRCS = [build.PKG_DIR.parent / "native" / "lz4t_native.c",
-                build.CSRC / "xxh32_stream.c"]
+_NATIVE_SRCS = [build.CSRC / "xxh32_stream.c"]
 _native = None
 _native_tried = False
 
@@ -37,15 +36,15 @@ def _load_native():
             flags = ["-O3", "-fPIC", "-shared"]
             try:
                 path = build.build_shared(
-                    "lz4t_native", _NATIVE_SRCS, flags,
+                    "lz4tt_xxh32", _NATIVE_SRCS, flags,
                     lambda out: [[cc, *flags, *map(str, _NATIVE_SRCS), "-o",
                                   str(out)]])
                 lib = ctypes.CDLL(str(path))
             except (build.BuildError, OSError):
                 return None
-            lib.lz4t_xxh32.restype = ctypes.c_uint32
-            lib.lz4t_xxh32.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
-                                       ctypes.c_uint32]
+            lib.lz4tt_xxh32.restype = ctypes.c_uint32
+            lib.lz4tt_xxh32.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                        ctypes.c_uint32]
             lib.lz4tt_xxh32_stripes.restype = ctypes.c_size_t
             lib.lz4tt_xxh32_stripes.argtypes = [
                 ctypes.POINTER(ctypes.c_uint32), ctypes.c_char_p,
@@ -125,7 +124,7 @@ def xxh32(data: bytes, seed: int = 0) -> int:
     data = bytes(data)
     lib = _load_native()
     if lib is not None:
-        return lib.lz4t_xxh32(data, len(data), seed & M32)
+        return lib.lz4tt_xxh32(data, len(data), seed & M32)
     st = XXH32State(seed)
     st.update(data)
     return st.digest()

@@ -138,7 +138,7 @@ def test_payload_over_bound_raises_frame_error():
         jtpu.decompress_frame_device(bad)
 
 
-def test_blocks_over_64k_raise_layout_unsupported():
+def test_blocks_over_64k_decode_like_jax():
     """A frame of 256 KB blocks decodes through the stream kernel to
     lz4_tpu's bytes."""
     jp = JaxPrefs(block_size_id=5, block_independent=True)
@@ -149,7 +149,7 @@ def test_blocks_over_64k_raise_layout_unsupported():
         jtpu.decompress_frame_device(frame) == (data, len(frame))
 
 
-def test_flushed_short_block_raises_layout_unsupported(monkeypatch):
+def test_flushed_short_block_decodes_through_stream_kernel(monkeypatch):
     """A linked chain with a flushed short block decodes to its input:
     kernel D finds the short block and kernel E decodes the chain again."""
     monkeypatch.setattr(tdev, "DEC_GROUP_BLOCKS", 2)
