@@ -14,7 +14,11 @@ blocks) it decodes the file through decompress_frame_device or
 decompress_legacy_device; for each scatter-gather cell (chip_smoke.py's sg
 phase layouts over the first 16 MiB: 4 KB iovecs into 4 KB iovecs, and
 ragged iovecs) it runs lz4_tpu_torch.sg.sg_compress, then sg_decompress
-back into the input iovecs.  Each step runs twice: once untraced (wall time
+back into the input iovecs; for the HC cell it runs the corpus through
+compress_frame_device_hc at level 9 (kernel I, 64 KB independent blocks);
+for each file cell (chip_smoke.py's hc phase: the lz4 CLI's -9, -1 and
+-1 -BD) it compresses the corpus, written as a file under build/, through
+io.compress_filename.  Each step runs twice: once untraced (wall time
 only) and once under torch.profiler with CUDA activity.  From the traced
 pass's Chrome trace it reports:
 
@@ -34,6 +38,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -80,8 +85,10 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import filled, real_text_corpus, sg_layouts, stream_files
+    from chip_smoke import (FILE_SETTINGS, filled, real_text_corpus,
+                            sg_layouts, stream_files)
     from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import io as tio
     from lz4_tpu_torch import sg
     from lz4_tpu_torch.frame import FramePreferences
     from lz4_tpu_torch.kernels import build
@@ -103,6 +110,8 @@ def main() -> int:
     w_caps = [4096] * 272
     w_total, _, w_outs = sg.sg_compress(w_ins, w_caps)
     sg.sg_decompress(filled(w_outs, w_caps, w_total), [4096] * len(w_ins))
+    hc_prefs = FramePreferences(block_independent=True)
+    D.compress_frame_device_hc(warm[:1 << 20], hc_prefs, 9)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -165,6 +174,20 @@ def main() -> int:
         measure(f"sg_{name}/decompress",
                 lambda: sg.sg_decompress(comp, [len(b) for b in ins])[1],
                 ins, content=content)
+    frame = measure("hc9/compress", lambda: D.compress_frame_device_hc(
+        corpus, hc_prefs, 9))
+    results["hc9/compress"]["ratio"] = len(frame) / len(corpus)
+    del frame
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
+        src, dst = Path(d) / "corpus", str(Path(d) / "corpus.lz4")
+        src.write_bytes(corpus)
+        for flags, kw in FILE_SETTINGS:
+            prefs = tio.IoPrefs(overwrite=True, verbosity=1, **kw)  # -q
+            key = f"file{flags.replace(' ', '')}/compress"   # file-1-BD/...
+            _, w = measure(key, lambda: tio.compress_filename(str(src), dst,
+                                                              prefs))
+            results[key]["ratio"] = w / len(corpus)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "corpus_bytes": len(corpus), "cells": results}))
     return 0

@@ -18,7 +18,13 @@
    iovecs, min_match 8, acceleration 2, small caps that force capacity
    stops and zero-pads, mixed bytes; corrupted payloads and noise as SG
    chains) and at every launch step 7 makes, and timed on the '4k' walk
-   and its chain in three rounds each.
+   and its chain in three rounds each.  Kernel I (the HC encoder) is held
+   against its plain version on small rows (text, zeros, noise, periods 2
+   and 3, 13-, 12- and 0-byte rows, far repeats) at levels 1, 2, 9, 12 and
+   16, on two mixed 64 KB rows at levels 9 and 16, and on sampled rows of
+   the corpus batch (1,024 rows of 64 KB) at level 9; its chain tables built
+   on the card must equal the CPU's; it is timed on the whole batch in
+   three rounds, with the tables' time and peak memory beside it.
 4. Runs the main path at full size: a 64 MiB real-text corpus (the Python
    stdlib sources, built the way bench.py builds its corpus) through
    compress_frame_device and decompress_frame_device, at min_match=8 /
@@ -48,14 +54,23 @@
    the '4k' and 'ragged' frames also through decompress_frame_device (every
    SG frame is an LZ4F frame).  Kernels G, F and E must launch, and no
    plain version run.
-8. Decodes a 1 MB frame written by the kernels with the plain versions.
+8. The HC and file-compress path, with its own counter reset and read: the
+   corpus written as a file and compressed by io.compress_filename at -9
+   (kernel I, then C), -1 (kernel B) and -1 -BD (kernels A and C), each
+   decoded by io.decompress_filename (kernels E and linked D) byte-exact,
+   with ratio, MB/s, the compress kernel's CUDA-event ms and peak device
+   memory; the first 4 MiB through compress_frame_device_hc at levels 3, 9
+   and 16 (decoded by batch D); one round trip through
+   ``python -m lz4_tpu_torch.cli -9`` and ``-d``.  Kernels I, A, B, C, E and
+   both modes of D must launch, and no plain version run.
+9. Decodes a 1 MB frame written by the kernels with the plain versions.
 
 Prints a JSON line of the kernels (each with the launch count of the phase
 that drives it, every phase's counts, its time on the card, its plain
 version's, and its bound: the bytes the timed call must read and write at
 3.35 TB/s), then, as its last line, {"ok": true, "device": {...}}.  Exits non-zero on any failure, and when no
 card is present.  Writes nothing outside build/ (the kernel library and
-the temporary directory of step 6).
+the temporary directories of steps 6 and 8).
 """
 
 import json
@@ -73,7 +88,7 @@ MAIN_POINTS = ((8, 1, False), (4, 1, False), (8, 1, True))
 
 # name -> (route, source, the Pallas launch it replaces, the phase whose
 # launch count it reports: "main" = step 4, "entry" = step 5, "stream" =
-# step 6, "sg" = step 7)
+# step 6, "sg" = step 7, "hc" = step 8)
 KERNELS = {
     "encode_linked": ("cuda", "lz4_tpu_torch/csrc/encode.cu",
                       "lz4_tpu/kernels/encode_kernel.py:744", "main"),
@@ -91,6 +106,8 @@ KERNELS = {
                   "lz4_tpu/kernels/decode_kernel.py:889", "sg"),
     "sg_encode_chain": ("cuda", "lz4_tpu_torch/csrc/sg_chain.cu",
                         "lz4_tpu/kernels/destsize_kernel.py:594", "sg"),
+    "encode_hc": ("cuda", "lz4_tpu_torch/csrc/hc.cu",
+                  "lz4_tpu/kernels/hc_kernel.py:329", "hc"),
 }
 
 
@@ -591,6 +608,131 @@ def sg_phase(layouts: dict, dev, log_times: dict) -> None:
                            "content_bytes": len(content)}
 
 
+# -- the HC and file-compress path (kernel I): cases and the phase ----------
+HC_LEVELS = (1, 2, 9, 12, 16)      # the levels of kernel I's small cases
+HC_SMALL_NS = 4096
+HC_SAMPLE_ROWS = 8                 # corpus rows held against the plain version
+SWEEP_BYTES, SWEEP_LEVELS = 4 << 20, (3, 9, 16)
+# the file-compress settings of the hc phase: (CLI flags, io.IoPrefs fields)
+FILE_SETTINGS = (("-9", {"level": 9}), ("-1", {}),
+                 ("-1 -BD", {"block_linked": True}))
+
+
+def hc_small_cases(text: bytes, mixed: bytes):
+    """Kernel I's inputs at small sizes: (what, blocks, row width)."""
+    import torch
+
+    g = torch.Generator().manual_seed(4321)
+    noise = torch.randint(0, 256, (HC_SMALL_NS,), generator=g,
+                          dtype=torch.uint8).numpy().tobytes()
+    n = HC_SMALL_NS
+    needle = (b"needle in a haystack " * 40 + noise[:100]) * 3
+    return [
+        ("4 KB rows: text, zeros, noise, periods 2 and 3, 13, 12 and 0 "
+         "bytes, far repeats",
+         [text[i * n:(i + 1) * n] for i in range(4)]
+         + [bytes(n), noise, b"ab" * (n // 2), (b"abc" * n)[:n], b"x" * 13,
+            text[:12], b"", needle], n),
+        ("2 mixed 64 KB rows", [mixed[:W], mixed[W:2 * W - 999]], W),
+    ]
+
+
+def hc_phase(corpus: bytes, dev, tmp_root: Path, kernel_ms: dict) -> dict:
+    """The HC and file-compress path at full size, through the entry points
+    a user calls: the corpus as a file through io.compress_filename at -9
+    (kernel I), -1 (kernel B) and -1 -BD (kernels A and C), each decoded by
+    io.decompress_filename; the first 4 MiB through
+    compress_frame_device_hc at levels 3, 9 and 16 and back through
+    decompress_frame_device; one round trip through the CLI
+    (python -m lz4_tpu_torch.cli -9, then -d).  Every output must equal its
+    input byte for byte.  ``kernel_ms`` holds kernel I's times on the rows
+    these calls give it ("-9" and each sweep level), measured with CUDA
+    events before the phase; the -1 and -1 -BD routes' kernel times are in
+    chip_profile.py's traces.  Returns the measured numbers."""
+    import os
+    import tempfile
+
+    import torch
+
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import io as tio
+    from lz4_tpu_torch.frame import FramePreferences
+
+    out, mb = {}, len(corpus) / 1e6
+    tmp_root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tmp_root) as d:
+        src = Path(d) / "corpus"
+        src.write_bytes(corpus)
+        for flags, kw in FILE_SETTINGS:
+            dst, back = Path(d) / "corpus.lz4", Path(d) / "back"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            # verbosity 1 (-q): no progress meter on stderr
+            r, w = tio.compress_filename(str(src), str(dst), tio.IoPrefs(
+                overwrite=True, verbosity=1, **kw), device=dev)
+            t_c = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            r2, w2 = tio.decompress_filename(str(dst), str(back), tio.IoPrefs(
+                overwrite=True, verbosity=1), device=dev)
+            t_d = time.perf_counter() - t0
+            if (r, w, r2, w2) != (len(corpus), dst.stat().st_size, w,
+                                  len(corpus)) or back.read_bytes() != corpus:
+                raise SmokeFailure(f"hc phase: the {flags} file does not "
+                                   "round-trip")
+            k_ms = kernel_ms.get(flags)
+            log(f"[hc] {len(corpus) >> 20} MiB file, lz4 {flags}: ratio "
+                f"{w / r:.6f} ({w} bytes), io.compress_filename "
+                f"{mb / t_c:.1f} MB/s ({t_c:.3f} s"
+                + (f"; kernel I {k_ms:.3f} ms on these rows" if k_ms else "")
+                + f"), peak device memory {peak / 2**30:.2f} GiB; "
+                f"io.decompress_filename {mb / t_d:.1f} MB/s ({t_d:.3f} s), "
+                "byte-exact")
+            out[flags] = {"ratio": w / r, "frame_bytes": w,
+                          "compress_s": t_c, "decompress_s": t_d,
+                          "kernel_ms": k_ms, "peak_bytes": peak}
+        data = corpus[:SWEEP_BYTES]
+        for level in SWEEP_LEVELS:
+            t0 = time.perf_counter()
+            frame = D.compress_frame_device_hc(
+                data, FramePreferences(block_independent=True), level,
+                device=dev)
+            t_c = time.perf_counter() - t0
+            k_ms = kernel_ms[level]
+            if D.decompress_frame_device(frame, device=dev) != \
+                    (data, len(frame)):
+                raise SmokeFailure(f"hc phase: level {level} does not "
+                                   "round-trip")
+            log(f"[hc] {len(data) >> 20} MiB, compress_frame_device_hc level "
+                f"{level}: ratio {len(frame) / len(data):.6f}, kernel I "
+                f"{k_ms:.3f} ms on these rows, wall {t_c:.3f} s, byte-exact")
+            out[f"level {level}"] = {"ratio": len(frame) / len(data),
+                                     "kernel_ms": k_ms, "compress_s": t_c}
+        # the CLI in its own process, on the card
+        small, packed, back = (Path(d) / "small", Path(d) / "small.lz4",
+                               Path(d) / "small.out")
+        small.write_bytes(data)
+        env = {k: v for k, v in os.environ.items() if k != "LZ4TPU_FORCE_CPU"}
+        env["PYTHONPATH"] = str(REPO)
+        t0 = time.perf_counter()
+        for args in (["-9", "-f", str(small), str(packed)],
+                     ["-d", "-f", str(packed), str(back)]):
+            res = subprocess.run([sys.executable, "-m", "lz4_tpu_torch.cli",
+                                  *args], env=env, capture_output=True,
+                                 text=True, timeout=600)
+            if res.returncode != 0:
+                raise SmokeFailure(f"lz4_tpu_torch.cli {' '.join(args)} "
+                                   f"failed: {res.stderr.strip()}")
+        if back.read_bytes() != data:
+            raise SmokeFailure("the CLI round trip differs")
+        log(f"[hc] python -m lz4_tpu_torch.cli -9, then -d, on "
+            f"{len(data) >> 20} MiB: {packed.stat().st_size} bytes, "
+            f"byte-exact ({time.perf_counter() - t0:.1f} s with two process "
+            "starts)")
+    return out
+
+
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 rate (NVIDIA data sheet)
 
 
@@ -609,6 +751,7 @@ def main() -> int:
     from lz4_tpu_torch.kernels import decode_kernel as dec
     from lz4_tpu_torch.kernels import destsize_kernel as dsk
     from lz4_tpu_torch.kernels import encode_kernel as enc
+    from lz4_tpu_torch.kernels import hc_kernel as hck
     from lz4_tpu_torch.kernels.pack_kernel import pack_frame_payloads
 
     smi = subprocess.run(
@@ -1135,6 +1278,69 @@ def main() -> int:
             f"{k} {t:.1f} ms" for k, t in sg_plain.items()))
     del timed
 
+    # -- 3h. kernel I: small cases, sampled corpus rows, times --------------
+    def cmp_tables(what, k_d48, rows_h):
+        """The chain table the card built equals the CPU's (stable sorts)."""
+        if not torch.equal(k_d48.cpu(), hck.hc_tables(rows_h)):
+            raise SmokeFailure(f"the HC chain table differs on the card "
+                               f"({what})")
+
+    for what, blocks, width in hc_small_cases(corpus, mixed):
+        rows_h, lens_h = D.byte_rows(blocks, width, "cpu")
+        d48 = hck.hc_tables(rows_h.to(cuda))
+        cmp_tables(what, d48, rows_h)
+        for level in HC_LEVELS if width == HC_SMALL_NS else (9, 16):
+            k = hck.hc_scan(rows_h.to(cuda), lens_h.to(cuda), d48, level)
+            p = hck.hc_scan(rows_h, lens_h, d48.cpu(), level)
+            cmp_rows("encode_hc", f"{what}, level {level}", *k, *p)
+    # the corpus batch: 1,024 rows of 64 KB at level 9 (what -9 launches)
+    nrows = len(corpus) // W
+    hc_rows_h = torch.frombuffer(bytearray(corpus), dtype=torch.uint8) \
+        .reshape(nrows, W)
+    hc_args = (hc_rows_h.to(cuda), torch.full((nrows,), W, dtype=torch.int32,
+                                              device=cuda))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    hc_d48 = hck.hc_tables(hc_args[0])
+    torch.cuda.synchronize()
+    t_peak = torch.cuda.max_memory_allocated() - base
+    t_tab = time_card(lambda: hck.hc_tables(hc_args[0]), reps=2)
+    k = hck.hc_scan(*hc_args, hc_d48, 9)
+    sample = sorted({round(i * (nrows - 1) / (HC_SAMPLE_ROWS - 1))
+                     for i in range(HC_SAMPLE_ROWS)})
+    idx = torch.tensor(sample)
+    cmp_tables(f"{len(sample)} sampled corpus rows", hc_d48[idx.to(cuda)],
+               hc_rows_h[idx].contiguous())
+    p, hc_plain = time_host(lambda: hck.hc_scan(
+        hc_rows_h[idx].contiguous(), hc_args[1][idx.to(cuda)].cpu(),
+        hc_d48[idx.to(cuda)].cpu(), 9))
+    cmp_rows("encode_hc", f"corpus rows {sample} of {nrows}, level 9",
+             k[0][idx.to(cuda)], k[1][idx.to(cuda)], *p)
+    hc_ms = time_rounds(lambda: hck.hc_scan(*hc_args, hc_d48, 9))
+    # kernel I on what the hc phase gives it: the batch of -9, and the first
+    # SWEEP_BYTES of the corpus at each level of the sweep
+    ns = SWEEP_BYTES // W
+    hc_phase_ms = {"-9": sorted(hc_ms)[1], **{
+        level: time_card(lambda: hck.hc_scan(
+            hc_args[0][:ns], hc_args[1][:ns], hc_d48[:ns], level), reps=2)
+        for level in SWEEP_LEVELS}}
+    stats["encode_hc"].update(
+        ms=sorted(hc_ms)[1], ms_rounds=hc_ms, plain_ms=hc_plain,
+        plain_rows=len(sample), table_ms=t_tab, table_peak_bytes=t_peak)
+    # rows and the chain table in; payloads and lengths out
+    set_bound("encode_hc", hc_args[0].numel() + 4 * (hc_d48.numel() + nrows),
+              int(k[1].sum()) + 4 * nrows)
+    log(f"[time] encode_hc (kernel I), {nrows} rows of 64 KB, level 9: "
+        f"rounds {[round(t, 3) for t in hc_ms]} ms "
+        f"({len(corpus) / 1e3 / sorted(hc_ms)[1]:.1f} MB/s), ratio of the "
+        f"payloads {int(k[1].sum()) / len(corpus):.6f}; chain tables "
+        f"{t_tab:.3f} ms, {t_peak / 2**30:.2f} GiB peak; plain version "
+        f"{hc_plain:.1f} ms on {len(sample)} rows; on the first "
+        f"{SWEEP_BYTES >> 20} MiB at levels {SWEEP_LEVELS}: " + ", ".join(
+            f"{hc_phase_ms[lv]:.3f}" for lv in SWEEP_LEVELS) + " ms")
+    del hc_rows_h, hc_args, hc_d48, k, p
+
     def phase_counts(phase, need):
         """Read the counters after a phase: every kernel in ``need`` must
         have launched and no plain version may have run."""
@@ -1213,7 +1419,14 @@ def main() -> int:
                                             "decode_stream"])
     del layouts
 
-    # -- 8. the plain decoder reads a frame the kernels wrote -----------------
+    # -- 8. the HC and file-compress path at full size -----------------------
+    common.reset_counts()
+    hc_times = hc_phase(corpus, cuda, REPO / "build", hc_phase_ms)
+    counts["hc"] = phase_counts("hc path", [
+        "encode_hc", "pack", "encode", "encode_linked", "decode_stream",
+        "decode_linked", "decode_batch"])
+
+    # -- 9. the plain decoder reads a frame the kernels wrote -----------------
     data = corpus[8 << 20:9 << 20]
     frame = D.compress_frame_device(data, FramePreferences(block_size_id=4),
                                     min_match=8)
@@ -1230,7 +1443,7 @@ def main() -> int:
          "launches_by_phase": {p: c[k] for p, c in counts.items()},
          **stats[k]}
         for k, (route, src, rep, phase) in KERNELS.items()],
-        "sg_phase": sg_times}
+        "sg_phase": sg_times, "hc_phase": hc_times}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

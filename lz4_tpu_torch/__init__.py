@@ -3,6 +3,9 @@ kernels for Hopper (sm_90a).
 
 A port of ``lz4_tpu`` (JAX/Pallas, the reference it is tested against).  The
 main path is ``device.compress_frame_device`` and
-``device.decompress_frame_device``; see ``device`` for the frames it covers.
+``device.decompress_frame_device``; see ``device`` for the frames it covers,
+``io`` for files and ``cli`` for the ``lz4``-compatible command line.
 It imports neither jax nor lz4_tpu.
 """
+
+__version__ = "0.1.0"

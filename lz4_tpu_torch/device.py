@@ -10,6 +10,8 @@ container (a few bytes per 64 KB block); the kernels do the block work:
   or less and block-independent frames take ``encode_blocks`` (kernel B),
   then kernel C.  Every frame body is packed on the device and fetched
   once; block checksums are inserted on the host while it is walked.
+  ``compress_frame_device_hc`` writes independent 64 KB blocks through
+  ``encode_blocks_hc`` (kernel I), then kernel C.
 * decompress: ``decompress_frame_device`` -> ``decode_blocks_linked``
   (kernel D, linked mode) in groups of ``DEC_GROUP_BLOCKS`` blocks, the
   window handed from group to group on the device; independent frames of
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -48,6 +51,7 @@ from .kernels.common import resolve_device, to_device, to_host
 from .kernels.decode_kernel import (StreamEnvelopeError, decode_blocks,
                                     decode_blocks_linked, decode_stream_raw)
 from .kernels.encode_kernel import encode_blocks, encode_blocks_linked
+from .kernels.hc_kernel import encode_blocks_hc
 from .kernels.pack_kernel import pack_frame_payloads
 from .ops.xxhash import XXH32State, xxh32
 
@@ -60,6 +64,8 @@ DEC_GROUP_BLOCKS = 64
 
 CHUNK = 4 << 20          # DeviceFrameCompressor chunk of compress_frame_device
 CHUNKED_ABOVE = 8 << 20  # inputs larger than this are compressed in chunks
+HC_GROUP_ROWS = 1024     # 64 MiB of blocks per launch of kernel I (bounds
+                         # the chain tables' sort temporaries to a few GB)
 
 
 class DeviceLayoutUnsupported(Lz4FrameError):
@@ -74,7 +80,7 @@ def _split_blocks(data: bytes, block_size: int) -> List[bytes]:
     return [data[i:i + block_size] for i in range(0, len(data), block_size)]
 
 
-def _rows(buffers: List[bytes], width: int, dev: torch.device):
+def byte_rows(buffers: List[bytes], width: int, dev):
     """Byte strings -> ([B, width] uint8 rows, zero padded; [B] int32
     lengths), both on ``dev``."""
     arr = np.zeros((len(buffers), max(width, 1)), np.uint8)
@@ -97,7 +103,7 @@ def encode_batch(buffers: List[bytes], block_size: int = BLOCK,
 
     Returns (comp_rows uint8 numpy [B, maxlen], comp_lens numpy [B])."""
     dev = resolve_device(device)
-    rows, lens = _rows(buffers, block_size, dev)
+    rows, lens = byte_rows(buffers, block_size, dev)
     out, olen = encode_blocks(rows, lens, acceleration, min_match=min_match,
                               reject_step=reject_step)
     olen_h = to_host(olen)
@@ -110,8 +116,8 @@ def decode_batch(comp_list: List[bytes], out_cap: int,
     """Decompress a list of independent blocks on the device; raises
     Lz4FrameError naming the first block the kernel rejects."""
     dev = resolve_device(device)
-    rows, lens = _rows(comp_list, max((len(c) for c in comp_list),
-                                         default=1), dev)
+    rows, lens = byte_rows(comp_list, max((len(c) for c in comp_list),
+                                             default=1), dev)
     caps = None
     if out_lens is not None:
         caps = torch.as_tensor(out_lens, dtype=torch.int32).to(dev)
@@ -261,7 +267,7 @@ def compress_frame_device(data: bytes,
         prefs.block_size_id = spec.optimal_block_size_id(block_size)
     if block_size > spec.BLOCK_SIZES[prefs.resolved_bsid()]:
         raise Lz4FrameError("block_size exceeds frame block maximum")
-    rows, lens = _rows(_split_blocks(data, block_size), block_size, dev)
+    rows, lens = byte_rows(_split_blocks(data, block_size), block_size, dev)
     out, olen = encode_blocks(rows, lens, acceleration, min_match=min_match,
                               reject_step=reject_step)
     flat, total, _stored = pack_frame_payloads(out, olen, rows, lens)
@@ -283,6 +289,38 @@ def _compress_frame_device_linked(data: bytes, prefs: FramePreferences,
         out.reshape(nb, -1), olen.reshape(nb), _block_view(stream, nb),
         lens_d.reshape(nb))
     return _frame(prefs, data, _fetch_body(flat, total, prefs.block_checksum))
+
+
+def compress_frame_device_hc(data: bytes,
+                             prefs: Optional[FramePreferences] = None,
+                             level: int = 9, device="cuda") -> bytes:
+    """HC frame compression with the block work on the device.
+
+    Independent 64 KB blocks through kernel I (``encode_blocks_hc``), at most
+    HC_GROUP_ROWS blocks per launch, each group's body packed by kernel C
+    (stored blocks where the payload is not smaller) and fetched once.  A
+    linked request warns and is demoted to independent blocks, as in
+    ``lz4_tpu``; ``block_size_id`` 0 becomes 4 (64 KB)."""
+    dev = resolve_device(device)
+    prefs = dataclasses.replace(prefs) if prefs else FramePreferences()
+    if not prefs.block_independent:
+        warnings.warn("device HC emits block-independent frames; "
+                      "linked (-BD) HC demoted to independent blocks",
+                      stacklevel=2)
+    prefs.block_independent = True
+    if prefs.block_size_id == 0:
+        prefs.block_size_id = 4
+    if prefs.content_size is not None and prefs.content_size != len(data):
+        raise Lz4FrameError("content_size does not match data")
+    data = bytes(data)
+    blocks = _split_blocks(data, BLOCK)
+    bodies = []
+    for g in range(0, len(blocks), HC_GROUP_ROWS):
+        rows, lens = byte_rows(blocks[g:g + HC_GROUP_ROWS], BLOCK, dev)
+        out, olen = encode_blocks_hc(rows, lens, level)
+        flat, total, _stored = pack_frame_payloads(out, olen, rows, lens)
+        bodies.append(_fetch_body(flat, total, prefs.block_checksum))
+    return _frame(prefs, data, b"".join(bodies))
 
 
 class DeviceFrameCompressor:
@@ -540,7 +578,7 @@ def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
     full = True
     for first in range(0, nblocks, G):
         grp = payloads[first:first + G]
-        rows, lens = _rows(grp, max(len(c) for c in grp), dev)
+        rows, lens = byte_rows(grp, max(len(c) for c in grp), dev)
         out_d, olen_d = decode_blocks_linked(
             rows, lens, bs, init_window=win,
             init_window_len=bs if win is not None else 0)

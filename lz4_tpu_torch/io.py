@@ -1,15 +1,23 @@
-"""File-level decoding: ``.lz4`` files and streams through the device codec.
+"""File I/O: ``.lz4`` files and streams through the device codec.
 
-Counterpart of the decode half of ``lz4_tpu/io.py`` (parity with the
-reference I/O layer, ``programs/lz4io.c``): concatenated LZ4F frames,
-legacy frames, skippable frames, pass-through of non-LZ4 input, sparse
-writing that seeks over zero runs, and multi-file operation.  Every frame
-is decoded by ``lz4_tpu_torch.device`` (kernels D and E); there is no host
-codec, so a frame outside the kernels' envelope raises
-``DeviceLayoutUnsupported`` where ``lz4_tpu`` would decode it on the host.
+Counterpart of ``lz4_tpu/io.py`` (parity with the reference I/O layer,
+``programs/lz4io.c``), routed as ``lz4_tpu`` routes it when it has a device.
+
+* Compress: HC levels (3 and up) read the whole input and go through
+  ``compress_frame_device_hc`` (kernel I); ``-BD`` goes through
+  ``DeviceFrameCompressor`` (kernels A and C) in 4 MB reads; everything
+  else reads 4 MB at a time and compresses its 64 KB blocks through
+  ``encode_batch`` (kernel B), with block records and checksums written on
+  the host.  Legacy compress (``-l``) is not ported and raises.
+* Decompress: concatenated LZ4F frames, legacy frames, skippable frames,
+  pass-through of non-LZ4 input, sparse writing that seeks over zero runs.
+  Every frame is decoded by ``lz4_tpu_torch.device`` (kernels D and E);
+  there is no host codec, so a frame outside the kernels' envelope raises
+  ``DeviceLayoutUnsupported`` where ``lz4_tpu`` would decode it on the host.
 
 Every function takes a ``device``; the default ``"cuda"`` raises on a
 machine without a card, and ``"cpu"`` runs the kernels' plain versions.
+Nothing here reads the environment.
 """
 
 from __future__ import annotations
@@ -23,22 +31,48 @@ import time
 from typing import BinaryIO, Optional, Tuple
 
 from . import spec
-from .device import decompress_frame_device, decompress_legacy_device
-from .frame import Lz4FrameError
+from .device import (BLOCK, DeviceFrameCompressor, DeviceLayoutUnsupported,
+                     compress_frame_device_hc, decompress_frame_device,
+                     decompress_legacy_device, encode_batch)
+from .frame import FramePreferences, Lz4FrameError, encode_frame_header
+from .kernels.common import resolve_device
+from .ops.xxhash import XXH32State, xxh32
 
 LZ4_EXTENSION = ".lz4"
+CHUNK = 4 * 1024 * 1024  # read granularity (lz4io.c uses 4 MB reads)
 
 
 @dataclasses.dataclass
 class IoPrefs:
-    """The g_* knobs of lz4io.c:134-140 that decoding reads."""
+    """The g_* knobs of lz4io.c:134-140, as a struct."""
 
+    level: int = 1                  # 0-2 fast, >= 3 HC
+    block_size_id: int = 7          # -B4..7
+    block_linked: bool = False      # -BD sets linked; the reference's
+                                    # default is independent (lz4io.c:138)
+    block_checksum: bool = False    # -BX
+    content_checksum: bool = True   # --no-frame-crc clears
+    content_size: bool = False      # --content-size
     sparse: bool = True             # --no-sparse clears (auto off for stdout)
     overwrite: bool = False         # -f
     test_mode: bool = False         # -t
+    legacy: bool = False            # -l (compress: not ported, raises)
     pass_through: bool = False      # -d -f on non-lz4 input
     remove_src: bool = False        # --rm
+    min_match: int = 4              # --min-match
     verbosity: int = 2
+
+
+def _prefs_to_frame(p: IoPrefs, content_size: Optional[int]) \
+        -> FramePreferences:
+    return FramePreferences(
+        block_size_id=p.block_size_id,
+        block_independent=not p.block_linked,
+        content_checksum=p.content_checksum,
+        block_checksum=p.block_checksum,
+        content_size=content_size,
+        level=p.level if p.level >= 3 else 0,
+    )
 
 
 class ProgressMeter:
@@ -81,6 +115,99 @@ class ProgressMeter:
             sys.stderr.flush()
             self.shown = False
 
+
+# ---------------------------------------------------------------------------
+# compression
+# ---------------------------------------------------------------------------
+
+def _refuse_legacy(prefs: IoPrefs) -> None:
+    if prefs.legacy:
+        raise DeviceLayoutUnsupported(
+            "legacy compress (-l) is not yet ported: the port has no "
+            "encoder of 8 MB legacy blocks")
+
+
+def _independent_records(chunk: bytes, fp: FramePreferences, prefs: IoPrefs,
+                         dev) -> bytes:
+    """The block records of one read: 64 KB blocks through kernel B (the
+    device path turns -B5..7 into 64 KB blocks, as lz4_tpu's does), a
+    stored block where the payload is not smaller, block checksums."""
+    blocks = [chunk[i:i + BLOCK] for i in range(0, len(chunk), BLOCK)]
+    comp_rows, comp_lens = encode_batch(blocks, BLOCK, 1, prefs.min_match,
+                                        device=dev)
+    parts = []
+    for i, blk in enumerate(blocks):
+        clen = int(comp_lens[i])
+        if clen >= len(blk):
+            payload, size = blk, len(blk) | spec.UNCOMPRESSED_BIT
+        else:
+            payload, size = comp_rows[i, :clen].tobytes(), clen
+        parts += [struct.pack("<I", size), payload]
+        if fp.block_checksum:
+            parts.append(struct.pack("<I", xxh32(payload, 0)))
+    return b"".join(parts)
+
+
+def compress_stream(src: BinaryIO, dst: BinaryIO, prefs: IoPrefs,
+                    src_size: Optional[int] = None,
+                    device="cuda") -> Tuple[int, int]:
+    """Compress a stream to one .lz4 frame; returns (read, written).
+
+    Every HC level goes to kernel I: unlike lz4_tpu, no input is sent to a
+    host HC codec for being small (the port has none)."""
+    _refuse_legacy(prefs)
+    dev = resolve_device(device)
+    if prefs.level >= 3:
+        data = src.read()
+        fp = _prefs_to_frame(prefs, len(data) if prefs.content_size else None)
+        frame = compress_frame_device_hc(data, fp, level=prefs.level,
+                                         device=dev)
+        dst.write(frame)
+        return len(data), len(frame)
+    fp = _prefs_to_frame(prefs, src_size if prefs.content_size else None)
+    if prefs.block_linked:
+        # one linked frame in 4 MB reads, the 64 KB window carried across
+        # reads; the block size is the chain unit, 64 KB (lz4_tpu io.py:177)
+        fp.block_size_id = 4
+        comp = DeviceFrameCompressor(fp, min_match=prefs.min_match,
+                                     device=dev)
+        header, encode, end = comp.begin(), comp.update, comp.end
+    else:
+        header = encode_frame_header(fp)
+        xxh = XXH32State(0)
+
+        def encode(chunk: bytes) -> bytes:
+            if fp.content_checksum:
+                xxh.update(chunk)
+            return _independent_records(chunk, fp, prefs, dev)
+
+        def end() -> bytes:
+            tail = struct.pack("<I", 0)
+            if fp.content_checksum:
+                tail += struct.pack("<I", xxh.digest())
+            return tail
+
+    dst.write(header)
+    total_in, total_out = 0, len(header)
+    meter = ProgressMeter(prefs, "Read", src_size)
+    while True:
+        chunk = src.read(CHUNK)
+        if not chunk:
+            break
+        total_in += len(chunk)
+        out = encode(chunk)
+        total_out += len(out)
+        dst.write(out)
+        meter.update(total_in, total_out)
+    tail = end()
+    dst.write(tail)
+    meter.done()
+    return total_in, total_out + len(tail)
+
+
+# ---------------------------------------------------------------------------
+# decompression
+# ---------------------------------------------------------------------------
 
 class SparseWriter:
     """Zero-run skipping writer (parity: LZ4IO_fwriteSparse,
@@ -191,6 +318,41 @@ def _open_dst(path: str, prefs: IoPrefs) -> BinaryIO:
     if os.path.exists(path) and not prefs.overwrite:
         raise FileExistsError(f"{path} already exists; use -f to overwrite")
     return open(path, "wb")
+
+
+def compress_filename(src_path: str, dst_path: str, prefs: IoPrefs,
+                      device="cuda") -> Tuple[int, int]:
+    """Compress ``src_path`` ("-" = stdin) to ``dst_path`` ("-" = stdout);
+    returns (read, written)."""
+    _refuse_legacy(prefs)          # before the output file is created
+    src = sys.stdin.buffer if src_path == "-" else open(src_path, "rb")
+    try:
+        size = None if src_path == "-" else os.path.getsize(src_path)
+        dst = _open_dst(dst_path, prefs)
+        try:
+            r, w = compress_stream(src, dst, prefs, size, device)
+        finally:
+            if dst is not sys.stdout.buffer:
+                dst.close()
+    finally:
+        if src is not sys.stdin.buffer:
+            src.close()
+    if prefs.remove_src and src_path != "-":
+        os.unlink(src_path)
+    return r, w
+
+
+def compress_multiple(paths, prefs: IoPrefs, device="cuda") -> int:
+    """-m: each ``file`` -> ``file.lz4``; returns the number of files that
+    failed (each reported on stderr)."""
+    errors = 0
+    for p in paths:
+        try:
+            compress_filename(p, p + LZ4_EXTENSION, prefs, device)
+        except Exception as e:  # one bad file must not stop the others
+            print(f"lz4: {p}: {e}", file=sys.stderr)
+            errors += 1
+    return errors
 
 
 def decompress_filename(src_path: str, dst_path: str, prefs: IoPrefs,

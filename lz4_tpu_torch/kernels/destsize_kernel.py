@@ -31,6 +31,7 @@ import torch
 from .. import spec
 from . import build
 from .common import LAUNCHES, PLAIN_CALLS, check, to_device, use_kernel
+from .encode_kernel import _common_run, _emit_final, _emit_seq
 
 HASH_LOG = 14
 HASH_SIZE = 1 << HASH_LOG
@@ -126,26 +127,6 @@ def _hash_table_inputs(u: np.ndarray):
     return memoryview(w), memoryview(h.astype(np.int32))
 
 
-def _emit_ext(out: bytearray, extra: int) -> None:
-    while extra >= 255:
-        out.append(255)
-        extra -= 255
-    out.append(extra)
-
-
-def _common_run(data: bytes, a: int, b: int, room: int) -> int:
-    """Length of the common prefix of data[a:] and data[b:], at most
-    ``room``."""
-    k = 0
-    for step in (256, 16):
-        while k + step <= room and data[a + k:a + k + step] == \
-                data[b + k:b + k + step]:
-            k += step
-    while k < room and data[a + k] == data[b + k]:
-        k += 1
-    return k
-
-
 def sg_encode_chain_plain(data: bytes, in_ends: Sequence[int],
                           caps: Sequence[int], max_dest: int,
                           acceleration: int = 1, min_match: int = 4):
@@ -220,25 +201,13 @@ def sg_encode_chain_plain(data: bytes, in_ends: Sequence[int],
                 min(5, n_end - (mp + ml)))
             if len(out) + need > cap:
                 break                   # capacity stop
-            mlc = ml - 4
-            out.append((min(litlen, 15) << 4) | min(mlc, 15))
-            if litlen >= 15:
-                _emit_ext(out, litlen - 15)
-            out += data[anchor:mp]
-            offset = ip - e
-            out.append(offset & 0xFF)
-            out.append(offset >> 8)
-            if mlc >= 15:
-                _emit_ext(out, mlc - 15)
+            _emit_seq(out, data, anchor, litlen, ip - e, ml - 4)
             ip = anchor = mp + ml
             table[hashes[ip - 2]] = ip - 2
             scnt = accel0
         lit = _max_final_literals(cap - len(out), n_end - anchor)
         if lit >= 0:
-            out.append(min(lit, 15) << 4)
-            if lit >= 15:
-                _emit_ext(out, lit - 15)
-            out += data[anchor:anchor + lit]
+            _emit_final(out, data, anchor, anchor + lit)
             o_written, consumed = len(out), anchor - start + lit
             blocks += out
         else:

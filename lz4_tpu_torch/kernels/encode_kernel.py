@@ -171,6 +171,43 @@ def _emit_ext(out: bytearray, extra: int) -> None:
     out.append(extra)
 
 
+def _emit_seq(out: bytearray, buf: bytes, anchor: int, litlen: int,
+              offset: int, ml_code: int) -> None:
+    """One sequence: ``litlen`` literals from ``buf[anchor:]``, then a match
+    of ml_code + 4 bytes at distance ``offset`` (csrc/emit.cuh emit_seq)."""
+    out.append((min(litlen, 15) << 4) | min(ml_code, 15))
+    if litlen >= 15:
+        _emit_ext(out, litlen - 15)
+    out += buf[anchor:anchor + litlen]
+    out.append(offset & 0xFF)
+    out.append(offset >> 8)
+    if ml_code >= 15:
+        _emit_ext(out, ml_code - 15)
+
+
+def _emit_final(out: bytearray, buf: bytes, anchor: int, n_end: int) -> None:
+    """The block's trailing literal-only sequence, up to ``n_end``."""
+    litlen = n_end - anchor
+    out.append(min(litlen, 15) << 4)
+    if litlen >= 15:
+        _emit_ext(out, litlen - 15)
+    out += buf[anchor:n_end]
+
+
+def _common_run(data: bytes, a: int, b: int, room: int) -> int:
+    """Length of the common prefix of data[a:] and data[b:], at most
+    ``room``: what the kernels' word-wise extension with its XOR tail
+    computes, capped at matchlimit."""
+    k = 0
+    for step in (256, 16):
+        while k + step <= room and data[a + k:a + k + step] == \
+                data[b + k:b + k + step]:
+            k += step
+    while k < room and data[a + k] == data[b + k]:
+        k += 1
+    return k
+
+
 def _scan_plain(buf: bytes, start: int, n: int, low: int, ip: int,
                 delta, jump, linked: bool, acceleration: int,
                 min_match: int, reject_step: int) -> bytearray:
@@ -192,24 +229,10 @@ def _scan_plain(buf: bytes, start: int, n: int, low: int, ip: int,
                 qq -= 1
             # forward: the common run from ip + 4, capped at matchlimit
             # (equal to the 8/4-step loops plus the XOR tail)
-            a, b = q + 4, ip + 4
-            room = matchlimit - b
-            k = 0
-            while k + 8 <= room and buf[a + k:a + k + 8] == buf[b + k:b + k + 8]:
-                k += 8
-            while k < room and buf[a + k] == buf[b + k]:
-                k += 1
-            ml = ip + 4 + k - mp
+            ml = ip + 4 - mp + _common_run(buf, q + 4, ip + 4,
+                                           matchlimit - ip - 4)
             if ml >= min_match:
-                litlen, ml_code = mp - anchor, ml - 4
-                out.append((min(litlen, 15) << 4) | min(ml_code, 15))
-                if litlen >= 15:
-                    _emit_ext(out, litlen - 15)
-                out += buf[anchor:mp]
-                out.append((ip - q) & 0xFF)
-                out.append((ip - q) >> 8)
-                if ml_code >= 15:
-                    _emit_ext(out, ml_code - 15)
+                _emit_seq(out, buf, anchor, mp - anchor, ip - q, ml - 4)
                 ip = anchor = mp + ml
                 scnt = accel0
             else:
@@ -226,11 +249,7 @@ def _scan_plain(buf: bytes, start: int, n: int, low: int, ip: int,
             else:
                 ip += max(step, jump[ip - start])
             scnt += 1
-    litlen = n_end - anchor
-    out.append(min(litlen, 15) << 4)
-    if litlen >= 15:
-        _emit_ext(out, litlen - 15)
-    out += buf[anchor:n_end]
+    _emit_final(out, buf, anchor, n_end)
     return out
 
 

@@ -24,8 +24,9 @@ for name in names:
 assert {"lz4_tpu_torch.device", "lz4_tpu_torch.kernels.encode_kernel",
         "lz4_tpu_torch.kernels.decode_kernel",
         "lz4_tpu_torch.kernels.destsize_kernel",
-        "lz4_tpu_torch.kernels.pack_kernel",
-        "lz4_tpu_torch.sg"} <= set(names), names
+        "lz4_tpu_torch.kernels.hc_kernel",
+        "lz4_tpu_torch.kernels.pack_kernel", "lz4_tpu_torch.io",
+        "lz4_tpu_torch.cli", "lz4_tpu_torch.sg"} <= set(names), names
 
 import torch
 from lz4_tpu_torch.device import compress_frame_device, decompress_frame_device
@@ -72,6 +73,28 @@ for ins, caps in (([data[i:i + 4096] for i in range(0, 65536, 4096)],
             rem -= min(c, rem)
     assert sg.sg_decompress(comp, [len(b) for b in ins], device="cpu") == \
         (consumed, ins)
+
+# files through the compress and decode halves of the file layer, at a fast
+# level and at HC level 9 (kernel I's plain version), and the CLI's version
+import contextlib, os, tempfile
+from lz4_tpu_torch import cli
+with tempfile.TemporaryDirectory() as d:
+    src = os.path.join(d, "f")
+    with open(src, "wb") as fh:
+        fh.write(big)
+    for level in (1, 9):
+        dst, back = src + f".{level}.lz4", src + f".{level}"
+        r, w = tio.compress_filename(src, dst, tio.IoPrefs(level=level),
+                                     device="cpu")
+        assert r == len(big) and w == os.path.getsize(dst) < len(big)
+        assert tio.decompress_filename(dst, back, tio.IoPrefs(),
+                                       device="cpu") == (w, r)
+        with open(back, "rb") as fh:
+            assert fh.read() == big
+version = io.StringIO()
+with contextlib.redirect_stdout(version):
+    assert cli.main(["lz4tt", "--version"]) == 0
+assert version.getvalue().startswith("lz4_tpu_torch v")
 
 assert sys.modules["jax"] is None
 bad = [m for m in sys.modules
@@ -133,5 +156,5 @@ def test_port_builds_nothing_outside_its_tree(monkeypatch):
                 p.resolve().is_relative_to(out_dir), (stem, p)
     assert build.BUILD_DIR.resolve().is_relative_to(out_dir)
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "decode.cu", "encode.cu", "pack.cu", "sg_chain.cu", "sg_decode.cu",
-        "stream.cu"]
+        "decode.cu", "encode.cu", "hc.cu", "pack.cu", "sg_chain.cu",
+        "sg_decode.cu", "stream.cu"]
