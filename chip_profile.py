@@ -18,7 +18,12 @@ back into the input iovecs; for the HC cell it runs the corpus through
 compress_frame_device_hc at level 9 (kernel I, 64 KB independent blocks);
 for each file cell (chip_smoke.py's hc phase: the lz4 CLI's -9, -1 and
 -1 -BD) it compresses the corpus, written as a file under build/, through
-io.compress_filename.  Each step runs twice: once untraced (wall time
+io.compress_filename; for the destSize and checksum cells (chip_smoke.py's
+destsize phase, on the corpus as rows of 64 KB) it runs kernel H at cap =
+max(n // 2, 64), the first round of kernel D's resumable decode of kernel
+B's payloads at out_caps = 32,768, xxh32_batch and xxh64_batch over the
+rows, and the SG walk of 128 KB iovecs into 32 KB buffers with kernel H as
+its destSize compressor.  Each step runs twice: once untraced (wall time
 only) and once under torch.profiler with CUDA activity.  From the traced
 pass's Chrome trace it reports:
 
@@ -85,13 +90,20 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (FILE_SETTINGS, filled, real_text_corpus,
-                            sg_layouts, stream_files)
+    from chip_smoke import (DS_DECODE_CAP, FILE_SETTINGS, corpus_rows, filled,
+                            kernel_b_payloads, kernel_h_dest_size,
+                            real_text_corpus, sg_h_layout, sg_layouts,
+                            stream_files)
     from lz4_tpu_torch import device as D
     from lz4_tpu_torch import io as tio
     from lz4_tpu_torch import sg
     from lz4_tpu_torch.frame import FramePreferences
     from lz4_tpu_torch.kernels import build
+    from lz4_tpu_torch.kernels.common import to_host
+    from lz4_tpu_torch.kernels.decode_kernel import decode_blocks_dest_size
+    from lz4_tpu_torch.kernels.destsize_kernel import encode_blocks_dest_size
+    from lz4_tpu_torch.kernels.xxh32_kernel import xxh32_batch
+    from lz4_tpu_torch.kernels.xxh64_kernel import xxh64_batch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -112,6 +124,11 @@ def main() -> int:
     sg.sg_decompress(filled(w_outs, w_caps, w_total), [4096] * len(w_ins))
     hc_prefs = FramePreferences(block_independent=True)
     D.compress_frame_device_hc(warm[:1 << 20], hc_prefs, 9)
+    w_rows, w_lens = corpus_rows(warm[:1 << 20], "cuda")
+    w_out, w_olen, _ = encode_blocks_dest_size(w_rows, w_lens, w_lens // 2)
+    decode_blocks_dest_size(w_out, w_olen, w_lens, 65536)
+    xxh32_batch(w_rows, w_lens)
+    xxh64_batch(w_rows, w_lens)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -130,6 +147,10 @@ def main() -> int:
         res, wall = timed(fn)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # the tracer drops the first kernels launched after it starts,
+            # which is all of a one-kernel cell: start it on a fill of one
+            # element (about 2 us of device time when it is recorded)
+            torch.empty((1,), device="cuda").zero_()
             res_t, wall_t = timed(fn)
         if res_t != res or (want is not None and res != want):
             raise RuntimeError(f"{key}: output differs")
@@ -188,6 +209,26 @@ def main() -> int:
             _, w = measure(key, lambda: tio.compress_filename(str(src), dst,
                                                               prefs))
             results[key]["ratio"] = w / len(corpus)
+    # the destSize and checksum cells; each returns bytes so that the two
+    # passes can be compared
+    rows, lens = corpus_rows(corpus, "cuda")
+    half = torch.clamp(lens // 2, min=64)
+    measure("destsize_h/encode", lambda: to_host(
+        encode_blocks_dest_size(rows, lens, half)[2]).tobytes())
+    comp, clen = kernel_b_payloads(rows, lens)
+    caps = torch.full_like(lens, DS_DECODE_CAP)
+    measure("destsize_d/decode_round1", lambda: to_host(
+        decode_blocks_dest_size(comp, clen, caps, DS_DECODE_CAP)[2]).tobytes(),
+        content=len(lens) * DS_DECODE_CAP)
+    del comp
+    measure("xxh32/rows", lambda: xxh32_batch(rows, lens).tobytes())
+    measure("xxh64/rows", lambda: xxh64_batch(rows, lens).tobytes())
+    del rows
+    ins, caps = sg_h_layout(corpus)
+    total, _, _ = measure("sg_h/compress", lambda: sg.sg_compress(
+        ins, caps, dest_size_compress=kernel_h_dest_size("cuda", {})),
+        content=sum(map(len, ins)))
+    results["sg_h/compress"]["ratio"] = total / sum(map(len, ins))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "corpus_bytes": len(corpus), "cells": results}))
     return 0

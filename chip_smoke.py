@@ -24,7 +24,23 @@
    16, on two mixed 64 KB rows at levels 9 and 16, and on sampled rows of
    the corpus batch (1,024 rows of 64 KB) at level 9; its chain tables built
    on the card must equal the CPU's; it is timed on the whole batch in
-   three rounds, with the tables' time and peak memory beside it.
+   three rounds, with the tables' time and peak memory beside it.  Kernel H
+   (the destSize encoder) is held against its plain version on small rows
+   (text, zeros, noise, mixed bytes, rows of 0, 12 and 13 bytes) at caps 1,
+   2, 5, 6, 10, 17, n/2 and compress_bound(n), behind prefixes of 1 to
+   65,536 bytes, at min_match 8 and acceleration 2, on a 256 KB row, on
+   66,000 bytes of noise (literal runs past the int32 range of the size
+   arithmetic) and on sampled rows of the two corpus batches of step 9;
+   every such block is also decoded by kernel D in batch mode with the
+   prefix as its dictionary row, against the plain decoder.  Kernel D's
+   resumable mode is held against its plain version on kernel B's 64 rows at
+   caps 0 to 65,536, on their resumed rounds (dictionary rows), on an
+   offset-0 corruption, a block cut after a match, the corrupted streams,
+   noise, and sampled rows of step 9's first round.  Kernels J and K are
+   held against their plain versions on every length from 0 to 70 (aligned
+   and unaligned rows), on ragged rows up to 100,001 bytes at four seeds, J
+   also against the host XXH32, and on every row of step 9's two batches.
+   H, D resumable, J and K are timed on step 9's batches, median of three.
 4. Runs the main path at full size: a 64 MiB real-text corpus (the Python
    stdlib sources, built the way bench.py builds its corpus) through
    compress_frame_device and decompress_frame_device, at min_match=8 /
@@ -63,7 +79,22 @@
    and 16 (decoded by batch D); one round trip through
    ``python -m lz4_tpu_torch.cli -9`` and ``-d``.  Kernels I, A, B, C, E and
    both modes of D must launch, and no plain version run.
-9. Decodes a 1 MB frame written by the kernels with the plain versions.
+9. The destSize and checksum path, with its own counter reset and read, on
+   the corpus as 1,024 rows of 64 KB: kernel H at cap = max(n // 2, 64),
+   every block decoded by kernel D (batch mode, out_caps = consumed) to
+   exactly row[:consumed]; H behind a prefix (rows [block i-1 | block i],
+   cap = n // 2), decoded with block i-1 as the dictionary row, consuming no
+   less than without the prefix; kernel B's payloads of the rows decoded by
+   kernel D's resumable mode at out_caps = 32,768 and resumed, round after
+   round, with comp[cons:] and the bytes produced as dictionary rows, until
+   the joined pieces are the corpus; XXH32 and XXH64 of the 1,024 rows and
+   of the first 16 MiB as 4,096 rows of 4 KB, J equal to the host XXH32 and
+   K to its plain version on every row; the first 4 MiB as 128 KB iovecs
+   into 32 KB buffers through sg.sg_compress with kernel H as its destSize
+   compressor, and back through sg.sg_decompress (kernel E); and
+   examples/torch_port/dest_size_resume_torch.py.  Kernels H, B, D in both
+   batch variants, J, K and E must launch, and no plain version run.
+10. Decodes a 1 MB frame written by the kernels with the plain versions.
 
 Prints a JSON line of the kernels (each with the launch count of the phase
 that drives it, every phase's counts, its time on the card, its plain
@@ -88,7 +119,7 @@ MAIN_POINTS = ((8, 1, False), (4, 1, False), (8, 1, True))
 
 # name -> (route, source, the Pallas launch it replaces, the phase whose
 # launch count it reports: "main" = step 4, "entry" = step 5, "stream" =
-# step 6, "sg" = step 7, "hc" = step 8)
+# step 6, "sg" = step 7, "hc" = step 8, "destsize" = step 9)
 KERNELS = {
     "encode_linked": ("cuda", "lz4_tpu_torch/csrc/encode.cu",
                       "lz4_tpu/kernels/encode_kernel.py:744", "main"),
@@ -108,6 +139,15 @@ KERNELS = {
                         "lz4_tpu/kernels/destsize_kernel.py:594", "sg"),
     "encode_hc": ("cuda", "lz4_tpu_torch/csrc/hc.cu",
                   "lz4_tpu/kernels/hc_kernel.py:329", "hc"),
+    "encode_dest_size": ("cuda", "lz4_tpu_torch/csrc/destsize.cu",
+                         "lz4_tpu/kernels/destsize_kernel.py:273",
+                         "destsize"),
+    "decode_dest_size": ("cuda", "lz4_tpu_torch/csrc/decode.cu",
+                         "lz4_tpu/kernels/decode_kernel.py:834", "destsize"),
+    "xxh32": ("cuda", "lz4_tpu_torch/csrc/xxh.cu",
+              "lz4_tpu/kernels/xxh32_kernel.py:85", "destsize"),
+    "xxh64": ("cuda", "lz4_tpu_torch/csrc/xxh.cu",
+              "lz4_tpu/kernels/xxh64_kernel.py:129", "destsize"),
 }
 
 
@@ -733,6 +773,380 @@ def hc_phase(corpus: bytes, dev, tmp_root: Path, kernel_ms: dict) -> dict:
     return out
 
 
+# -- the destSize and checksum path (kernels H, J, K, D resumable) -----------
+DS_SAMPLE_ROWS = 8                 # batch rows held against the plain versions
+DS_SMALL_CAPS = (1, 2, 5, 6, 10, 17)
+DS_DECODE_CAP = 32768              # the resumed decode's room per round
+XXH_PAGE_BYTES, XXH_PAGE = 16 << 20, 4096      # the SG page shape
+XXH_SEEDS = (0, 1, 0x9E3779B1, (1 << 63) + 12345)
+# the SG walk over kernel H: 128 KB iovecs into 32 KB buffers.  Text takes
+# about 0.37 of its size under this parse, so a buffer holds 80-90 KB of
+# source: most blocks stop at their capacity, and many decode to more than
+# 64 KB.  (In 48 KB buffers a block often takes a whole iovec, and fewer
+# than half of the blocks are capacity stops.)
+SG_H_BYTES, SG_H_IOVEC, SG_H_OUT = 4 << 20, 128 << 10, 32 << 10
+
+
+def i32_tensor(values, dev):
+    import torch
+    return torch.tensor(list(values), dtype=torch.int32, device=dev)
+
+
+def ds_rows(buffers, prefixes, dev):
+    """Kernel H's arguments for sources behind prefixes: ([B, NS] uint8 rows
+    [prefix | source], NS a multiple of 128; src_lens; window_lens) on
+    ``dev``."""
+    from lz4_tpu_torch.device import byte_rows
+    prefixes = prefixes or [b""] * len(buffers)
+    joined = [p + b for p, b in zip(prefixes, buffers)]
+    ns = max(-(-max(map(len, joined)) // 128) * 128, 128)
+    rows, _ = byte_rows(joined, ns, dev)
+    return (rows, i32_tensor(map(len, buffers), dev),
+            i32_tensor(map(len, prefixes), dev))
+
+
+def right_rows(buffers, dev):
+    """([B, P] uint8 rows with each buffer right-aligned, [B] lengths): the
+    decoders' dictionary rows."""
+    import numpy as np
+
+    from lz4_tpu_torch.kernels.common import to_device
+    width = max(max(map(len, buffers)), 1)
+    arr = np.zeros((len(buffers), width), np.uint8)
+    for i, b in enumerate(buffers):
+        if b:
+            arr[i, width - len(b):] = np.frombuffer(b, np.uint8)
+    return (to_device(arr, dev).reshape(arr.shape),
+            i32_tensor(map(len, buffers), dev))
+
+
+def ds_small_cases(text: bytes, mixed: bytes):
+    """Kernel H's inputs at small sizes: (what, sources, caps, prefixes or
+    None, acceleration, min_match)."""
+    import torch
+
+    from lz4_tpu_torch.spec import compress_bound
+    g = torch.Generator().manual_seed(2468)
+    noise = torch.randint(0, 256, (66_000,), generator=g,
+                          dtype=torch.uint8).numpy().tobytes()
+    n = 4096
+    rows = [text[:n], bytes(n), noise[:n], mixed[:n], b"", text[:12],
+            text[:13]]
+    half = [len(r) // 2 for r in rows]
+    cases = [(f"7 small rows, cap {cap}", rows, [cap] * len(rows), None, 1, 4)
+             for cap in DS_SMALL_CAPS]
+    cases += [
+        ("7 small rows, cap n/2", rows, half, None, 1, 4),
+        ("7 small rows, cap compress_bound(n)", rows,
+         [compress_bound(len(r)) for r in rows], None, 1, 4),
+        ("7 small rows, cap n/2, min_match 8", rows, half, None, 1, 8),
+        ("7 small rows, cap n/2, acceleration 2", rows, half, None, 2, 4),
+    ]
+    plens = (1, 3, 4, 7, 100, n, W)
+    cases.append((
+        f"prefixes of {plens} bytes, cap n/2",
+        [text[W + k:W + k + n] for k in plens], [n // 2] * len(plens),
+        [text[W:W + k] for k in plens], 1, 4))
+    cases.append(("prefixes before rows of 0, 12 and 13 bytes", rows[4:],
+                  [64] * 3, [text[:100]] * 3, 1, 4))
+    big = text[:256 << 10]
+    cases.append(("256 KB rows (n == NS), cap n/2 and compress_bound",
+                  [big, big], [len(big) // 2, compress_bound(len(big))], None,
+                  1, 4))
+    wrap = noise + text[:8000]
+    caps = [65_290, 65_296, 65_300, 65_560, 66_270, 80_000]
+    cases.append(("66,000 bytes of noise, then text: literal runs of 65,295 "
+                  "and more", [wrap] * len(caps), caps, None, 1, 4))
+    return cases
+
+
+def corpus_rows(corpus: bytes, dev):
+    """The corpus as [rows, 64 KB] uint8 on ``dev`` with its lengths."""
+    import torch
+    rows = torch.frombuffer(bytearray(corpus), dtype=torch.uint8) \
+        .reshape(len(corpus) // W, W).to(dev)
+    return rows, torch.full((rows.shape[0],), W, dtype=torch.int32,
+                            device=dev)
+
+
+def prefix_rows(rows):
+    """Rows [block i-1 | block i] of the corpus rows, for i >= 1, with their
+    source and prefix lengths (64 KB each)."""
+    import torch
+    joined = torch.cat([rows[:-1], rows[1:]], dim=1).contiguous()
+    full = torch.full((joined.shape[0],), W, dtype=torch.int32,
+                      device=rows.device)
+    return joined, full, full.clone()
+
+
+def kernel_b_payloads(rows, lens, group: int = 64):
+    """Kernel B's payloads of every row ([B, M] uint8, [B] int32), encoded
+    ``group`` rows at a time as the file layer does (the candidate tables
+    of more rows at once take gigabytes)."""
+    import torch
+
+    from lz4_tpu_torch.kernels import encode_kernel as enc
+    parts = [enc.encode_blocks(rows[i:i + group], lens[i:i + group])
+             for i in range(0, rows.shape[0], group)]
+    return (torch.cat([o for o, _ in parts]),
+            torch.cat([n for _, n in parts]))
+
+
+def event_ms(fn):
+    """(fn's result, its CUDA-event ms)."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return res, a.elapsed_time(b)
+
+
+def resume_decode(comp, clen, cap: int, width: int, timer=None):
+    """Decode every row of ``comp`` ([B, M] payloads, each decoding to at
+    most ``width`` <= 64 KB bytes) in pieces of at most ``cap`` bytes with
+    decode_blocks_dest_size: every round is fed comp[cons:] and the bytes
+    produced so far as dictionary rows, until every row's source is used
+    up.  A round in which no row moves (every sequence left is longer than
+    the room) doubles the room of the next, as a caller with a larger
+    buffer would.  Works on the card and, with CPU tensors, on the plain
+    version.  Returns (out [B, width], produced [B], per-round (ms or None,
+    room, rows still decoding, bytes produced)); raises on a corrupt row or
+    when a round with ``width`` bytes of room moves nothing."""
+    import torch
+
+    from lz4_tpu_torch.kernels import decode_kernel as dec
+    B, M = comp.shape
+    dev = comp.device
+    pos = torch.zeros((B,), dtype=torch.int64, device=dev)
+    done = torch.zeros((B,), dtype=torch.int64, device=dev)
+    total = torch.zeros((B, width), dtype=torch.uint8, device=dev)
+    col_m = torch.arange(M, device=dev)
+    col_w = torch.arange(width, device=dev)
+    rounds = []
+    while True:
+        left = clen.long() - pos
+        live = int((left > 0).sum())
+        if not live:
+            return total, done, rounds
+        src = comp.gather(1, (col_m[None] + pos[:, None]).clamp(max=M - 1))
+        # row i's dictionary: its done[i] bytes, right-aligned
+        dict_rows = total.gather(
+            1, (col_w[None] - (width - done[:, None])).clamp(min=0))
+        args = (src, left.int(), torch.full((B,), cap, dtype=torch.int32,
+                                            device=dev), cap, dict_rows,
+                done.int())
+        if timer is None:
+            (out, olen, cons), ms = dec.decode_blocks_dest_size(*args), None
+        else:
+            (out, olen, cons), ms = timer(
+                lambda: dec.decode_blocks_dest_size(*args))
+        moved = bool((cons > 0).any())
+        if bool((olen < 0).any()) or not (moved or cap < width):
+            raise SmokeFailure("resumed decode: a corrupt row, or a round "
+                               "without progress")
+        r, c = (col_w[None, :cap] < olen[:, None]).nonzero(as_tuple=True)
+        total[r, done[r] + c] = out[r, c]
+        done += olen
+        pos += cons
+        rounds.append((ms, cap, live, int(olen.sum())))
+        if not moved:
+            cap = min(2 * cap, width)
+
+
+def kernel_h_dest_size(dev, tally: dict):
+    """A destSize compressor over kernel H for sg.sg_compress: [window |
+    piece] in one row, the window as the row's prefix.  Counts its blocks
+    and its capacity stops (blocks that cover less than their piece) in
+    ``tally``."""
+    import numpy as np
+
+    from lz4_tpu_torch.kernels import destsize_kernel as dsk
+    from lz4_tpu_torch.kernels.common import to_device, to_host
+    ns = W + SG_H_IOVEC
+
+    def compress(src, capacity, dict_, acceleration):
+        row = np.zeros((ns,), np.uint8)
+        row[:len(dict_) + len(src)] = np.frombuffer(dict_ + src, np.uint8)
+        out, olen, consumed = dsk.encode_blocks_dest_size(
+            to_device(row, dev).reshape(1, ns), i32_tensor([len(src)], dev),
+            i32_tensor([capacity], dev), acceleration,
+            window_lens=i32_tensor([len(dict_)], dev))
+        used = int(consumed[0])
+        tally["blocks"] = tally.get("blocks", 0) + 1
+        tally["stops"] = tally.get("stops", 0) + (used < len(src))
+        return used, to_host(out[0, :int(olen[0])]).tobytes()
+
+    return compress
+
+
+def sg_h_layout(corpus: bytes):
+    """(input iovecs, output caps) of the SG walk over kernel H."""
+    data = corpus[:SG_H_BYTES]
+    ins = [data[i:i + SG_H_IOVEC] for i in range(0, len(data), SG_H_IOVEC)]
+    return ins, [SG_H_OUT] * (len(data) // SG_H_OUT + 2)
+
+
+def xxh_pages(rows):
+    """The first 16 MiB of the corpus rows as rows of 4 KB with lengths."""
+    import torch
+    pages = rows.reshape(-1)[:XXH_PAGE_BYTES].reshape(-1, XXH_PAGE)
+    return pages, torch.full((pages.shape[0],), XXH_PAGE, dtype=torch.int32,
+                             device=rows.device)
+
+
+def destsize_phase(corpus: bytes, dev) -> dict:
+    """The destSize and checksum path at full size, through the kernel-level
+    entry points its users call (see step 9 of the module's docstring).
+    Every decoded byte must equal its source.  Returns the measured
+    numbers."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from lz4_tpu_torch import sg
+    from lz4_tpu_torch.kernels import decode_kernel as dec
+    from lz4_tpu_torch.kernels import destsize_kernel as dsk
+    from lz4_tpu_torch.kernels.xxh32_kernel import xxh32_batch
+    from lz4_tpu_torch.kernels.xxh64_kernel import (xxh64_batch,
+                                                    xxh64_rows_plain)
+    from lz4_tpu_torch.ops.xxhash import xxh32
+
+    out = {}
+    rows, lens = corpus_rows(corpus, dev)
+    nrows = rows.shape[0]
+
+    def check_blocks(what, src_rows, blocks, olen, consumed, caps, dicts):
+        """Kernel D (batch mode) decodes every block, with out_caps =
+        consumed, to exactly the first consumed bytes of its source."""
+        if bool((olen > caps).any()) or bool((olen <= 0).any()):
+            raise SmokeFailure(f"destsize phase: {what}: a block passes its "
+                               "capacity or is empty")
+        d_out, d_len = dec.decode_blocks(blocks, olen, W, out_caps=consumed,
+                                         **dicts)
+        cols = torch.arange(W, device=dev)[None]
+        same = (d_out == src_rows) | (cols >= consumed[:, None])
+        if not torch.equal(d_len, consumed) or not bool(same.all()):
+            raise SmokeFailure(f"destsize phase: {what}: a block does not "
+                               "decode to row[:consumed]")
+
+    # H at cap = max(n // 2, 64), as the encode_dest_size cell of fullbench.py
+    caps = torch.clamp(lens // 2, min=64)
+    (blocks, olen, consumed), ms = event_ms(
+        lambda: dsk.encode_blocks_dest_size(rows, lens, caps))
+    check_blocks("cap n/2", rows, blocks, olen, consumed, caps, {})
+    plain_total = int(consumed[1:].sum())
+    out["h_half"] = {"ms": ms, "consumed": int(consumed.sum()),
+                     "olen": int(olen.sum())}
+    log(f"[destsize] kernel H, {nrows} rows of 64 KB, cap n/2: {ms:.3f} ms, "
+        f"consumed {int(consumed.sum())} / olen {int(olen.sum())} = "
+        f"{int(consumed.sum()) / int(olen.sum()):.4f}; every block decodes "
+        "(kernel D, batch mode) to row[:consumed]")
+    # H behind a prefix: rows [block i-1 | block i]
+    joined, slens, wlens = prefix_rows(rows)
+    caps = slens // 2
+    (blocks, olen, consumed), ms = event_ms(
+        lambda: dsk.encode_blocks_dest_size(joined, slens, caps,
+                                            window_lens=wlens))
+    check_blocks("prefixes", rows[1:], blocks, olen, consumed, caps,
+                 {"dict_rows": rows[:-1], "dict_lens": wlens})
+    if int(consumed.sum()) < plain_total:
+        raise SmokeFailure("destsize phase: the prefix made the blocks cover "
+                           "less source")
+    out["h_prefix"] = {"ms": ms, "consumed": int(consumed.sum()),
+                       "olen": int(olen.sum()),
+                       "consumed_without_prefix": plain_total}
+    log(f"[destsize] kernel H, {nrows - 1} rows [block i-1 | block i], cap "
+        f"n/2: {ms:.3f} ms, consumed {int(consumed.sum())} (without the "
+        f"prefix {plain_total}) / olen {int(olen.sum())} = "
+        f"{int(consumed.sum()) / int(olen.sum()):.4f}; every block decodes "
+        "with block i-1 as its dictionary row")
+    del joined, blocks
+
+    # D resumable: kernel B's payloads, 32 KB of room per round
+    comp, clen = kernel_b_payloads(rows, lens)
+    got, produced, rounds = resume_decode(comp, clen, DS_DECODE_CAP, W,
+                                          timer=event_ms)
+    if not torch.equal(got, rows) or not bool((produced == W).all()):
+        raise SmokeFailure("destsize phase: the resumed decode's pieces are "
+                           "not the corpus")
+    out["resume"] = {"rounds": [{"ms": ms, "room": c, "rows": n, "bytes": b}
+                                for ms, c, n, b in rounds]}
+    log(f"[destsize] kernel D resumable, kernel B's {nrows} payloads at "
+        f"out_caps {DS_DECODE_CAP}, resumed with dictionary rows: "
+        f"{len(rounds)} rounds, " + ", ".join(
+            f"{ms:.3f} ms ({n} rows, {b} bytes)" for ms, _, n, b in rounds)
+        + "; the joined pieces are the corpus")
+    del comp, got
+
+    # J and K on the corpus rows and on 4 KB pages
+    rows_h = rows.cpu().numpy()
+    for what, (r, n) in (("rows of 64 KB", (rows, lens)),
+                         ("pages of 4 KB", xxh_pages(rows))):
+        h32, ms32 = event_ms(lambda: xxh32_batch(r, n))
+        h64, ms64 = event_ms(lambda: xxh64_batch(r, n))
+        width = r.shape[1]
+        flat = rows_h.reshape(-1)[:r.numel()]
+        host = np.array([xxh32(flat[i:i + width].tobytes(), 0)
+                         for i in range(0, len(flat), width)], np.uint32)
+        plain = xxh64_rows_plain(flat.reshape(-1, width), n.cpu().numpy(), 0)
+        if not np.array_equal(h32, host) or not np.array_equal(h64, plain):
+            raise SmokeFailure(f"destsize phase: a digest differs ({what})")
+        out[f"xxh {what}"] = {"xxh32_ms": ms32, "xxh64_ms": ms64,
+                              "rows": len(h32)}
+        log(f"[destsize] {len(h32)} {what}: xxh32_batch {ms32:.3f} ms "
+            f"({r.numel() / 1e6 / ms32:.1f} GB/s with the fetch), equal to "
+            f"the host XXH32 of every row; xxh64_batch {ms64:.3f} ms "
+            f"({r.numel() / 1e6 / ms64:.1f} GB/s), equal to its plain "
+            "version on every row")
+
+    # H as the compressor of an SG walk; kernel E decodes its chain
+    ins, caps = sg_h_layout(corpus)
+    tally = {}
+    t0 = time.perf_counter()
+    total, used, outs = sg.sg_compress(
+        ins, caps, dest_size_compress=kernel_h_dest_size(dev, tally),
+        device=dev)
+    t_c = time.perf_counter() - t0
+    content = sum(map(len, ins))
+    if used != content or total <= 0:
+        raise SmokeFailure(f"destsize phase: the SG walk over kernel H "
+                           f"compressed {used} of {content} bytes")
+    t0 = time.perf_counter()
+    n, back = sg.sg_decompress(filled(outs, caps, total),
+                               [len(b) for b in ins], device=dev)
+    t_d = time.perf_counter() - t0
+    if n != content or back != ins:
+        raise SmokeFailure("destsize phase: the SG walk over kernel H does "
+                           "not round-trip")
+    if 2 * tally["stops"] <= tally["blocks"]:
+        raise SmokeFailure(f"destsize phase: only {tally['stops']} of "
+                           f"{tally['blocks']} SG blocks stopped at their "
+                           "capacity")
+    out["sg_h"] = {"compress_s": t_c, "decompress_s": t_d, **tally,
+                   "frame_bytes": total, "content_bytes": content}
+    log(f"[destsize] SG walk over kernel H, {len(ins)} x 128 KB -> "
+        f"{SG_H_OUT >> 10} KB buffers: {total} bytes (ratio "
+        f"{total / content:.6f}), {tally['blocks']} blocks, "
+        f"{tally['stops']} capacity stops, sg_compress {t_c:.3f} s, "
+        f"sg_decompress (kernel E) {t_d:.3f} s, byte-exact")
+
+    # the example, in this process
+    script = REPO / "examples" / "torch_port" / "dest_size_resume_torch.py"
+    spec = importlib.util.spec_from_file_location("dest_size_resume_torch",
+                                                  script)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    if example.main(["--device", str(dev)]) != 0:
+        raise SmokeFailure("examples/torch_port/dest_size_resume_torch.py "
+                           "failed")
+    return out
+
+
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 rate (NVIDIA data sheet)
 
 
@@ -840,6 +1254,20 @@ def main() -> int:
         t = time.perf_counter()
         res = fn()
         return res, (time.perf_counter() - t) * 1e3
+
+    def time_rounds(fn, rounds=3):
+        """CUDA-event ms of ``rounds`` single launches."""
+        out = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b))
+        return out
 
     t0 = time.perf_counter()
     corpus = real_text_corpus(CORPUS_BYTES)
@@ -971,7 +1399,7 @@ def main() -> int:
             set_bound("encode", int(blens.sum()) + 4 * (
                 delta.numel() + jump.numel() + 64), int(k[1].sum()))
         cmp_rows("encode", f"64 rows of <= 64 KB mm={mm}", *k, *p)
-    b_out, b_olen = k
+    b_out, b_olen, b_src_lens = *k, blens
     db_args = (b_out, b_olen, W)
     stats["decode_batch"]["ms"] = time_card(
         lambda: dec.decode_blocks(*db_args))
@@ -1195,20 +1623,6 @@ def main() -> int:
         return (flat.to(cuda), bstart, clen, sizes), (flat, bstart, clen,
                                                       sizes)
 
-    def time_rounds(fn, rounds=3):
-        """CUDA-event ms of ``rounds`` single launches."""
-        out = []
-        for _ in range(rounds):
-            torch.cuda.synchronize()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            out.append(a.elapsed_time(b))
-        return out
-
     mixed_sg = mixed_bytes(600_000, corpus[:1 << 20], 77)
     for what, ins, caps, acc, mm in sg_chain_cases(corpus, mixed_sg):
         card, cpu = chain_args(ins, caps, acc, mm)
@@ -1341,6 +1755,237 @@ def main() -> int:
             f"{hc_phase_ms[lv]:.3f}" for lv in SWEEP_LEVELS) + " ms")
     del hc_rows_h, hc_args, hc_d48, k, p
 
+    # -- 3i. kernels H, J, K and D resumable: small cases, sampled rows, times
+    def cmp_third(kernel, what, k, p):
+        """cmp_rows on (out, olen), and the third result (consumed or cons)
+        equal too."""
+        cmp_rows(kernel, what, k[0], k[1], p[0], p[1])
+        err = int((k[2].cpu().long() - p[2].long()).abs().max()) \
+            if len(p[2]) else 0
+        stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"], err)
+        if err:
+            raise SmokeFailure(f"{kernel}: consumed counts differ from the "
+                               f"plain version's on {what}")
+
+    def cmp_dest_size(what, bufs, caps, prefixes, acc, mm):
+        """Kernel H against its plain version on one batch, then every
+        block through kernel D (batch mode, the prefix as its dictionary
+        row) against the plain decoder, back to the consumed source."""
+        k_args = ds_rows(bufs, prefixes, cuda)
+        p_args = ds_rows(bufs, prefixes, "cpu")
+        k = dsk.encode_blocks_dest_size(
+            k_args[0], k_args[1], i32_tensor(caps, cuda), acc,
+            window_lens=k_args[2], min_match=mm)
+        p = dsk.encode_blocks_dest_size(
+            p_args[0], p_args[1], i32_tensor(caps, "cpu"), acc,
+            window_lens=p_args[2], min_match=mm)
+        cmp_third("encode_dest_size", what, k, p)
+        width = max(max(map(len, bufs)), 1)
+        pre = prefixes or [b""] * len(bufs)
+        dk = dec.decode_blocks(k[0], k[1], width, k[2],
+                               *right_rows(pre, cuda))
+        dp = dec.decode_blocks(p[0], p[1], width, p[2],
+                               *right_rows(pre, "cpu"))
+        cmp_rows("decode_batch", f"{what}: H's blocks, dictionary rows",
+                 *dk, *dp)
+        for i, (b, n) in enumerate(zip(bufs, p[2].tolist())):
+            # (a capacity under 1 leaves no block to decode)
+            if int(p[1][i]) and (int(dp[1][i]) != n or
+                                 dp[0][i, :n].numpy().tobytes() != b[:n]):
+                raise SmokeFailure(f"{what}: block {i} does not decode to "
+                                   "its consumed source")
+
+    for case in ds_small_cases(corpus, mixed):
+        cmp_dest_size(*case)
+
+    def cmp_resumable(what, rows_c, lens_c, cap, dicts=()):
+        """Kernel D's resumable mode against its plain version on CPU
+        tensors and their copies on the card, every row at ``cap``;
+        returns the plain version's (olen, cons) pairs."""
+        caps = i32_tensor([cap] * len(lens_c), "cpu")
+        k = dec.decode_blocks_dest_size(
+            rows_c.to(cuda), lens_c.to(cuda), caps.to(cuda), W,
+            *(t.to(cuda) for t in dicts))
+        p = dec.decode_blocks_dest_size(rows_c, lens_c, caps, W, *dicts)
+        cmp_third("decode_dest_size", f"{what}, cap {cap}", k, p)
+        return list(zip(p[1].tolist(), p[2].tolist()))
+
+    # D resumable on kernel B's 64 rows (3d), at several caps
+    b_cpu = (b_out.cpu(), b_olen.cpu())
+    for cap in (0, 1, 100, 1000, DS_DECODE_CAP, W):
+        cmp_resumable("kernel B's 64 rows", *b_cpu, cap)
+    # their resumed rounds, which decode against dictionary rows
+    k_total, k_done, k_rounds = resume_decode(b_out, b_olen, 10_000, W)
+    p_total, p_done, p_rounds = resume_decode(*b_cpu, 10_000, W)
+    if k_rounds != p_rounds:
+        raise SmokeFailure("the resumed decode's rounds differ from the "
+                           "plain version's")
+    cmp_rows("decode_dest_size", f"kernel B's 64 rows resumed in "
+             f"{len(p_rounds)} rounds of 10,000 bytes or more (dictionary "
+             "rows)",
+             k_total, k_done.int(), p_total, p_done.int())
+    if not torch.equal(p_done.int(), b_src_lens):
+        raise SmokeFailure("the resumed rows do not decode to their lengths")
+    # an offset of 0, a block cut after its last match, and the same block
+    # cut one byte earlier (inside a sequence)
+    row0 = b_cpu[0][0, :int(b_cpu[1][0])].numpy().tobytes()
+    zero_off = bytearray(row0)
+    run, at = row0[0] >> 4, 1
+    if run == 15:
+        run, at = _ext(row0, at, run)
+    at += run                           # the first sequence's offset
+    zero_off[at] = zero_off[at + 1] = 0
+    cut = terminal_literals(row0)
+    odd = D.byte_rows([bytes(zero_off), row0[:cut], row0[:cut - 1], b""],
+                      len(row0), "cpu")
+    for cap in (W, 3000):
+        verdicts = cmp_resumable("offset 0, cut after a match, cut in a "
+                                 "sequence, empty", *odd, cap)
+        if verdicts[0] != (-1, -1) or verdicts[3] != (0, 0) or (
+                cap == W and (verdicts[1][1] != cut
+                              or verdicts[2] != (-1, -1))):
+            raise SmokeFailure(f"resumable verdicts {verdicts} at cap {cap}")
+    for what, rows_c, lens_c, cap in (
+            ("48 corrupted streams", bad, bad_lens, W),
+            ("48 corrupted streams", bad, bad_lens, 1000),
+            ("64 rows of noise", noise, noise_lens, W)):
+        cmp_resumable(f"{what} behind a dictionary", rows_c, lens_c, cap,
+                      right_rows([row0[:777]] * len(lens_c), "cpu"))
+
+    # J and K: every length 0..70 (rows 8-aligned, and not), ragged rows
+    from lz4_tpu_torch.kernels.xxh32_kernel import xxh32_batch
+    from lz4_tpu_torch.kernels.xxh64_kernel import xxh64_batch
+    from lz4_tpu_torch.ops.xxhash import xxh32 as host_xxh32
+
+    def cmp_xxh(what, bufs, width, seed):
+        """J and K against their plain versions on ``bufs`` in rows of
+        ``width`` bytes, and J against the host XXH32 of every buffer."""
+        rows_c, lens_c = D.byte_rows(bufs, width, "cpu")
+        for kernel, fn in (("xxh32", xxh32_batch), ("xxh64", xxh64_batch)):
+            k = fn(rows_c.to(cuda), lens_c.to(cuda), seed)
+            p = fn(rows_c, lens_c, seed)
+            err = int((k != p).sum())
+            stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"],
+                                               err)
+            log(f"[compare] {kernel:14s} {what}, seed {seed:#x}: rows="
+                f"{len(p)} differing digests={err}")
+            if err:
+                raise SmokeFailure(f"{kernel} disagrees with its plain "
+                                   f"version on {what}")
+            if kernel == "xxh32" and k.tolist() != [
+                    host_xxh32(b, seed & 0xFFFFFFFF) for b in bufs]:
+                raise SmokeFailure(f"xxh32_batch differs from the host "
+                                   f"XXH32 on {what}")
+
+    ragged = [0, 1, 3, 4, 5, 15, 16, 17, 31, 32, 33, 63, 64, 100, 1000, 4096,
+              65536, 65537, 100001]
+    for seed in XXH_SEEDS:
+        for width in (72, 77):           # 77: rows start at odd addresses
+            cmp_xxh(f"lengths 0..70 in rows of {width}",
+                    [mixed[1000 + n:1000 + 2 * n] for n in range(71)], width,
+                    seed)
+        cmp_xxh("ragged rows up to 100,001 bytes",
+                [corpus[i * 1000:i * 1000 + n] for i, n in enumerate(ragged)],
+                max(ragged), seed)
+
+    # the corpus batches of the destsize phase: sampled rows against the
+    # plain versions, and the times (median of three single launches)
+    ds_rows_d, ds_lens = corpus_rows(corpus, cuda)
+    nrows = ds_rows_d.shape[0]
+    sample = sorted({round(i * (nrows - 2) / (DS_SAMPLE_ROWS - 1))
+                     for i in range(DS_SAMPLE_ROWS)})
+    idx = torch.tensor(sample, device=cuda)
+    half = torch.clamp(ds_lens // 2, min=64)
+    h_args = (ds_rows_d, ds_lens, half)
+    k = dsk.encode_blocks_dest_size(*h_args)
+    p, h_plain = time_host(lambda: dsk.encode_blocks_dest_size(
+        *(t[idx].cpu() for t in h_args)))
+    cmp_third("encode_dest_size", f"corpus rows {sample} of {nrows}, cap "
+              "n/2", [t[idx] for t in k], p)
+    h_ms = time_rounds(lambda: dsk.encode_blocks_dest_size(*h_args))
+    stats["encode_dest_size"].update(
+        ms=sorted(h_ms)[1], ms_rounds=h_ms, plain_ms=h_plain,
+        plain_rows=len(sample))
+    # the rows as far as consumed and three lengths per row in; blocks,
+    # olen and consumed out
+    set_bound("encode_dest_size", int(k[2].sum()) + 12 * nrows,
+              int(k[1].sum()) + 8 * nrows)
+    joined, j_slens, j_wlens = prefix_rows(ds_rows_d)
+    hp_args = (joined, j_slens, j_slens // 2, 1, j_wlens)
+    kp = dsk.encode_blocks_dest_size(*hp_args)
+    pp, hp_plain = time_host(lambda: dsk.encode_blocks_dest_size(
+        *(t[idx].cpu() if isinstance(t, torch.Tensor) else t
+          for t in hp_args)))
+    cmp_third("encode_dest_size", f"rows [block i-1 | block i] {sample}, "
+              "cap n/2", [t[idx] for t in kp], pp)
+    dk = dec.decode_blocks(kp[0][idx], kp[1][idx], W, kp[2][idx],
+                           ds_rows_d[idx], j_wlens[idx])
+    dp = dec.decode_blocks(pp[0], pp[1], W, pp[2], ds_rows_d[idx].cpu(),
+                           j_wlens[idx].cpu())
+    cmp_rows("decode_batch", f"H's blocks of rows {sample}, block i-1 as "
+             "the dictionary row", *dk, *dp)
+    hp_ms = time_rounds(lambda: dsk.encode_blocks_dest_size(*hp_args))
+    stats["encode_dest_size"].update(
+        ms_prefix=sorted(hp_ms)[1], ms_rounds_prefix=hp_ms,
+        plain_ms_prefix=hp_plain)
+    del joined, kp, pp, k, p
+    # D resumable, first round: kernel B's payloads at out_caps 32,768
+    ds_comp, ds_clen = kernel_b_payloads(ds_rows_d, ds_lens)
+    r_args = (ds_comp, ds_clen, i32_tensor([DS_DECODE_CAP] * nrows, cuda),
+              DS_DECODE_CAP)
+    k = dec.decode_blocks_dest_size(*r_args)
+    p, r_plain = time_host(lambda: dec.decode_blocks_dest_size(
+        *(t[idx].cpu() for t in r_args[:3]), DS_DECODE_CAP))
+    cmp_third("decode_dest_size", f"kernel B's payloads of corpus rows "
+              f"{sample}, cap {DS_DECODE_CAP}", [t[idx] for t in k], p)
+    r_ms = time_rounds(lambda: dec.decode_blocks_dest_size(*r_args))
+    stats["decode_dest_size"].update(
+        ms=sorted(r_ms)[1], ms_rounds=r_ms, plain_ms=r_plain,
+        plain_rows=len(sample))
+    # the payload bytes consumed, and a length and a cap per row in; the
+    # bytes produced, olen and cons out
+    set_bound("decode_dest_size", int(k[2].sum()) + 8 * nrows,
+              int(k[1].sum()) + 8 * nrows)
+    del ds_comp, k, p
+    # J and K on the rows and on 4 KB pages, every row against the plain
+    for shape, (r, n) in (("rows", (ds_rows_d, ds_lens)),
+                          ("pages", xxh_pages(ds_rows_d))):
+        r_h, n_h = r.cpu(), n.cpu()
+        for kernel, fn in (("xxh32", xxh32_batch), ("xxh64", xxh64_batch)):
+            p, plain_ms = time_host(lambda: fn(r_h, n_h, 0))
+            err = int((fn(r, n, 0) != p).sum())
+            stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"],
+                                               err)
+            log(f"[compare] {kernel:14s} {len(p)} corpus {shape} of "
+                f"{r.shape[1]} bytes: differing digests={err}")
+            if err:
+                raise SmokeFailure(f"{kernel} disagrees with its plain "
+                                   f"version on the corpus {shape}")
+            rounds = time_rounds(lambda: fn(r, n, 0))
+            tag = "" if shape == "rows" else "_pages"
+            stats[kernel].update({"ms" + tag: sorted(rounds)[1],
+                                  "ms_rounds" + tag: rounds,
+                                  "plain_ms" + tag: plain_ms})
+            if shape == "rows":
+                # the rows and their lengths in, one digest per row out
+                set_bound(kernel, r.numel() + 4 * nrows,
+                          (4 if kernel == "xxh32" else 8) * nrows)
+    mb = len(corpus) / 1e3
+    log(f"[time] encode_dest_size (kernel H), {nrows} rows of 64 KB, cap "
+        f"n/2: rounds {[round(t, 3) for t in h_ms]} ms "
+        f"({mb / sorted(h_ms)[1]:.1f} MB/s of rows), behind 64 KB prefixes "
+        f"{[round(t, 3) for t in hp_ms]} ms; plain version {h_plain:.1f} ms "
+        f"and {hp_plain:.1f} ms on {len(sample)} rows; decode_dest_size (D "
+        f"resumable), first round at {DS_DECODE_CAP}: rounds "
+        f"{[round(t, 3) for t in r_ms]} ms, plain {r_plain:.1f} ms on "
+        f"{len(sample)} rows; " + "; ".join(
+            f"{k} {stats[k]['ms']:.3f} ms ({mb / 1e3 / stats[k]['ms']:.1f} "
+            f"GB/s) on the rows, {stats[k]['ms_pages']:.3f} ms on "
+            f"{XXH_PAGE_BYTES >> 20} MiB of 4 KB pages, each with its fetch "
+            f"(plain version {stats[k]['plain_ms']:.1f} ms on the rows)"
+            for k in ("xxh32", "xxh64")))
+    del ds_rows_d
+
     def phase_counts(phase, need):
         """Read the counters after a phase: every kernel in ``need`` must
         have launched and no plain version may have run."""
@@ -1426,7 +2071,14 @@ def main() -> int:
         "encode_hc", "pack", "encode", "encode_linked", "decode_stream",
         "decode_linked", "decode_batch"])
 
-    # -- 9. the plain decoder reads a frame the kernels wrote -----------------
+    # -- 9. the destSize and checksum path at full size -----------------------
+    common.reset_counts()
+    ds_times = destsize_phase(corpus, cuda)
+    counts["destsize"] = phase_counts("destsize path", [
+        "encode_dest_size", "decode_dest_size", "decode_batch", "encode",
+        "xxh32", "xxh64", "decode_stream"])
+
+    # -- 10. the plain decoder reads a frame the kernels wrote ----------------
     data = corpus[8 << 20:9 << 20]
     frame = D.compress_frame_device(data, FramePreferences(block_size_id=4),
                                     min_match=8)
@@ -1443,7 +2095,8 @@ def main() -> int:
          "launches_by_phase": {p: c[k] for p, c in counts.items()},
          **stats[k]}
         for k, (route, src, rep, phase) in KERNELS.items()],
-        "sg_phase": sg_times, "hc_phase": hc_times}
+        "sg_phase": sg_times, "hc_phase": hc_times,
+        "destsize_phase": ds_times}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,9 +1,12 @@
-// Safe LZ4 block decoder: kernel D, modes `linked` and `batch`.
+// Safe LZ4 block decoder: kernel D, modes `linked` and `batch`, the latter
+// with optional dictionary rows and in its resumable (destSize) variant.
 //
 // Replaces the Pallas kernel lz4_tpu/kernels/decode_kernel.py
 // _make_decode_kernel (launched by _decode_blocks) in mode "linked"
-// (decode_blocks_linked) and mode "batch" without dictionary rows
-// (decode_blocks).  Semantics of its general path (slow_seq): the literal
+// (decode_blocks_linked), in mode "batch" (decode_blocks) and with
+// resumable=True (decode_blocks_dest_size: a row that runs out of room
+// stops at a token boundary and reports the bytes produced and consumed).
+// Semantics of its general path (slow_seq): the literal
 // run must lie inside clen, a run ending exactly at clen ends the block,
 // otherwise the offset must lie in (0, opos + plen] and the output must fit
 // min(ocap, N); anything else gives -1.  Every load is checked against clen
@@ -45,15 +48,26 @@ __global__ void decode_linked_kernel(const uint8_t* comp, int M,
   }
 }
 
+// Row b's dictionary is right-aligned in dict[b * P, (b + 1) * P); `dict`
+// may be null (no dictionary).  RESUMABLE writes cons[b] too.
+template <bool RESUMABLE>
 __global__ void decode_batch_kernel(const uint8_t* comp, int M,
                                     const int32_t* clen, const int32_t* ocap,
-                                    uint8_t* out, int N, int32_t* olen) {
+                                    const uint8_t* dict, int P,
+                                    const int32_t* dict_lens, uint8_t* out,
+                                    int N, int32_t* olen, int32_t* cons) {
   const int b = blockIdx.x;
   const int n = min(max(clen[b], 0), M);
-  const int r = decode_block(comp + (long long)b * M, n,
-                             out + (long long)b * N, min(ocap[b], N),
-                             nullptr, 0, threadIdx.x);
-  if (threadIdx.x == 0) olen[b] = r;
+  const int plen = dict ? min(max(dict_lens[b], 0), P) : 0;
+  const uint8_t* win_end = dict ? dict + (long long)(b + 1) * P : nullptr;
+  int c = 0;
+  const int r = decode_block_t<RESUMABLE>(
+      comp + (long long)b * M, n, out + (long long)b * N, min(ocap[b], N),
+      win_end, plen, threadIdx.x, RESUMABLE ? &c : nullptr);
+  if (threadIdx.x == 0) {
+    olen[b] = r;
+    if (RESUMABLE) cons[b] = c;
+  }
 }
 
 }  // namespace
@@ -69,12 +83,21 @@ extern "C" int lz4tt_decode_linked(const uint8_t* comp, int M,
   return (int)cudaGetLastError();
 }
 
+// cons selects the resumable decoder (null: a row that does not fit its
+// cap reports -1); dict may be null.
 extern "C" int lz4tt_decode_batch(const uint8_t* comp, int M,
                                   const int32_t* clen, const int32_t* ocap,
-                                  uint8_t* out, int N, int32_t* olen, int B,
+                                  const uint8_t* dict, int P,
+                                  const int32_t* dict_lens, uint8_t* out,
+                                  int N, int32_t* olen, int32_t* cons, int B,
                                   void* cuda_stream) {
-  if (B > 0)
-    decode_batch_kernel<<<B, WARP, 0, (cudaStream_t)cuda_stream>>>(
-        comp, M, clen, ocap, out, N, olen);
+  if (B > 0) {
+    if (cons)
+      decode_batch_kernel<true><<<B, WARP, 0, (cudaStream_t)cuda_stream>>>(
+          comp, M, clen, ocap, dict, P, dict_lens, out, N, olen, cons);
+    else
+      decode_batch_kernel<false><<<B, WARP, 0, (cudaStream_t)cuda_stream>>>(
+          comp, M, clen, ocap, dict, P, dict_lens, out, N, olen, cons);
+  }
   return (int)cudaGetLastError();
 }

@@ -34,31 +34,55 @@ __device__ __forceinline__ bool read_ext(const uint8_t* src, int n, int* ip,
 // arguments except `lane`.  The literal run must lie inside n, and a run
 // that ends exactly at n ends the block; otherwise the offset must lie in
 // (0, opos + plen] and the output must fit olim.
-__device__ int decode_block(const uint8_t* src, int n, uint8_t* out, int olim,
-                            const uint8_t* win_end, int plen, int lane) {
+//
+// RESUMABLE is the destSize decode: a whole sequence is parsed and
+// validated first (anything malformed gives -1 and *cons = -1), and only
+// then held against the room.  A sequence that does not fit olim is not
+// started: the block stops at its token, returns the bytes produced so far
+// and sets *cons to the token's offset.  A block that ends, with its
+// terminal literal run or exactly after a match, sets *cons = n.  Without
+// RESUMABLE the order of the checks does not show (every failure is -1),
+// `cons` is not touched, and the compiled decoder is the one it was.
+template <bool RESUMABLE>
+__device__ int decode_block_t(const uint8_t* src, int n, uint8_t* out,
+                              int olim, const uint8_t* win_end, int plen,
+                              int lane, int* cons) {
   int ip = 0, opos = 0;
+  auto malformed = [&]() {
+    if (RESUMABLE) *cons = -1;
+    return -1;
+  };
   while (ip < n) {
+    const int ip0 = ip;
     const int token = src[ip++];
     int litlen = token >> 4;
-    if (litlen == 15 && !read_ext(src, n, &ip, &litlen)) return -1;
+    if (litlen == 15 && !read_ext(src, n, &ip, &litlen)) return malformed();
     const long long ip_after = (long long)ip + litlen;
-    if (ip_after > n) return -1;                  // literals past clen
-    if ((long long)opos + litlen > olim) return -1;
+    if (ip_after > n) return malformed();         // literals past clen
+    if (!RESUMABLE && (long long)opos + litlen > olim) return -1;
     const bool ended = ip_after == n;
     int mlen = 0, offset = 0, ip_m = 0;
     if (!ended) {
-      if (ip_after + 2 > n) return -1;            // no room for the offset
+      if (ip_after + 2 > n) return malformed();   // no room for the offset
       offset = src[ip_after] | (src[ip_after + 1] << 8);
       ip_m = (int)ip_after + 2;
       mlen = (token & 15) + 4;
-      if ((token & 15) == 15 && !read_ext(src, n, &ip_m, &mlen)) return -1;
-      if (offset == 0 || offset > opos + litlen + plen) return -1;
-      if ((long long)opos + litlen + mlen > olim) return -1;
+      if ((token & 15) == 15 && !read_ext(src, n, &ip_m, &mlen))
+        return malformed();
+      if (offset == 0 || offset > opos + litlen + plen) return malformed();
+      if (!RESUMABLE && (long long)opos + litlen + mlen > olim) return -1;
+    }
+    if (RESUMABLE && (long long)opos + litlen + mlen > olim) {
+      *cons = ip0;                                // stop at the token
+      return opos;
     }
     for (int i = lane; i < litlen; i += WARP) out[opos + i] = src[ip + i];
     __syncwarp();
     opos += litlen;
-    if (ended) return opos;
+    if (ended) {
+      if (RESUMABLE) *cons = n;
+      return opos;
+    }
     const int from = opos - offset;
     if (offset >= WARP) {
       // each 32-byte stride reads only bytes written before it
@@ -81,7 +105,18 @@ __device__ int decode_block(const uint8_t* src, int n, uint8_t* out, int olim,
     opos += mlen;
     ip = ip_m;
   }
-  return -1;  // the block must end with a literal-only sequence
+  // the block must end with a literal-only sequence
+  if (!RESUMABLE) return -1;
+  *cons = ip;                 // the source ran out at a token boundary
+  return opos;
+}
+
+__device__ __forceinline__ int decode_block(const uint8_t* src, int n,
+                                            uint8_t* out, int olim,
+                                            const uint8_t* win_end, int plen,
+                                            int lane) {
+  return decode_block_t<false>(src, n, out, olim, win_end, plen, lane,
+                               nullptr);
 }
 
 }  // namespace

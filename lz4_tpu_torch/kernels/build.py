@@ -39,6 +39,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
 # C signatures of the kernel entry points (csrc/*.cu); all return cudaError_t
 _SIGNATURES = {
     "lz4tt_encode_linked": [_P, _L, _P, _P, _P, _P, _P, _I, _P,
@@ -47,11 +49,16 @@ _SIGNATURES = {
     "lz4tt_encode_hc": [_P, _I, _P, _P, _P, _I, _P, _I, _I, _P],
     "lz4tt_pack": [_P, _I, _P, _L, _P, _P, _P, _P, _P, _I, _P],
     "lz4tt_decode_linked": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P],
-    "lz4tt_decode_batch": [_P, _I, _P, _P, _P, _I, _P, _I, _P],
+    "lz4tt_decode_batch": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
+                           _P],
     "lz4tt_decode_stream": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "lz4tt_decode_sg": [_P, _P, _P, _P, _P, _I, _P, _P, _P],
     "lz4tt_sg_encode_chain": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P],
+    "lz4tt_encode_dest_size": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+                               _I, _P],
+    "lz4tt_xxh32_rows": [_P, _L, _P, _I, _U32, _P, _I, _P],
+    "lz4tt_xxh64_rows": [_P, _L, _P, _I, _U64, _P, _I, _P],
 }
 
 _kernels = None

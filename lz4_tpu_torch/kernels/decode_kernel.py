@@ -2,9 +2,9 @@
 (kernel E) and the scatter-gather chain decoder (kernel F).
 
 Counterpart of ``lz4_tpu/kernels/decode_kernel.py`` (``_make_decode_kernel``
-in modes ``linked``, ``batch`` and ``sg``, without dictionary rows and not
-resumable, and ``_make_stream_decode_kernel``).  The block semantics are
-those of the JAX kernels' general path:
+in modes ``linked``, ``batch`` and ``sg``, with dictionary rows and the
+``resumable`` variant of batch mode, and ``_make_stream_decode_kernel``).
+The block semantics are those of the JAX kernels' general path:
 
 * a sequence's literal run must lie inside the block (``clen``); a run that
   ends exactly at ``clen`` ends the block;
@@ -15,7 +15,10 @@ those of the JAX kernels' general path:
 ``decode_blocks_linked`` decodes one chain in order: block b's window is
 block b-1's output when that block decoded to exactly ``block_size`` bytes,
 and empty otherwise; block 0 may take an initial window.
-``decode_blocks`` decodes independent rows.  ``decode_stream_raw`` (and
+``decode_blocks`` decodes independent rows, each with an optional
+dictionary; ``decode_blocks_dest_size`` is its resumable (destSize) variant:
+a row that runs out of room stops at a token boundary and reports the bytes
+produced and the source bytes consumed.  ``decode_stream_raw`` (and
 ``decode_stream`` over a list of payloads) decodes one frame's chain of any
 block size into one flat output (see ``decode_stream_plain``).
 ``decode_blocks_sg_raw`` (and ``decode_blocks_sg`` over [B, M] rows) decodes
@@ -63,14 +66,18 @@ def _read_ext(src: bytes, ip: int, n: int):
             return extra, ip, True
 
 
-def decode_block_plain(src: bytes, n: int, olim: int, window: bytes = b""):
-    """Decode one block of ``n`` bytes into at most ``olim`` bytes, with
-    ``window`` (the bytes right before the output) as match history.
-    Returns (olen, output bytes); olen is -1 for a malformed block."""
+def _decode_sequences(src: bytes, n: int, olim: int, window: bytes):
+    """The sequence loop of the plain decoders.  Returns (status, ip, out):
+    status as in the JAX kernel (0 the source ran out at a token boundary,
+    1 ended with a literal run, 2 malformed, 3 no room), ``ip`` the offset
+    of the token where the loop stopped, ``out`` the bytes produced.  Every
+    sequence is parsed and validated whole before it is held against the
+    room, and one that fails either check is not started."""
     out = bytearray()
     plen = len(window)
     ip, status = 0, 0
     while status == 0 and ip < n:
+        ip0 = ip
         token = src[ip]
         litlen, ok_lit, ip = token >> 4, True, ip + 1
         if litlen == 15:
@@ -94,11 +101,10 @@ def decode_block_plain(src: bytes, n: int, olim: int, window: bytes = b""):
         valid = v_lit and (ended or v_m)
         room = r_lit and (ended or opos + litlen + mlen <= olim)
         if not (valid and room):
-            break                           # status 0: malformed
+            return (3 if valid else 2), ip0, out
         out += src[ip:ip_after]
         if ended:
-            status = 1
-            break
+            return 1, ip0, out
         start = len(out) - offset
         if start >= 0 and offset >= mlen:
             out += out[start:start + mlen]
@@ -107,7 +113,34 @@ def decode_block_plain(src: bytes, n: int, olim: int, window: bytes = b""):
                 p = start + i
                 out.append(window[plen + p] if p < 0 else out[p])
         ip = ip_m
+    return 0, ip, out
+
+
+def decode_block_plain(src: bytes, n: int, olim: int, window: bytes = b""):
+    """Decode one block of ``n`` bytes into at most ``olim`` bytes, with
+    ``window`` (the bytes right before the output) as match history.
+    Returns (olen, output bytes); olen is -1 for a malformed block, and for
+    one that does not fit or does not end with a literal run."""
+    status, _, out = _decode_sequences(src, n, olim, window)
     return (len(out) if status == 1 else ERR_MALFORMED), bytes(out)
+
+
+def decode_block_resumable_plain(src: bytes, n: int, olim: int,
+                                 window: bytes = b""):
+    """The destSize decode of one block: (olen, cons, output bytes).  A
+    sequence that does not fit ``olim`` stops the block at its token: olen
+    is what was produced and cons the token's offset.  A block that ends,
+    with its terminal literal run or exactly after a match, reports
+    cons == n; a malformed one olen = cons = -1."""
+    status, ip, out = _decode_sequences(src, n, olim, window)
+    if status == 2:
+        return ERR_MALFORMED, ERR_MALFORMED, bytes(out)
+    return len(out), (n if status == 1 else ip), bytes(out)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """The device address of an optional tensor argument (None: null)."""
+    return None if t is None else t.data_ptr()
 
 
 def _check_comp(comp: torch.Tensor, comp_lens: torch.Tensor) -> None:
@@ -172,9 +205,75 @@ def decode_blocks_linked(comp: torch.Tensor, comp_lens: torch.Tensor,
     return out, olen
 
 
+def _dict_args(B: int, dict_rows, dict_lens):
+    """Validate optional dictionary rows: ([B, P] uint8 or None, [B] int32
+    or None, P)."""
+    if dict_rows is None:
+        if dict_lens is not None:
+            raise ValueError("dict_lens without dict_rows")
+        return None, None, 0
+    if dict_lens is None:
+        raise ValueError("dict_rows need dict_lens")
+    check(dict_rows, "dict_rows", torch.uint8, 2)
+    check(dict_lens, "dict_lens", torch.int32, 1)
+    if dict_rows.shape[0] != B or dict_lens.shape[0] != B:
+        raise ValueError("dict_rows must be [B, P] and dict_lens [B]")
+    return dict_rows, dict_lens, dict_rows.shape[1]
+
+
+def _decode_batch(name: str, comp, comp_lens, N: int, out_caps, dict_rows,
+                  dict_lens, resumable: bool):
+    """Kernel D in batch mode (``csrc/decode.cu``) or its plain version:
+    (out [B, N], olen [B], cons [B] or None)."""
+    _check_comp(comp, comp_lens)
+    B, M = comp.shape
+    check(out_caps, "out_caps", torch.int32, 1)
+    if out_caps.shape[0] != B:
+        raise ValueError("out_caps must be [B]")
+    dict_rows, dict_lens, P = _dict_args(B, dict_rows, dict_lens)
+    dicts = () if dict_rows is None else (dict_rows, dict_lens)
+    if not use_kernel(comp, comp_lens, out_caps, *dicts):
+        PLAIN_CALLS[name] += 1
+        out = torch.zeros((B, N), dtype=torch.uint8)
+        olen = torch.zeros((B,), dtype=torch.int32)
+        cons = torch.zeros((B,), dtype=torch.int32) if resumable else None
+        plens = dict_lens.tolist() if dicts else [0] * B
+        for b, (n, cap) in enumerate(zip(comp_lens.tolist(),
+                                         out_caps.tolist())):
+            plen = min(max(plens[b], 0), P)
+            window = dict_rows[b, P - plen:].numpy().tobytes() if plen \
+                else b""
+            args = (comp[b].numpy().tobytes(), min(max(n, 0), M),
+                    min(cap, N), window)
+            if resumable:
+                olen[b], cons[b], dec = decode_block_resumable_plain(*args)
+            else:
+                olen[b], dec = decode_block_plain(*args)
+            if dec:
+                out[b, :len(dec)] = torch.frombuffer(bytearray(dec),
+                                                     dtype=torch.uint8)
+        return out, olen, cons
+    dev = comp.device
+    out = torch.empty((B, N), dtype=torch.uint8, device=dev)
+    olen = torch.empty((B,), dtype=torch.int32, device=dev)
+    cons = torch.empty((B,), dtype=torch.int32, device=dev) if resumable \
+        else None
+
+    err = build.kernels_lib().lz4tt_decode_batch(
+        comp.data_ptr(), M, comp_lens.data_ptr(), out_caps.data_ptr(),
+        _ptr(dict_rows), P, _ptr(dict_lens), out.data_ptr(), N,
+        olen.data_ptr(), _ptr(cons), B,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch(name, err)
+    LAUNCHES[name] += 1
+    return out, olen, cons
+
+
 def decode_blocks(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int,
-                  out_caps: Optional[torch.Tensor] = None):
-    """Decode a batch of independent LZ4 blocks.
+                  out_caps: Optional[torch.Tensor] = None,
+                  dict_rows: Optional[torch.Tensor] = None,
+                  dict_lens: Optional[torch.Tensor] = None):
+    """Decode a batch of independent (or dictionary-prefixed) LZ4 blocks.
 
     Args:
       comp: [B, M] uint8 payloads, zero padded.
@@ -182,39 +281,49 @@ def decode_blocks(comp: torch.Tensor, comp_lens: torch.Tensor, out_cap: int,
       out_cap: decoded capacity of every row.
       out_caps: optional [B] int32 exact capacity per row (<= out_cap);
         decoding past it reports -1, like LZ4_decompress_safe.
+      dict_rows: optional [B, P] uint8 dictionaries, right-aligned: row i's
+        lies in lanes [P - dict_lens[i], P) and is the history right before
+        row i's output.
+      dict_lens: [B] int32 dictionary lengths (clamped to [0, P]).
 
     Returns (out [B, out_cap] uint8, olen [B] int32; -1 = malformed).
     """
-    _check_comp(comp, comp_lens)
-    B, M = comp.shape
     N = int(out_cap)
-    dev = comp.device
     if out_caps is None:
-        out_caps = torch.full((B,), N, dtype=torch.int32, device=dev)
-    check(out_caps, "out_caps", torch.int32, 1)
-    if out_caps.shape[0] != B:
-        raise ValueError("out_caps must be [B]")
-    if not use_kernel(comp, comp_lens, out_caps):
-        PLAIN_CALLS["decode_batch"] += 1
-        out = torch.zeros((B, N), dtype=torch.uint8)
-        olen = torch.zeros((B,), dtype=torch.int32)
-        for b, (n, cap) in enumerate(zip(comp_lens.tolist(),
-                                         out_caps.tolist())):
-            olen[b], dec = decode_block_plain(comp[b].numpy().tobytes(),
-                                              min(max(n, 0), M), min(cap, N))
-            if dec:
-                out[b, :len(dec)] = torch.frombuffer(bytearray(dec),
-                                                     dtype=torch.uint8)
-        return out, olen
-    out = torch.empty((B, N), dtype=torch.uint8, device=dev)
-    olen = torch.empty((B,), dtype=torch.int32, device=dev)
-    err = build.kernels_lib().lz4tt_decode_batch(
-        comp.data_ptr(), M, comp_lens.data_ptr(), out_caps.data_ptr(),
-        out.data_ptr(), N, olen.data_ptr(), B,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check_launch("decode_batch", err)
-    LAUNCHES["decode_batch"] += 1
+        out_caps = torch.full((comp.shape[0],), N, dtype=torch.int32,
+                              device=comp.device)
+    out, olen, _ = _decode_batch("decode_batch", comp, comp_lens, N,
+                                 out_caps, dict_rows, dict_lens, False)
     return out, olen
+
+
+def decode_blocks_dest_size(comp: torch.Tensor, comp_lens: torch.Tensor,
+                            out_caps: torch.Tensor, out_cap_max: int,
+                            dict_rows: Optional[torch.Tensor] = None,
+                            dict_lens: Optional[torch.Tensor] = None):
+    """Resumable destSize decode of a batch: row i fills at most
+    ``min(out_caps[i], out_cap_max)`` bytes and stops at a token boundary.
+
+    Arguments as for ``decode_blocks``.  Returns (out [B, out_cap_max]
+    uint8, olen [B] int32, cons [B] int32):
+
+    * olen >= 0, cons == comp_lens[i]: the source was consumed to its end
+      at a token boundary.  Usually the block is decoded in full; a block
+      that ends exactly after a match (no terminal literal run) lands here
+      too, so a caller checks olen against the size it expects.
+    * olen >= 0, cons < comp_lens[i]: a clean stop for want of room.  Resume
+      by feeding ``comp[i, cons:]`` with the bytes produced so far (their
+      last 64 KB) as the dictionary row.
+    * olen == cons == -1: corrupt input.  A source that ends in the middle
+      of a sequence counts as corrupt.
+
+    Unlike the JAX function, which rounds ``out_cap_max`` up to a multiple
+    of 128 before clamping the caps, a row never produces more than
+    ``out_cap_max`` bytes here.
+    """
+    return _decode_batch("decode_dest_size", comp, comp_lens,
+                         int(out_cap_max), out_caps, dict_rows, dict_lens,
+                         True)
 
 
 # ---------------------------------------------------------------------------
@@ -331,12 +440,9 @@ def decode_stream_raw(flat: torch.Tensor, bstart, clen, stored,
         scratch = torch.empty((cap_total,), dtype=torch.uint8, device=dev)
         dst = torch.empty((B,), dtype=torch.int64, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     err = build.kernels_lib().lz4tt_decode_stream(
-        flat.data_ptr(), meta.data_ptr(), B, int(linked), ptr(cap_off),
-        ptr(scratch), ptr(dst), out.data_ptr(), olen.data_ptr(),
+        flat.data_ptr(), meta.data_ptr(), B, int(linked), _ptr(cap_off),
+        _ptr(scratch), _ptr(dst), out.data_ptr(), olen.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("decode_stream", err)
     LAUNCHES["decode_stream"] += 1

@@ -1,6 +1,20 @@
-"""The scatter-gather chain encoder: kernel G.
+"""The destSize encoders: kernel H (a batch of bounded blocks) and kernel G
+(the scatter-gather chain).
 
-Counterpart of ``lz4_tpu/kernels/destsize_kernel.py`` ``sg_encode_chain``
+Both run one parse, ``_dest_size_block``: a greedy hash-table scan that
+fills a bounded destination, stops at a token boundary when the next
+sequence and a minimal final literal run would not fit, and reports the
+source bytes its block covers.
+
+``encode_blocks_dest_size`` is the counterpart of
+``lz4_tpu/kernels/destsize_kernel.py`` ``encode_blocks_dest_size``
+(``_make_destsize_kernel``, launched by ``_encode_dest_size``): every row
+holds ``[prefix | source]`` and has its own capacity; matches may reach into
+the prefix (LZ4_compress_fast_destSize, with a prefix the ``_continue``
+form).  It launches ``csrc/destsize.cu`` for tensors on the card and runs
+the plain version for tensors on the CPU.
+
+``sg_encode_chain`` is the counterpart of ``sg_encode_chain``
 (``_make_sg_chain_kernel``, launched by ``_sg_encode_chain``): the whole
 LZ4_SG buffer-pair walk of ``sg_compress`` in one sequential pass.  Each
 step takes the rest of the current input buffer (at most 64 KB of it) and
@@ -23,7 +37,7 @@ steps' blocks one after another into one flat buffer at ``boff``.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +45,8 @@ import torch
 from .. import spec
 from . import build
 from .common import LAUNCHES, PLAIN_CALLS, check, to_device, use_kernel
-from .encode_kernel import _common_run, _emit_final, _emit_seq
+from .encode_kernel import (MAX_BLOCK, _common_run, _emit_final, _emit_seq,
+                            _fill_rows, out_width)
 
 HASH_LOG = 14
 HASH_SIZE = 1 << HASH_LOG
@@ -91,6 +106,180 @@ def _max_final_literals(room: int, avail: int) -> int:
     return -1 if room < 1 else best
 
 
+# ---------------------------------------------------------------------------
+# the block parse both kernels share (plain version)
+# ---------------------------------------------------------------------------
+
+def _hash_table_inputs(u: np.ndarray):
+    """LE32 word and 5-byte hash at every position of ``u``, as memoryviews
+    (scalar reads return Python ints)."""
+    w = (u[:-3].astype(np.uint32) | (u[1:-2].astype(np.uint32) << 8)
+         | (u[2:-1].astype(np.uint32) << 16)
+         | (u[3:].astype(np.uint32) << 24))
+    p = np.uint32(PRIME)
+    x = (w[:-1] ^ (u[4:].astype(np.uint32) * p)) * p
+    h = ((x >> np.uint32(32 - HASH_LOG)) & np.uint32(HASH_SIZE - 1))
+    return memoryview(w), memoryview(h.astype(np.int32))
+
+
+def _dest_size_block(data: bytes, vals, hashes, table: List[int], start: int,
+                     n_end: int, low: int, first: int, cap: int,
+                     acceleration: int, min_match: int
+                     ) -> Tuple[bytearray, int]:
+    """One destSize block, as ``csrc/destsize.cuh`` dest_size_block: source
+    bytes ``data[start:n_end]`` into at most ``cap`` bytes.  Matches reach
+    back to ``low``; ``table`` holds positions into ``data`` (-1 where
+    empty) and keeps its entries for the next call; the scan starts at
+    ``first``.  ``vals`` and ``hashes`` come from ``_hash_table_inputs`` and
+    are read only when the scan runs (13 bytes or more).  Returns (block,
+    consumed), both empty and 0 when not one literal fits.
+
+    The forward extension compares byte runs instead of the kernel's
+    4-byte words and XOR tail; both give min(common run, matchlimit - mp).
+    """
+    mflimit, matchlimit = n_end - 12, n_end - 5
+    accel0 = acceleration << SKIP_TRIGGER
+    out = bytearray()
+    ip, anchor, scnt = first, start, accel0
+    while n_end - start >= 13 and ip <= mflimit:
+        h = hashes[ip]
+        e = table[h]
+        table[h] = ip
+        # a capacity-stopped block may have left entries at or past ip
+        if not (low <= e < ip and ip - e <= 65535 and vals[e] == vals[ip]):
+            ip += scnt >> SKIP_TRIGGER
+            scnt += 1
+            continue
+        mp, q2 = ip, e
+        while mp > anchor and q2 > low and data[mp - 1] == data[q2 - 1]:
+            mp -= 1
+            q2 -= 1
+        room = matchlimit - ip - 4
+        ml = ip + 4 - mp + _common_run(data, e + 4, ip + 4, room)
+        if ml < min_match:          # (min_match > 4): a skip, not a stop
+            ip += scnt >> SKIP_TRIGGER
+            scnt += 1
+            continue
+        litlen = mp - anchor
+        need = _seq_size(litlen, ml - 4) + _final_run_size(
+            min(5, n_end - (mp + ml)))
+        if len(out) + need > cap:
+            break                   # capacity stop
+        _emit_seq(out, data, anchor, litlen, ip - e, ml - 4)
+        ip = anchor = mp + ml
+        table[hashes[ip - 2]] = ip - 2
+        scnt = accel0
+    lit = _max_final_literals(cap - len(out), n_end - anchor)
+    if lit < 0:
+        return bytearray(), 0
+    _emit_final(out, data, anchor, anchor + lit)
+    return out, anchor - start + lit
+
+
+# ---------------------------------------------------------------------------
+# kernel H: a batch of bounded blocks
+# ---------------------------------------------------------------------------
+
+def encode_dest_size_plain(row: bytes, wlen: int, slen: int, cap: int,
+                            acceleration: int = 1, min_match: int = 4
+                            ) -> Tuple[bytes, int]:
+    """Plain version of kernel H for one row ``[prefix | source]``: the
+    source ``row[wlen:wlen + slen]`` into at most ``cap`` bytes, matching
+    into the ``wlen`` prefix bytes, which are seeded into a fresh table at
+    every third position (LZ4_loadDict's stride).  Returns (block,
+    consumed)."""
+    n = wlen + slen
+    vals = hashes = None
+    table: List[int] = []
+    if slen >= 13:
+        vals, hashes = _hash_table_inputs(np.frombuffer(row, np.uint8,
+                                                        count=n))
+        table = [-1] * HASH_SIZE
+        for p in range(0, max((wlen - 4) // 3 + 1, 0) * 3, 3):
+            table[hashes[p]] = p
+    out, consumed = _dest_size_block(
+        row, vals, hashes, table, wlen, n, 0, wlen + (0 if wlen > 0 else 1),
+        cap, acceleration, min_match)
+    return bytes(out), consumed
+
+
+def encode_blocks_dest_size(rows: torch.Tensor, src_lens: torch.Tensor,
+                            capacities: torch.Tensor, acceleration: int = 1,
+                            window_lens: Optional[torch.Tensor] = None,
+                            min_match: int = 4):
+    """destSize-compress a batch of blocks: kernel H on the card, its plain
+    version on the CPU.
+
+    Args:
+      rows: [B, NS] uint8, ``[prefix | source]`` per row, zero padded; NS a
+        multiple of 128, at most 256 KB.
+      src_lens: [B] int32 source lengths.
+      capacities: [B] int32 destination budgets in bytes (clamped to M).
+      window_lens: optional [B] int32 prefix lengths: row i's source starts
+        at byte ``window_lens[i]`` and may match into the bytes before it.
+        Prefix and source are clamped to the row: window_lens to [0, NS],
+        src_lens to [0, NS - window_lens].
+
+    Returns (out [B, M] uint8, olen [B] int32, consumed [B] int32), M =
+    128-aligned compress_bound(NS): row i is a complete LZ4 block of
+    ``olen[i]`` bytes that decodes, with the prefix as its dictionary, to
+    the first ``consumed[i]`` source bytes; 0/0 when not one literal fits.
+    The capacity arithmetic is the JAX kernel's int32 arithmetic, so with
+    65,295 literals or more in one run a block may pass its capacity as
+    the JAX kernel's does; it never passes compress_bound of its source.
+    """
+    check(rows, "rows", torch.uint8, 2)
+    B, NS = rows.shape
+    if NS % 128:
+        raise ValueError("NS must be a multiple of 128")
+    if NS > MAX_BLOCK:
+        raise ValueError(f"block too large for kernel ({NS} > {MAX_BLOCK})")
+    if window_lens is None:
+        window_lens = torch.zeros((B,), dtype=torch.int32,
+                                  device=rows.device)
+    for t, name in ((src_lens, "src_lens"), (capacities, "capacities"),
+                    (window_lens, "window_lens")):
+        check(t, name, torch.int32, 1)
+        if t.shape[0] != B:
+            raise ValueError(f"{name} must be [B]")
+    M = out_width(NS)
+    acceleration = max(1, int(acceleration))   # 0 would never advance
+    min_match = int(min_match)
+    if not use_kernel(rows, src_lens, capacities, window_lens):
+        PLAIN_CALLS["encode_dest_size"] += 1
+        out = torch.zeros((B, M), dtype=torch.uint8)
+        olen = torch.zeros((B,), dtype=torch.int32)
+        blocks, consumed = [], []
+        for b, (slen, cap, wlen) in enumerate(zip(
+                src_lens.tolist(), capacities.tolist(),
+                window_lens.tolist())):
+            wlen = min(max(wlen, 0), NS)
+            block, cons = encode_dest_size_plain(
+                rows[b].numpy().tobytes(), wlen,
+                min(max(slen, 0), NS - wlen), min(cap, M), acceleration,
+                min_match)
+            blocks.append(bytearray(block))
+            consumed.append(cons)
+        _fill_rows(out, olen, blocks)
+        return out, olen, torch.tensor(consumed, dtype=torch.int32)
+    dev = rows.device
+    out = torch.empty((B, M), dtype=torch.uint8, device=dev)
+    olen = torch.empty((B,), dtype=torch.int32, device=dev)
+    consumed = torch.empty((B,), dtype=torch.int32, device=dev)
+    err = build.kernels_lib().lz4tt_encode_dest_size(
+        rows.data_ptr(), NS, src_lens.data_ptr(), capacities.data_ptr(),
+        window_lens.data_ptr(), acceleration, min_match, out.data_ptr(), M,
+        olen.data_ptr(), consumed.data_ptr(), B,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch("encode_dest_size", err)
+    LAUNCHES["encode_dest_size"] += 1
+    return out, olen, consumed
+
+
+# ---------------------------------------------------------------------------
+# kernel G: the scatter-gather chain
+# ---------------------------------------------------------------------------
+
 def sg_chain_statics(total: int, n_in: int, n_out: int) -> Tuple[int, int]:
     """(steps T, block width M) of one walk: T bounds the walk's length, M
     is compress_bound(64 KB) rounded up to 128, the most a step writes."""
@@ -111,22 +300,6 @@ def sg_chain_input(in_bufs: Sequence[bytes], device) -> Tuple[torch.Tensor,
     return to_device(flat, device), in_ends.astype(np.int32)
 
 
-# ---------------------------------------------------------------------------
-# plain version (CPU tensors)
-# ---------------------------------------------------------------------------
-
-def _hash_table_inputs(u: np.ndarray):
-    """LE32 word and 5-byte hash at every position of ``u``, as memoryviews
-    (scalar reads return Python ints)."""
-    w = (u[:-3].astype(np.uint32) | (u[1:-2].astype(np.uint32) << 8)
-         | (u[2:-1].astype(np.uint32) << 16)
-         | (u[3:].astype(np.uint32) << 24))
-    p = np.uint32(PRIME)
-    x = (w[:-1] ^ (u[4:].astype(np.uint32) * p)) * p
-    h = ((x >> np.uint32(32 - HASH_LOG)) & np.uint32(HASH_SIZE - 1))
-    return memoryview(w), memoryview(h.astype(np.int32))
-
-
 def sg_encode_chain_plain(data: bytes, in_ends: Sequence[int],
                           caps: Sequence[int], max_dest: int,
                           acceleration: int = 1, min_match: int = 4):
@@ -136,16 +309,12 @@ def sg_encode_chain_plain(data: bytes, in_ends: Sequence[int],
     more.  Returns (blocks, boff, blen, consumed, isz, osz): ``blocks``
     holds step t's block at ``boff[t]``, ``blen[t]`` bytes long; steps after
     the walk has ended report blen -1 and 0 in the other fields.
-
-    The forward extension compares byte runs instead of the kernel's
-    4-byte words and XOR tail; both give min(common run, matchlimit - mp).
     """
     total = in_ends[-1]
     n_in, n_out = len(in_ends) - 1, len(caps)
     T, M = sg_chain_statics(total, n_in, n_out)
     vals, hashes = _hash_table_inputs(np.frombuffer(data, np.uint8))
     table = [-1] * HASH_SIZE
-    accel0 = acceleration << SKIP_TRIGGER
     blocks = bytearray()
     boff: List[int] = []
     blen: List[int] = []
@@ -170,48 +339,13 @@ def sg_encode_chain_plain(data: bytes, in_ends: Sequence[int],
         i_take = min(i_size, CHAIN_BLOCK)
         o_size = min(caps[oidx] - opos_h, max_dest - ototal_h)
         cap = min(o_size, M)
-        start, n_end = ipos, ipos + i_take
-        mflimit, matchlimit = n_end - 12, n_end - 5
         # matches reach back to the start of the previous input buffer
         low = max(ipos - 65535, in_ends[ibuf - 1] if ibuf > 0 else 0, 0)
-        out = bytearray()
-        ip = start + (1 if start == 0 else 0)
-        anchor, scnt = start, accel0
-        while i_take >= 13 and ip <= mflimit:
-            h = hashes[ip]
-            e = table[h]
-            table[h] = ip
-            # a capacity-stopped step may have left entries at or past ip
-            if not (low <= e < ip and ip - e <= 65535 and vals[e] == vals[ip]):
-                ip += scnt >> SKIP_TRIGGER
-                scnt += 1
-                continue
-            mp, q2 = ip, e
-            while mp > anchor and q2 > low and data[mp - 1] == data[q2 - 1]:
-                mp -= 1
-                q2 -= 1
-            room = matchlimit - ip - 4
-            ml = ip + 4 - mp + _common_run(data, e + 4, ip + 4, room)
-            if ml < min_match:          # (min_match > 4): a skip, not a stop
-                ip += scnt >> SKIP_TRIGGER
-                scnt += 1
-                continue
-            litlen = mp - anchor
-            need = _seq_size(litlen, ml - 4) + _final_run_size(
-                min(5, n_end - (mp + ml)))
-            if len(out) + need > cap:
-                break                   # capacity stop
-            _emit_seq(out, data, anchor, litlen, ip - e, ml - 4)
-            ip = anchor = mp + ml
-            table[hashes[ip - 2]] = ip - 2
-            scnt = accel0
-        lit = _max_final_literals(cap - len(out), n_end - anchor)
-        if lit >= 0:
-            _emit_final(out, data, anchor, anchor + lit)
-            o_written, consumed = len(out), anchor - start + lit
-            blocks += out
-        else:
-            o_written = consumed = 0
+        out, consumed = _dest_size_block(
+            data, vals, hashes, table, ipos, ipos + i_take, low,
+            ipos + (1 if ipos == 0 else 0), cap, acceleration, min_match)
+        o_written = len(out)
+        blocks += out
         blen.append(o_written)
         cons.append(consumed)
         isz.append(i_size)
@@ -237,10 +371,6 @@ def sg_encode_chain_plain(data: bytes, in_ends: Sequence[int],
         done = no_progress or input_exhausted or out_exhausted
     return bytes(blocks), boff, blen, cons, isz, osz
 
-
-# ---------------------------------------------------------------------------
-# the wrapper
-# ---------------------------------------------------------------------------
 
 def _ints(values, name: str) -> np.ndarray:
     if isinstance(values, torch.Tensor):

@@ -25,8 +25,11 @@ assert {"lz4_tpu_torch.device", "lz4_tpu_torch.kernels.encode_kernel",
         "lz4_tpu_torch.kernels.decode_kernel",
         "lz4_tpu_torch.kernels.destsize_kernel",
         "lz4_tpu_torch.kernels.hc_kernel",
-        "lz4_tpu_torch.kernels.pack_kernel", "lz4_tpu_torch.io",
-        "lz4_tpu_torch.cli", "lz4_tpu_torch.sg"} <= set(names), names
+        "lz4_tpu_torch.kernels.pack_kernel",
+        "lz4_tpu_torch.kernels.xxh32_kernel",
+        "lz4_tpu_torch.kernels.xxh64_kernel", "lz4_tpu_torch.block",
+        "lz4_tpu_torch.io", "lz4_tpu_torch.cli",
+        "lz4_tpu_torch.sg"} <= set(names), names
 
 import torch
 from lz4_tpu_torch.device import compress_frame_device, decompress_frame_device
@@ -73,6 +76,43 @@ for ins, caps in (([data[i:i + 4096] for i in range(0, 65536, 4096)],
             rem -= min(c, rem)
     assert sg.sg_decompress(comp, [len(b) for b in ins], device="cpu") == \
         (consumed, ins)
+
+# destSize: a bounded encode behind a prefix (kernel H's plain version), its
+# block decoded in two resumed pieces with dictionary rows (kernel D's
+# resumable mode), and the batched checksums of the rows (kernels J and K)
+import numpy as np
+from lz4_tpu_torch.device import byte_rows
+from lz4_tpu_torch.kernels.decode_kernel import decode_blocks_dest_size
+from lz4_tpu_torch.kernels.destsize_kernel import encode_blocks_dest_size
+from lz4_tpu_torch.kernels.xxh32_kernel import xxh32_batch
+from lz4_tpu_torch.kernels.xxh64_kernel import xxh64_batch
+from lz4_tpu_torch.ops.xxhash import xxh32
+import random
+rng = random.Random(5)
+text = b" ".join(rng.choice([b"alpha", b"beta", b"gamma", b"delta", b"lz4"])
+                 + bytes([rng.randrange(256)]) * (k % 4 == 0)
+                 for k in range(2600))
+prefix, src = text[:3000], text[3000:13000]
+rows, _ = byte_rows([prefix + src], 13056, "cpu")
+i32 = lambda *v: torch.tensor(v, dtype=torch.int32)
+out, olen, consumed = encode_blocks_dest_size(
+    rows, i32(len(src)), i32(600), window_lens=i32(len(prefix)))
+n, used = int(olen[0]), int(consumed[0])
+assert 0 < n <= 600 and 0 < used < len(src)
+history, comp, got = prefix, out[0, :n].numpy().tobytes(), b""
+while comp:
+    window = history[-65536:]
+    d_rows, d_lens = byte_rows([window], len(window), "cpu")
+    c_rows, c_lens = byte_rows([comp], len(comp), "cpu")
+    piece, plen, cons = decode_blocks_dest_size(
+        c_rows, c_lens, i32(500), 500, dict_rows=d_rows, dict_lens=d_lens)
+    assert int(plen[0]) > 0 and int(cons[0]) > 0
+    got += piece[0, :int(plen[0])].numpy().tobytes()
+    history, comp = prefix + got, comp[int(cons[0]):]
+assert got == src[:used] and used > 500
+assert int(xxh32_batch(rows, i32(13000), 7)[0]) == xxh32(prefix + src, 7)
+abc, abc_len = byte_rows([b"abc"], 8, "cpu")
+assert xxh64_batch(abc, abc_len)[0] == np.uint64(0x44BC2CF5AD770999)
 
 # files through the compress and decode halves of the file layer, at a fast
 # level and at HC level 9 (kernel I's plain version), and the CLI's version
@@ -155,6 +195,15 @@ def test_port_builds_nothing_outside_its_tree(monkeypatch):
             assert p.resolve().is_relative_to(pkg) or \
                 p.resolve().is_relative_to(out_dir), (stem, p)
     assert build.BUILD_DIR.resolve().is_relative_to(out_dir)
-    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "decode.cu", "encode.cu", "hc.cu", "pack.cu", "sg_chain.cu",
-        "sg_decode.cu", "stream.cu"]
+    assert sorted(p.name for p in build.CSRC.glob("*.cu*")) == [
+        "decode.cu", "decode.cuh", "destsize.cu", "destsize.cuh", "emit.cuh",
+        "encode.cu", "hc.cu", "pack.cu", "sg_chain.cu", "sg_decode.cu",
+        "stream.cu", "xxh.cu"]
+    # the headers count as inputs (an edited header rebuilds the library)
+    # and only the sources are compiled
+    inputs, cmds = seen[1][1], seen[1][2]
+    assert {Path(p).name for p in inputs} >= {"destsize.cuh", "destsize.cu",
+                                              "xxh.cu"}
+    compiled = [Path(a).name for cmd in cmds[:-1] for a in cmd
+                if a.endswith(".cu")]
+    assert sorted(compiled) == sorted(p.name for p in build.CSRC.glob("*.cu"))
