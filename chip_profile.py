@@ -31,7 +31,11 @@ pass's Chrome trace it reports:
   memset on the card, so work that overlaps is counted once;
 * idle share: 1 - busy / wall of the traced pass (tracing adds host time,
   so this share is an upper bound for the untraced pass);
-* device ms per kernel or copy name, summed over the pass, largest first.
+* device ms per kernel or copy name, summed over the pass, largest first;
+* the split of the traced wall: kernels, the linked decoders'
+  pointer-jumping rounds, device-to-host and host-to-device copies, other
+  device work (summed device ms, so overlapping work counts twice), and
+  host = traced wall minus device busy.
 
 Writes each trace to ``<out>/trace_<cell>_<direction>.json`` and prints one
 JSON line of the results.  Exits non-zero when no card is present or a
@@ -55,11 +59,24 @@ SG_CELLS = ("4k", "ragged")        # chip_smoke.sg_layouts
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+def split_of(name: str, cat: str) -> str:
+    """The part of a wall a device interval counts toward: "jump" (the
+    linked decoders' pointer-jumping rounds), "kernel" (every other
+    kernel), "d2h", "h2d" or "other" (other copies, memsets)."""
+    if cat == "kernel":
+        return "jump" if "jump_kernel" in name else "kernel"
+    if "DtoH" in name or "Device -> Pageable" in name:
+        return "d2h"
+    return "h2d" if "HtoD" in name else "other"
+
+
 def device_time(trace_path: Path) -> tuple:
-    """(busy ms as the union of device intervals, {name: summed ms})."""
+    """(busy ms as the union of device intervals, {name: summed ms},
+    {split_of part: summed ms})."""
     trace = json.loads(trace_path.read_text())
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
     spans, by_name = [], defaultdict(float)
+    split = dict.fromkeys(("kernel", "jump", "d2h", "h2d", "other"), 0.0)
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
             spans.append((e["ts"], e["ts"] + e["dur"]))
@@ -68,12 +85,13 @@ def device_time(trace_path: Path) -> tuple:
                 name = name.replace("(anonymous namespace)::", "")
                 name = re.sub(r"^void ", "", name).split("(")[0]
             by_name[name[:80]] += e["dur"] / 1e3
+            split[split_of(name, e["cat"])] += e["dur"] / 1e3
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy / 1e3, dict(by_name)
+    return busy / 1e3, dict(by_name), split
 
 
 def main() -> int:
@@ -156,15 +174,18 @@ def main() -> int:
             raise RuntimeError(f"{key}: output differs")
         path = out_dir / f"trace_{key.replace('/', '_')}.json"
         prof.export_chrome_trace(str(path))
-        busy, by_name = device_time(path)
+        busy, by_name, split = device_time(path)
+        split["host"] = wall_t - busy
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         r = results[key] = {
             "wall_ms": wall, "mb_s": mb / (wall / 1e3),
             "traced_wall_ms": wall_t, "device_busy_ms": busy,
-            "idle_share": 1 - busy / wall_t, "top_device_ms": dict(top)}
+            "idle_share": 1 - busy / wall_t, "top_device_ms": dict(top),
+            "split_ms": split}
         print(f"[{key}] wall {wall:.1f} ms ({r['mb_s']:.1f} MB/s); traced "
               f"{wall_t:.1f} ms, device busy {busy:.1f} ms, idle "
-              f"{r['idle_share']:.3f}", flush=True)
+              f"{r['idle_share']:.3f}; split " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in split.items()), flush=True)
         for name, ms in top:
             print(f"    {ms:10.3f} ms  {name}", flush=True)
         return res

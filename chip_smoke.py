@@ -7,12 +7,19 @@
 2. Builds the kernels from lz4_tpu_torch/csrc (nvcc, sm_90a).
 3. Holds every kernel against its plain PyTorch/Python version on the same
    inputs, byte for byte (tolerance 0: a codec's outputs are integers), at
-   the main path's shapes, and times both.  Kernel E (the stream decoder)
-   is held against its plain version at every launch step 6 makes (the
-   whole -B7, -B5 linked, legacy and flushed files) and on small inputs (a
-   4 MB block, stored blocks, a flushed chain with short mid-stream blocks,
-   corrupted payloads, noise) in both modes, and timed on a 4 MB block in
-   three alternating rounds of the two modes and on the 64 MiB -B7 frame.
+   the main path's shapes, and times both.  Kernel D's linked mode is held
+   against its plain version on kernel A's 64-block chunk with and without
+   its window, on a 64-block chain of one 7-byte period (every block refers
+   into the one before it), on the chunk with a short block at index 20,
+   on mixed chains, corrupted streams and noise.  Kernel E (the stream
+   decoder) is held against its plain version at every launch step 6 makes
+   (the whole -B7, -B5 linked, legacy and flushed files) and on small
+   inputs (a 4 MB block, stored blocks, flushed chains with short
+   mid-stream blocks, one flushed every 5,000 bytes so that references
+   cross up to 13 blocks, a -B5 chain whose first block reaches before the
+   stream, D's two chains above, corrupted payloads, noise) in both modes,
+   and timed on a 4 MB block in three alternating rounds of the two modes,
+   on the 64 MiB -B7 frame and on the whole -B5 linked and flushed chains.
    Kernels G (the SG chain encoder) and F (the SG chain decoder) are held
    against their plain versions on small lists (4 KB, 64 KB and ragged
    iovecs, min_match 8, acceleration 2, small caps that force capacity
@@ -29,8 +36,9 @@
    (text, zeros, noise, mixed bytes, rows of 0, 12 and 13 bytes) at caps 1,
    2, 5, 6, 10, 17, n/2 and compress_bound(n), behind prefixes of 1 to
    65,536 bytes, at min_match 8 and acceleration 2, on a 256 KB row, on
-   66,000 bytes of noise (literal runs past the int32 range of the size
-   arithmetic) and on sampled rows of the two corpus batches of step 9;
+   66,000 bytes of noise (literal runs past the int32 range of the
+   reference's size arithmetic; every block within its cap) and on sampled
+   rows of the two corpus batches of step 9;
    every such block is also decoded by kernel D in batch mode with the
    prefix as its dictionary row, against the plain decoder.  Kernel D's
    resumable mode is held against its plain version on kernel B's 64 rows at
@@ -397,6 +405,24 @@ def stream_cases(files: dict, corpus: bytes, dev, bad_rows, noise_rows):
     st, sz, sd = _records(small, 7)
     cases.append(("flushed chain, short mid-stream blocks", small, st, sz,
                   sd, 64 << 10, None))
+    # flush() after every 5,000 bytes: references cross up to 13 blocks
+    comp = D.DeviceFrameCompressor(FramePreferences(block_size_id=4),
+                                   device=dev)
+    fine = comp.begin() + b"".join(
+        comp.update(corpus[i:i + 5000]) + comp.flush()
+        for i in range(0, 200_000, 5000)) + comp.end()
+    st, sz, sd = _records(fine, 7)
+    cases.append(("flushed chain of 5,000-byte blocks", fine, st, sz, sd,
+                  64 << 10, None))
+    # a -B5 chain whose first block reaches before the stream's start
+    first = fine[st[5]:st[5] + sz[5]]
+    recs = frame_payloads(files["b5_linked"], 7)[:4]
+    parts = [first] + [p for p, _ in recs]
+    cases.append(("-B5 chain, first block reaching before the stream",
+                  b"".join(parts),
+                  [sum(map(len, parts[:i])) for i in range(len(parts))],
+                  [len(p) for p in parts], [0] + [int(t) for _, t in recs],
+                  256 << 10, None))
     for what, rows in (("48 corrupted streams", bad_rows),
                        ("64 payloads of noise", noise_rows)):
         starts = [sum(map(len, rows[:i])) for i in range(len(rows))]
@@ -892,6 +918,21 @@ def kernel_b_payloads(rows, lens, group: int = 64):
             torch.cat([n for _, n in parts]))
 
 
+def in_windows(limit: int, fn, *args):
+    """``fn(*args)`` with the linked decoders' int32 cells holding at most
+    ``limit`` bytes of output at a time (``decode_kernel.CELL_WINDOW``): a
+    chain longer than that decodes window after window, each reading the
+    final bytes of the windows before it."""
+    from lz4_tpu_torch.kernels import decode_kernel as dec
+
+    saved = dec.CELL_WINDOW
+    dec.CELL_WINDOW = limit
+    try:
+        return fn(*args)
+    finally:
+        dec.CELL_WINDOW = saved
+
+
 def event_ms(fn):
     """(fn's result, its CUDA-event ms)."""
     import torch
@@ -1373,6 +1414,46 @@ def main() -> int:
     p = dec.decode_blocks_linked(a_out.reshape(64, -1).cpu(),
                                  a_olen.reshape(64).cpu(), W)
     cmp_rows("decode_linked", "64-block chain, no window", *k, *p)
+    # a 64-block chain of one 7-byte period (kernel A's parse, mm=4): every
+    # block refers into the one before it, so references run through all 64
+    period = mixed_bytes(7, corpus, 5)
+    pattern = (period * (len(chunk) // 7 + 1))[:len(chunk)]
+    per_out, per_olen = enc.scan_linked(*linked_case(pattern, b"", 4)[0])
+    per_args = (per_out.reshape(64, -1), per_olen.reshape(64), W)
+    k = dec.decode_blocks_linked(*per_args)
+    p = dec.decode_blocks_linked(per_args[0].cpu(), per_args[1].cpu(), W)
+    cmp_rows("decode_linked", "64-block chain of a 7-byte period", *k, *p)
+    if k[0].cpu().reshape(-1).numpy().tobytes() != pattern:
+        raise SmokeFailure("the 7-byte period chain does not decode to its "
+                           "content")
+    k = in_windows(8 * W, dec.decode_blocks_linked, *per_args)
+    cmp_rows("decode_linked", "64-block chain of a 7-byte period, in 8 "
+             "windows of 8 rows", *k, *p)
+    stats["decode_linked"]["ms_period"] = time_card(
+        lambda: dec.decode_blocks_linked(*per_args))
+    # a short block at index 20: every later block that reaches back fails
+    short_rows = a_out.reshape(64, -1).cpu().clone()
+    short_lens = a_olen.reshape(64).cpu().clone()
+    lit = literal_head(1000) + chunk[20 * W:20 * W + 1000]
+    short_rows[20, :len(lit)] = torch.frombuffer(bytearray(lit),
+                                                 dtype=torch.uint8)
+    short_lens[20] = len(lit)
+    k = dec.decode_blocks_linked(short_rows.to(cuda), short_lens.to(cuda), W,
+                                 win_d, W)
+    p = dec.decode_blocks_linked(short_rows, short_lens, W, win_d.cpu(), W)
+    cmp_rows("decode_linked", "64-block chain with init window, a short "
+             "block at index 20", *k, *p)
+    # the same two chains go through kernel E too (step 3f), the second
+    # behind its window as a literal-only block
+    chains = {"64-block chain of a 7-byte period": per_args[:2],
+              "64-block chain, a short block at index 20": (short_rows,
+                                                            short_lens)}
+    chains = {what: [r[:n].numpy().tobytes() for r, n in
+                     zip(rows.cpu(), lens.tolist())]
+              for what, (rows, lens) in chains.items()}
+    chains["64-block chain, a short block at index 20"].insert(
+        0, literal_head(W) + window)
+    del per_out, per_olen, per_args, short_rows
 
     # -- 3d. kernel B, then kernel D batch mode on its output -----------------
     rows_h = torch.frombuffer(bytearray(corpus[:64 * W]),
@@ -1510,18 +1591,41 @@ def main() -> int:
                 bytearray(flat), dtype=torch.uint8), *args)
             cmp_stream(f"{what}, {'linked' if linked else 'independent'}",
                        k, p)
-    # every launch the stream phase makes (step 6), on the whole file
+    for what, payloads in chains.items():
+        cmp_stream(f"{what}, linked",
+                   dec.decode_stream(payloads, W, 0, device=cuda),
+                   dec.decode_stream(payloads, W, 0, device="cpu"))
+    del chains
+    # every launch the stream phase makes (step 6), on the whole file; the
+    # two linked chains timed too (median of three single launches)
     launches = stream_launches(files)
-    plain_full = {}
+    plain_full, chain_ms = {}, {}
     for fname, (what, flat, st, cl, sd, bs, linked, caps) in \
             launches.items():
         flat_h = torch.frombuffer(bytearray(flat), dtype=torch.uint8)
+        flat_d = flat_h.to(cuda)
         args = (st, cl, sd, bs, 0, linked, caps)
-        k = dec.decode_stream_raw(flat_h.to(cuda), *args)
+        k = dec.decode_stream_raw(flat_d, *args)
         p, plain_full[fname] = time_host(
             lambda: dec.decode_stream_raw(flat_h, *args))
         cmp_stream(f"{what} (the stream phase's launch)", k, p)
-        del k, p
+        if linked:
+            # the same chain in windows of 1 MiB of caps
+            nwin = len(dec.cell_windows(
+                [min(c, dec.STREAM_BLOCK_CAP) for c in caps], 1 << 20)) - 1
+            k = in_windows(1 << 20, dec.decode_stream_raw, flat_d, *args)
+            cmp_stream(f"{what}, in {nwin} windows of 1 MiB of caps", k, p)
+            chain_ms[fname] = time_rounds(
+                lambda: dec.decode_stream_raw(flat_d, *args))
+            st_ = stats["decode_stream"]
+            st_[f"ms_{fname}"] = sorted(chain_ms[fname])[1]
+            st_[f"ms_rounds_{fname}"] = chain_ms[fname]
+            st_[f"plain_ms_{fname}"] = plain_full[fname]
+            # the input and 16 bytes of metadata per block in; the content
+            # and olen out
+            st_[f"bound_ms_{fname}"] = (len(flat) + 16 * len(st) + int(
+                p[1].clamp(min=0).sum()) + 4 * len(st)) / HBM_BYTES_PER_S * 1e3
+        del k, p, flat_d
     s7, n7, d7 = _records(files["b7"], 7)
     b7_d = torch.frombuffer(bytearray(files["b7"]), dtype=torch.uint8).to(cuda)
     one = ([s7[0]], [n7[0]], [0], MB4, 0)
@@ -1563,6 +1667,10 @@ def main() -> int:
         f"{plain_full['b7']:.1f} ms")
     log("[time] decode_stream plain version, whole files: " + ", ".join(
         f"{f} {t:.1f} ms" for f, t in plain_full.items()))
+    log("[time] decode_stream linked, whole chains: " + ", ".join(
+        f"{f} rounds {[round(t, 3) for t in r]} ms "
+        f"({len(corpus) / 1e3 / sorted(r)[1]:.1f} MB/s)"
+        for f, r in chain_ms.items()))
     del b7_d, b7_h, launches
 
     # -- 3g. kernels G and F: small cases, every sg-phase launch, times -----
@@ -1780,6 +1888,11 @@ def main() -> int:
             p_args[0], p_args[1], i32_tensor(caps, "cpu"), acc,
             window_lens=p_args[2], min_match=mm)
         cmp_third("encode_dest_size", what, k, p)
+        over = [i for i, (n, cap) in enumerate(zip(k[1].cpu().tolist(), caps))
+                if n > max(cap, 0)]
+        if over:
+            raise SmokeFailure(f"{what}: kernel H's blocks {over} pass their "
+                               "caps")
         width = max(max(map(len, bufs)), 1)
         pre = prefixes or [b""] * len(bufs)
         dk = dec.decode_blocks(k[0], k[1], width, k[2],

@@ -1,5 +1,6 @@
-// The warp-wide safe LZ4 block decoder shared by kernel D (decode.cu) and
-// kernel E (stream.cu).
+// The warp-wide safe LZ4 block decoder shared by kernel D (decode.cu),
+// kernel E (stream.cu) and kernel F (sg_decode.cu), and the rounds of
+// pointer jumping that finish a chain decoded into cells.
 //
 // All 32 lanes of a warp run the same parse on the same bytes (loads of one
 // address are broadcast, so the warp never diverges) and split every
@@ -8,6 +9,18 @@
 // copied bytewise by lane 0.  Every load is checked against the block's
 // length and every store against the output limit before it happens, so
 // hostile input cannot read or write outside its block.
+//
+// Chains of linked blocks are decoded with every block at once: a block
+// whose window is not final yet writes int32 *cells*, each a byte (0..255)
+// or a reference c < 0 to the cell -c positions back, which lies before
+// the block (a match inside the block copies cells, and a copied reference
+// keeps naming its cell).  Once every block's status is known, rounds of
+// pointer jumping (jump_cells) resolve the references in parallel, and no
+// block waits for another.  A chain is decoded this way in windows of
+// blocks that hold at most CELL_WINDOW bytes of output
+// (kernels/decode_kernel.py), one window after another: a window's
+// references below its first block read the final bytes of the windows
+// before it, the cells stay bounded, and every reference fits int32.
 #pragma once
 
 #include <stdint.h>
@@ -15,6 +28,19 @@
 namespace {
 
 constexpr int WARP = 32;
+
+// What decode_block_t writes: the bytes (kBytes), int32 cells (kCells),
+// or nothing (kParse: the walk and its checks alone).
+enum class Out { kBytes, kCells, kParse };
+
+template <Out K>
+struct OutElem {
+  using type = uint8_t;
+};
+template <>
+struct OutElem<Out::kCells> {
+  using type = int32_t;
+};
 
 // Length-extension bytes at *ip (a run of 255s closed by a smaller byte);
 // false when the run reaches n.
@@ -26,6 +52,27 @@ __device__ __forceinline__ bool read_ext(const uint8_t* src, int n, int* ip,
     *len += b;
     if (b != 255) return true;
   }
+}
+
+// Window byte p < 0 for a copy at distance `offset`, as decode_block_t<..,
+// K> stores it: the byte itself, or in kCells without a window buffer a
+// reference, -offset (the cell `offset` positions back).
+template <Out K>
+__device__ __forceinline__ typename OutElem<K>::type window_elem(
+    const uint8_t* win_end, int p, int offset) {
+  if constexpr (K == Out::kCells) {
+    if (win_end == nullptr) return -offset;
+  }
+  return win_end[p];
+}
+
+// Element v copied `offset` positions forward: a reference still names the
+// same cell, now `offset` farther back.
+template <Out K>
+__device__ __forceinline__ typename OutElem<K>::type copied(
+    typename OutElem<K>::type v, int offset) {
+  if constexpr (K == Out::kCells) return v < 0 ? v - offset : v;
+  return v;
 }
 
 // Decode one block of n bytes into out[0, olim).  The window (plen bytes of
@@ -43,11 +90,20 @@ __device__ __forceinline__ bool read_ext(const uint8_t* src, int n, int* ip,
 // terminal literal run or exactly after a match, sets *cons = n.  Without
 // RESUMABLE the order of the checks does not show (every failure is -1),
 // `cons` is not touched, and the compiled decoder is the one it was.
-template <bool RESUMABLE>
-__device__ int decode_block_t(const uint8_t* src, int n, uint8_t* out,
-                              int olim, const uint8_t* win_end, int plen,
-                              int lane, int* cons) {
-  int ip = 0, opos = 0;
+//
+// kCells writes cells; a window byte is read from win_end when it is not
+// null and written as a reference otherwise (window_elem; plen still bounds
+// the offsets).  kCells and kParse set *far, when the block decodes, to the
+// farthest a match reached before the block's start, max(offset - opos -
+// litlen), 0 if none; a kParse walk with plen = 65535 fails no offset
+// check but offset 0.  kBytes compiles to the decoder without cells.
+template <bool RESUMABLE, Out K = Out::kBytes>
+__device__ int decode_block_t(const uint8_t* src, int n,
+                              typename OutElem<K>::type* out, int olim,
+                              const uint8_t* win_end, int plen, int lane,
+                              int* cons, int* far = nullptr) {
+  static_assert(!RESUMABLE || K == Out::kBytes, "destSize decodes bytes");
+  int ip = 0, opos = 0, reach = 0;
   auto malformed = [&]() {
     if (RESUMABLE) *cons = -1;
     return -1;
@@ -71,36 +127,45 @@ __device__ int decode_block_t(const uint8_t* src, int n, uint8_t* out,
         return malformed();
       if (offset == 0 || offset > opos + litlen + plen) return malformed();
       if (!RESUMABLE && (long long)opos + litlen + mlen > olim) return -1;
+      if constexpr (K != Out::kBytes)
+        reach = max(reach, offset - opos - litlen);
     }
     if (RESUMABLE && (long long)opos + litlen + mlen > olim) {
       *cons = ip0;                                // stop at the token
       return opos;
     }
-    for (int i = lane; i < litlen; i += WARP) out[opos + i] = src[ip + i];
-    __syncwarp();
+    if constexpr (K != Out::kParse) {
+      for (int i = lane; i < litlen; i += WARP) out[opos + i] = src[ip + i];
+      __syncwarp();
+    }
     opos += litlen;
     if (ended) {
       if (RESUMABLE) *cons = n;
+      if constexpr (K != Out::kBytes) *far = reach;
       return opos;
     }
-    const int from = opos - offset;
-    if (offset >= WARP) {
-      // each 32-byte stride reads only bytes written before it
-      for (int base = 0; base < mlen; base += WARP) {
-        const int i = base + lane;
-        if (i < mlen) {
-          const int p = from + i;
-          out[opos + i] = p < 0 ? win_end[p] : out[p];
+    if constexpr (K != Out::kParse) {
+      const int from = opos - offset;
+      if (offset >= WARP) {
+        // each 32-byte stride reads only bytes written before it
+        for (int base = 0; base < mlen; base += WARP) {
+          const int i = base + lane;
+          if (i < mlen) {
+            const int p = from + i;
+            out[opos + i] = p < 0 ? window_elem<K>(win_end, p, offset)
+                                  : copied<K>(out[p], offset);
+          }
+          __syncwarp();
         }
+      } else {
+        if (lane == 0)
+          for (int i = 0; i < mlen; ++i) {
+            const int p = from + i;
+            out[opos + i] = p < 0 ? window_elem<K>(win_end, p, offset)
+                                  : copied<K>(out[p], offset);
+          }
         __syncwarp();
       }
-    } else {
-      if (lane == 0)
-        for (int i = 0; i < mlen; ++i) {
-          const int p = from + i;
-          out[opos + i] = p < 0 ? win_end[p] : out[p];
-        }
-      __syncwarp();
     }
     opos += mlen;
     ip = ip_m;
@@ -117,6 +182,63 @@ __device__ __forceinline__ int decode_block(const uint8_t* src, int n,
                                             int lane) {
   return decode_block_t<false>(src, n, out, olim, win_end, plen, lane,
                                nullptr);
+}
+
+// The rounds of jump_cells that resolve every chain of a B-block chain,
+// and the most any B takes: a reference names a cell of an earlier block,
+// so a chain has at most B - 1 links, and after round k (from 0) every
+// chain of up to 2^(k+1) - 1 links is resolved (synchronous pointer jumping
+// gives that; following more links in a round, or reading a cell that
+// another thread already advanced in the same round, only helps).
+constexpr int MAX_JUMP_ROUNDS = 32;
+__host__ __device__ inline int jump_rounds(int B) {
+  int k = 1;
+  while ((1LL << k) < B) ++k;
+  return k;
+}
+
+// Links a reference follows in one round: most chains of real data end
+// within them, so the first round or two resolve nearly every cell and the
+// rest return at once.
+constexpr int JUMP_LINKS = 16;
+
+// Round k of pointer jumping over positions [start, end): cells[i - origin]
+// holds position i's cell, and a reference c names position i + c; cell i
+// follows up to JUMP_LINKS links of its chain and takes the byte it
+// reaches, or a reference to the last position it reached.  Positions below
+// `origin` hold no cells: their bytes are final in out.  Round 0 also
+// writes every byte cell out, and every round writes the bytes it
+// resolves; a reference left over sets *more.  Any value another thread
+// reads from a cell, before or after this round changes it, is a byte or a
+// link of the same chain, so the rounds need no ordering inside.  A
+// reference spans at most the cells' extent plus 64 KB, which the callers
+// keep far inside int32 (the windows above).  Threads t of nt.
+__device__ __forceinline__ void jump_cells(int32_t* cells, long long origin,
+                                           uint8_t* out, long long start,
+                                           long long end, bool first,
+                                           long long t, long long nt,
+                                           int32_t* more) {
+  bool left = false;
+  for (long long i = start + t; i < end; i += nt) {
+    int v = cells[i - origin];
+    if (v >= 0) {
+      if (first) out[i] = (uint8_t)v;
+      continue;
+    }
+    long long j = i;
+    for (int link = 0; v < 0 && link < JUMP_LINKS; ++link) {
+      j += v;
+      v = j < origin ? out[j] : cells[j - origin];
+    }
+    if (v >= 0) {
+      cells[i - origin] = v;
+      out[i] = (uint8_t)v;
+    } else {
+      cells[i - origin] = (int)(j + v - i);
+      left = true;
+    }
+  }
+  if (left) *more = 1;
 }
 
 }  // namespace

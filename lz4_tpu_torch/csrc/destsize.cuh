@@ -5,7 +5,9 @@
 //
 // Counterpart of the scan inside lz4_tpu/kernels/destsize_kernel.py's
 // _make_destsize_kernel and _make_sg_chain_kernel, decision for decision,
-// including the TPU kernels' int32 capacity arithmetic (div255 wraps).
+// except that div255 is exact: the TPU kernels' int32 magic multiply wraps
+// from 65,280, which sizes literal runs of 65,295 bytes or more short and
+// lets a block pass its capacity.
 // Sequences are written through emit.cuh only.
 #pragma once
 
@@ -31,13 +33,8 @@ __device__ __forceinline__ int hash5(const uint8_t* p) {
   return (int)((x >> (32 - HASH_LOG)) & (HASH_SIZE - 1));
 }
 
-// The TPU kernel's y // 255 by a magic multiply in int32 (exact below
-// 65280; the wrap-around above it is part of the parse it defines).
-__device__ __forceinline__ int div255(int y) {
-  const int q0 = (int)((uint32_t)y * 32897u) >> 23;
-  const int r = y - q0 * 255;
-  return q0 - (r < 0 ? 1 : 0);
-}
+// y // 255 for y >= 0 (every caller's argument is).
+__device__ __forceinline__ int div255(int y) { return y / 255; }
 
 __device__ __forceinline__ int ext_bytes(int x) {
   return x < 15 ? 0 : 1 + div255(x - 15);
@@ -75,8 +72,8 @@ __device__ inline int max_final_literals(int room, int avail) {
 // one literal fits.  Run by one thread.
 //
 // The block is a valid parse of the bytes it covers, so it is never longer
-// than compress_bound(n_end - start), whatever `cap` and the wrapping
-// arithmetic say: `out` must hold that much.
+// than compress_bound(n_end - start), whatever `cap` says: `out` must hold
+// that much.
 __device__ inline int dest_size_block(const uint8_t* src, int start,
                                       int n_end, int low, int first, int cap,
                                       int32_t* table, int acceleration,

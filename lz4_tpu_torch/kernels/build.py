@@ -48,10 +48,12 @@ _SIGNATURES = {
     "lz4tt_encode": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "lz4tt_encode_hc": [_P, _I, _P, _P, _P, _I, _P, _I, _I, _P],
     "lz4tt_pack": [_P, _I, _P, _L, _P, _P, _P, _P, _P, _I, _P],
-    "lz4tt_decode_linked": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P],
+    "lz4tt_decode_linked": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I,
+                            _P, _P],
     "lz4tt_decode_batch": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
                            _P],
-    "lz4tt_decode_stream": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "lz4tt_decode_stream": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P,
+                            _P, _P, _P],
     "lz4tt_decode_sg": [_P, _P, _P, _P, _P, _I, _P, _P, _P],
     "lz4tt_sg_encode_chain": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P],

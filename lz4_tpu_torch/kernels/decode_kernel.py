@@ -12,9 +12,13 @@ The block semantics are those of the JAX kernels' general path:
   is the window length, and the output must fit ``min(cap, N)``;
 * anything else, or input that ends after a match, gives length -1.
 
-``decode_blocks_linked`` decodes one chain in order: block b's window is
-block b-1's output when that block decoded to exactly ``block_size`` bytes,
-and empty otherwise; block 0 may take an initial window.
+``decode_blocks_linked`` decodes one chain with the serial semantics:
+block b's window is block b-1's output when that block decoded to exactly
+``block_size`` bytes, and empty otherwise; block 0 may take an initial
+window.  The kernels decode every block of a linked chain at once and
+work the statuses out from per-block summaries; ``parse_block_plain``,
+``linked_statuses_plain`` and ``stream_statuses_plain`` model those steps
+for the tests, while the wrappers' plain versions stay the serial walks.
 ``decode_blocks`` decodes independent rows, each with an optional
 dictionary; ``decode_blocks_dest_size`` is its resumable (destSize) variant:
 a row that runs out of room stops at a token boundary and reports the bytes
@@ -47,6 +51,14 @@ STREAM_BLOCK_CAP = 1 << 23        # no stream block decodes past 8 MB
 # csrc/stream.cu holds byte offsets and lengths into the input as int32
 # (output offsets are int64), so the input is at most this long
 STREAM_MAX_INPUT = (1 << 31) - 1
+# flags of the pointer-jumping rounds that follow a linked decode into
+# cells (MAX_JUMP_ROUNDS in csrc/decode.cuh)
+JUMP_ROUND_FLAGS = 32
+# The most output bytes a linked decode on the card holds in int32 cells at
+# once: a longer chain is decoded in windows of blocks, one after another.
+# This bounds the cells' scratch to 1 GiB and every reference in them to
+# this plus two blocks, far inside int32.
+CELL_WINDOW = 1 << 28
 
 
 class StreamEnvelopeError(ValueError):
@@ -67,15 +79,17 @@ def _read_ext(src: bytes, ip: int, n: int):
 
 
 def _decode_sequences(src: bytes, n: int, olim: int, window: bytes):
-    """The sequence loop of the plain decoders.  Returns (status, ip, out):
-    status as in the JAX kernel (0 the source ran out at a token boundary,
-    1 ended with a literal run, 2 malformed, 3 no room), ``ip`` the offset
-    of the token where the loop stopped, ``out`` the bytes produced.  Every
-    sequence is parsed and validated whole before it is held against the
-    room, and one that fails either check is not started."""
+    """The sequence loop of the plain decoders.  Returns (status, ip, out,
+    need): status as in the JAX kernel (0 the source ran out at a token
+    boundary, 1 ended with a literal run, 2 malformed, 3 no room), ``ip``
+    the offset of the token where the loop stopped, ``out`` the bytes
+    produced, ``need`` how far the matches started reached before the
+    output's start (0 if none).  Every sequence is parsed and validated
+    whole before it is held against the room, and one that fails either
+    check is not started."""
     out = bytearray()
     plen = len(window)
-    ip, status = 0, 0
+    ip, status, need = 0, 0, 0
     while status == 0 and ip < n:
         ip0 = ip
         token = src[ip]
@@ -101,11 +115,12 @@ def _decode_sequences(src: bytes, n: int, olim: int, window: bytes):
         valid = v_lit and (ended or v_m)
         room = r_lit and (ended or opos + litlen + mlen <= olim)
         if not (valid and room):
-            return (3 if valid else 2), ip0, out
+            return (3 if valid else 2), ip0, out, need
         out += src[ip:ip_after]
         if ended:
-            return 1, ip0, out
+            return 1, ip0, out, need
         start = len(out) - offset
+        need = max(need, -start)
         if start >= 0 and offset >= mlen:
             out += out[start:start + mlen]
         else:
@@ -113,7 +128,7 @@ def _decode_sequences(src: bytes, n: int, olim: int, window: bytes):
                 p = start + i
                 out.append(window[plen + p] if p < 0 else out[p])
         ip = ip_m
-    return 0, ip, out
+    return 0, ip, out, need
 
 
 def decode_block_plain(src: bytes, n: int, olim: int, window: bytes = b""):
@@ -121,7 +136,7 @@ def decode_block_plain(src: bytes, n: int, olim: int, window: bytes = b""):
     ``window`` (the bytes right before the output) as match history.
     Returns (olen, output bytes); olen is -1 for a malformed block, and for
     one that does not fit or does not end with a literal run."""
-    status, _, out = _decode_sequences(src, n, olim, window)
+    status, _, out, _ = _decode_sequences(src, n, olim, window)
     return (len(out) if status == 1 else ERR_MALFORMED), bytes(out)
 
 
@@ -132,10 +147,56 @@ def decode_block_resumable_plain(src: bytes, n: int, olim: int,
     is what was produced and cons the token's offset.  A block that ends,
     with its terminal literal run or exactly after a match, reports
     cons == n; a malformed one olen = cons = -1."""
-    status, ip, out = _decode_sequences(src, n, olim, window)
+    status, ip, out, _ = _decode_sequences(src, n, olim, window)
     if status == 2:
         return ERR_MALFORMED, ERR_MALFORMED, bytes(out)
     return len(out), (n if status == 1 else ip), bytes(out)
+
+
+def parse_block_plain(src: bytes, n: int, cap: int, plen: int = MAX_OFFSET):
+    """The summary the linked kernels make of one block decoded with a
+    window of ``plen`` bytes assumed present: (length or -1, need, reach).
+    ``need`` is how far its matches reach before its start (0 if none, and
+    0 for a block that does not decode), ``reach`` whether any does.  With
+    the default ``plen`` no offset check fails but offset 0: kernel E's
+    parse (its step A); with ``plen = N`` it is kernel D's cell decode.
+    Used by the tests."""
+    status, _, out, need = _decode_sequences(src, n, cap, bytes(plen))
+    if status != 1:
+        return ERR_MALFORMED, 0, False
+    return len(out), need, need > 0
+
+
+def linked_statuses_plain(parsed: Sequence[Tuple[int, int, bool]],
+                          block_size: int) -> List[int]:
+    """Kernel D's linked statuses (its step 3) from each block's summary
+    with its window assumed present (``parse_block_plain`` with ``plen =
+    block_size``; block 0 with its own window): block b > 0 fails where it
+    reaches back and block b-1's final length is not ``block_size``.
+    Equals ``decode_blocks_linked``'s olen.  Used by the tests."""
+    olen: List[int] = []
+    for b, (r, _, reach) in enumerate(parsed):
+        olen.append(ERR_MALFORMED if b and reach and
+                    olen[b - 1] != block_size else r)
+    return olen
+
+
+def stream_statuses_plain(parsed: Sequence[Tuple[int, int, bool]]
+                          ) -> Tuple[List[int], List[int]]:
+    """Kernel E's linked statuses and positions (its step B) from each
+    block's ``parse_block_plain`` summary (a stored block: (n or -1, 0,
+    False)): block b starts at base_b and fails where it needs more than
+    min(base_b, 65535) bytes before it.  Returns (olen, bases); olen equals
+    ``decode_stream_raw``'s in linked mode.  Used by the tests."""
+    olen: List[int] = []
+    bases: List[int] = []
+    base = 0
+    for r, need, _ in parsed:
+        r = r if r >= 0 and need <= min(base, MAX_OFFSET) else ERR_MALFORMED
+        olen.append(r)
+        bases.append(base)
+        base += max(r, 0)
+    return olen, bases
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -166,10 +227,17 @@ def decode_blocks_linked(comp: torch.Tensor, comp_lens: torch.Tensor,
       init_window_len: its byte length (<= block_size).
 
     Returns (out [B, block_size] uint8, olen [B] int32; -1 = malformed).
+    Bytes of a -1 row and past ``olen`` are not part of the result.  On the
+    card the blocks decode at once into int32 cells, in windows of
+    ``CELL_WINDOW // block_size`` blocks, so the call takes ``4 *
+    min(B * block_size, CELL_WINDOW)`` bytes of scratch (16 MB for 64
+    blocks of 64 KB).  ``block_size`` is at most 8 MB, as in kernel E.
     """
     _check_comp(comp, comp_lens)
     B, M = comp.shape
     N = int(block_size)
+    if not 0 < N <= STREAM_BLOCK_CAP:
+        raise ValueError("block_size must be in (0, 8 MB]")
     dev = comp.device
     if init_window is None or not init_window_len:
         init_window = torch.zeros((N,), dtype=torch.uint8, device=dev)
@@ -196,9 +264,14 @@ def decode_blocks_linked(comp: torch.Tensor, comp_lens: torch.Tensor,
         return out, olen
     out = torch.empty((B, N), dtype=torch.uint8, device=dev)
     olen = torch.empty((B,), dtype=torch.int32, device=dev)
+    W = min(B, max(CELL_WINDOW // N, 1))
+    cells = torch.empty((W, N), dtype=torch.int32, device=dev)
+    far = torch.empty((B + JUMP_ROUND_FLAGS,), dtype=torch.int32,
+                      device=dev)
     err = build.kernels_lib().lz4tt_decode_linked(
         comp.data_ptr(), M, comp_lens.data_ptr(), init_window.data_ptr(),
         int(init_window_len), out.data_ptr(), N, olen.data_ptr(), B,
+        cells.data_ptr(), W, far.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("decode_linked", err)
     LAUNCHES["decode_linked"] += 1
@@ -357,6 +430,23 @@ def decode_stream_plain(flat: bytes, bstart: Sequence[int],
     return bytes(out), olen
 
 
+def cell_windows(caps: np.ndarray, limit: int) -> np.ndarray:
+    """The windows in which kernel E decodes a linked chain into cells:
+    block indices ``w`` (int32, ``w[0] = 0``, ``w[-1] = B``) such that
+    blocks ``[w[i], w[i + 1])`` other than block 0 have caps summing to at
+    most ``limit``, or are one block.  Block 0 decodes straight into the
+    output and takes no cells."""
+    bounds, held, count = [0], 0, 0
+    for b in range(1, len(caps)):
+        if count and held + caps[b] > limit:
+            bounds.append(b)
+            held = count = 0
+        held += int(caps[b])
+        count += 1
+    bounds.append(len(caps))
+    return np.array(bounds, np.int32)
+
+
 def _host_ints(values, name: str, B: Optional[int] = None) -> np.ndarray:
     """A sequence or tensor of per-block integers as int64 numpy [B]."""
     if isinstance(values, torch.Tensor):
@@ -394,6 +484,12 @@ def decode_stream_raw(flat: torch.Tensor, bstart, clen, stored,
     on ``flat``'s device.  ``out[:sum(olen[olen > 0])]`` holds the good
     blocks' bytes in order; the rest is not part of the result.  Raises
     ``StreamEnvelopeError`` when ``flat`` is longer than STREAM_MAX_INPUT.
+    On the card a linked chain decodes its blocks at once, all but the
+    first into int32 cells, in windows whose caps sum to at most
+    ``CELL_WINDOW`` (``cell_windows``): the call takes 4 bytes of scratch
+    per byte of the largest window's caps (256 MB for a 64 MiB frame of
+    256 KB blocks, at most 1 GiB); independent mode takes 1 per byte of the
+    sum of the caps.
     """
     check(flat, "flat", torch.uint8, 1)
     if block_size <= 0 or block_size % STREAM_UNIT:
@@ -432,17 +528,26 @@ def decode_stream_raw(flat: torch.Tensor, bstart, clen, stored,
         return out, olen
     meta = torch.from_numpy(np.stack([bstart, clen, caps, stored])
                             .astype(np.int32)).to(dev)
+    dst = torch.empty((B,), dtype=torch.int64, device=dev)
     if linked:
-        cap_off = scratch = dst = None
+        cap_off = scratch = None
+        win = cell_windows(caps, CELL_WINDOW)
+        held = max(int(caps[max(b0, 1):b1].sum())
+                   for b0, b1 in zip(win[:-1], win[1:]))
+        cells = torch.empty((held,), dtype=torch.int32, device=dev)
+        need = torch.empty((B + (len(win) - 1) * JUMP_ROUND_FLAGS,),
+                           dtype=torch.int32, device=dev)
     else:
         offs = np.concatenate([[0], np.cumsum(caps)[:-1]]).astype(np.int64)
         cap_off = torch.from_numpy(offs).to(dev)
         scratch = torch.empty((cap_total,), dtype=torch.uint8, device=dev)
-        dst = torch.empty((B,), dtype=torch.int64, device=dev)
+        cells = need = None
+        win = np.zeros((1,), np.int32)
 
     err = build.kernels_lib().lz4tt_decode_stream(
         flat.data_ptr(), meta.data_ptr(), B, int(linked), _ptr(cap_off),
-        _ptr(scratch), _ptr(dst), out.data_ptr(), olen.data_ptr(),
+        _ptr(scratch), win.ctypes.data, len(win) - 1, _ptr(cells),
+        _ptr(need), dst.data_ptr(), out.data_ptr(), olen.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("decode_stream", err)
     LAUNCHES["decode_stream"] += 1

@@ -26,8 +26,9 @@ buffer, and a match may reach back to the start of the previous input
 buffer (the window the SG decoder keeps).
 
 The parse is the JAX kernel's, decision for decision, so every step's block
-bytes, lengths and consumed counts are bit-identical to ``lz4_tpu``'s.  The
-capacity arithmetic is its int32 arithmetic, wrap-around included.
+bytes, lengths and consumed counts are bit-identical to ``lz4_tpu``'s
+wherever its int32 capacity arithmetic is exact: ``_div255`` is exact here,
+so a final literal run of 65,295 bytes or more never passes its room.
 
 ``sg_encode_chain`` launches ``csrc/sg_chain.cu`` for tensors on the card
 and runs ``sg_encode_chain_plain`` for tensors on the CPU.  Unlike the TPU
@@ -63,18 +64,11 @@ class ChainEnvelopeError(ValueError):
     """The input is outside the chain encoder's envelope."""
 
 
-def _i32(x: int) -> int:
-    """x wrapped to a signed 32-bit integer (the TPU kernel's int32)."""
-    x &= 0xFFFFFFFF
-    return x - (1 << 32) if x >= 1 << 31 else x
-
-
 def _div255(y: int) -> int:
-    """The JAX kernel's y // 255 by a magic multiply, in int32: exact for
-    0 <= y < 65280, where y * 32897 still fits."""
-    q0 = _i32(y * 32897) >> 23
-    r = y - q0 * 255
-    return q0 - (1 if r < 0 else 0)
+    """y // 255 for y >= 0.  The JAX kernel's int32 magic multiply is exact
+    only below 65,280 and sizes literal runs of 65,295 bytes or more short;
+    the port does not copy that."""
+    return y // 255
 
 
 def _ext_bytes(x: int) -> int:

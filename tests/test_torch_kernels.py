@@ -222,7 +222,18 @@ def _linked_payloads(data: bytes, bs: int):
                     for i, b in enumerate(blocks)]
 
 
+def _linked_model(arr, lens, bs, window_len):
+    """Kernel D's linked statuses as the card works them out: every block's
+    summary with its window assumed present, then the in-order rule."""
+    parsed = [tdec.parse_block_plain(arr[b].tobytes(), int(n), bs,
+                                     bs if b else window_len)
+              for b, n in enumerate(lens)]
+    return tdec.linked_statuses_plain(parsed, bs)
+
+
 def _decode_linked_both(payloads, bs, window=None):
+    """Both packages' linked decoders on one chain: equal statuses and
+    bytes, and statuses equal to ``_linked_model``'s."""
     arr, lens = _rows(payloads)
     jw = None if window is None else jnp.asarray(
         np.frombuffer(window, np.uint8).astype(np.int32)).reshape(1, bs)
@@ -235,6 +246,8 @@ def _decode_linked_both(payloads, bs, window=None):
         torch.from_numpy(arr), torch.from_numpy(lens), bs, init_window=tw,
         init_window_len=len(window) if window else 0)
     _assert_rows_equal(j_out, j_olen, t_out, t_olen)
+    assert _linked_model(arr, lens, bs, len(window) if window else 0) == \
+        t_olen.tolist()
     return t_out, t_olen.numpy()
 
 
@@ -263,10 +276,41 @@ def test_decode_blocks_linked_partial_predecessor_matches_jax():
     assert olen[0] == 30_000
 
 
+@pytest.mark.parametrize("reaches", [True, False])
+@pytest.mark.parametrize("short", [1, 2])
+def test_decode_blocks_linked_short_middle_block_matches_jax(short, reaches):
+    """A short block in the middle of a chain: its successor fails when it
+    reaches back (and so does every later block that reaches back), and
+    decodes when it does not."""
+    data = mixed_stream(5 * W, 34)
+    blocks, payloads = _linked_payloads(data, W)
+    payloads[short] = compress_block(blocks[short][:20_000],
+                                     dict_=blocks[short - 1])
+    if not reaches:
+        payloads[short + 1] = compress_block(blocks[short + 1])
+    _, olen = _decode_linked_both(payloads, W)
+    assert olen[short] == 20_000 and (olen[short + 1] == -1) == reaches
+
+
 @pytest.mark.parametrize("seed", [1, 2])
 def test_decode_blocks_linked_malformed_matches_jax(seed):
     cases = adversarial_cases(seed)
     _decode_linked_both(cases, 8192)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_decode_blocks_linked_fuzzed_chain_matches_jax(seed):
+    """A valid chain with bit flips in some blocks, and one block cut."""
+    rng = np.random.default_rng(seed)
+    data = mixed_stream(6 * 8192, 40 + seed)
+    _, payloads = _linked_payloads(data, 8192)
+    payloads = [bytearray(p) for p in payloads]
+    for b in rng.choice(len(payloads), 2, replace=False):
+        for _ in range(int(rng.integers(1, 4))):
+            i = int(rng.integers(len(payloads[b])))
+            payloads[b][i] ^= 1 << int(rng.integers(8))
+    payloads[int(rng.integers(len(payloads)))] = payloads[0][:-5]
+    _decode_linked_both([bytes(p) for p in payloads], 8192)
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3, 4])
@@ -386,6 +430,9 @@ def test_wrappers_check_their_arguments():
                                   init_window=torch.zeros(100,
                                                           dtype=torch.uint8),
                                   init_window_len=50)
+    for block_size in (0, tdec.STREAM_BLOCK_CAP + 1):
+        with pytest.raises(ValueError, match="8 MB"):
+            tdec.decode_blocks_linked(rows, lens, block_size)
     with pytest.raises(ValueError):
         common.use_kernel(rows, torch.zeros(1, device="meta"))
 

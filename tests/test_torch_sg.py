@@ -129,16 +129,33 @@ def test_sg_encode_chain_matches_jax(case):
     assert len(blocks) == int(boff[live[-1]]) + blen[live[-1]]
 
 
+def _final_run_sizes(lits: np.ndarray) -> np.ndarray:
+    """Exact encoded size of a final literal run of each length."""
+    return 1 + lits + np.where(lits < 15, 0, 1 + (lits - 15) // 255)
+
+
 @pytest.mark.parametrize("avail", [0, 5, 14, 15, 300, 65000, 65536, 70000])
 def test_max_final_literals_matches_jax(avail):
-    """The closed form and its fix-ups at every room in 0..70,000, int32
-    wrap-around of _div255 included (rooms past 65,297 with 64 KB of
-    literals left give a run that overruns the room, in both packages)."""
-    rooms = np.arange(0, 70_001, dtype=np.int32)
-    want = np.asarray(jdsk._max_final_literals(jnp.asarray(rooms),
-                                               jnp.int32(avail)))
-    got = [tdsk._max_final_literals(int(r), avail) for r in rooms]
-    assert want.tolist() == got
+    """The closed form and its fix-ups at every room in 0..70,000.  The
+    port's run always fits its room, and is the largest L <= avail that
+    fits or at most two bytes short of it (the closed form's own rounding,
+    e.g. 523 at room 527 where 524 fits, which is lz4_tpu's parse).  It
+    equals lz4_tpu at every room below 65,297; above it lz4_tpu's int32
+    ``_div255`` wraps, and with 64 KB of literals left its run overruns
+    the room."""
+    rooms = np.arange(0, 70_001, dtype=np.int64)
+    exact = np.searchsorted(_final_run_sizes(np.arange(avail + 1)), rooms,
+                            side="right") - 1
+    got = np.array([tdsk._max_final_literals(int(r), avail) for r in rooms])
+    fits = (got < 0) | (_final_run_sizes(got) <= rooms)
+    assert fits.all() and ((got < 0) == (exact < 0)).all()
+    assert ((exact - got >= 0) & (exact - got <= 2)).all()
+    want = np.asarray(jdsk._max_final_literals(
+        jnp.asarray(rooms.astype(np.int32)), jnp.int32(avail)))
+    below = rooms < 65_297
+    np.testing.assert_array_equal(want[below], got[below])
+    if avail >= 65_536:
+        assert (_final_run_sizes(want[~below]) > rooms[~below]).any()
 
 
 def test_sg_encode_chain_checks_its_arguments():

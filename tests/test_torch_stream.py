@@ -68,6 +68,22 @@ def _payloads(chunks, linked):
     return out
 
 
+def _stream_model(flat: bytes, bstart, clen, stored, caps):
+    """Kernel E's linked statuses as the card works them out: every block's
+    parse, a stored block's fit, then the in-order scan of step B."""
+    parsed = [((n if n <= cap else -1), 0, False) if st else
+              tdec.parse_block_plain(flat[s:s + n], n, cap)
+              for s, n, st, cap in zip(bstart, clen, stored, caps)]
+    return tdec.stream_statuses_plain(parsed)[0]
+
+
+def _payload_model(payloads, bs):
+    """``_stream_model`` over a list of compressed payloads, caps ``bs``."""
+    bstart = np.cumsum([0] + [len(p) for p in payloads])[:-1].tolist()
+    return _stream_model(b"".join(payloads), bstart, list(map(len, payloads)),
+                         [0] * len(payloads), [bs] * len(payloads))
+
+
 def _assert_same(j_out, j_olen, t_out, t_olen):
     """Equal olen, and equal bytes over the good blocks' total."""
     j_olen = np.asarray(j_olen)
@@ -91,6 +107,9 @@ STREAM_CASES = {
     # a flushed short mid-stream block keeps its successors' caps
     "short_midstream": (256 * KB, False, [256 * KB, 1000, 256 * KB]),
     "short_midstream_linked": (256 * KB, True, [256 * KB, 1000, 256 * KB]),
+    # flushed chains: matches reach across several short blocks
+    "flushed_short_blocks": (64 * KB, True, [3000, 700, 5000, 64 * KB, 2000,
+                                             900, 64 * KB, 30_000]),
 }
 
 
@@ -108,6 +127,8 @@ def test_decode_stream_matches_jax(case):
                              device=CPU)
     content, olen = _assert_same(*want, *got)
     assert content == data and olen == sizes
+    if linked:
+        assert _payload_model(payloads, bs) == olen
 
 
 def _raw_layout():
@@ -153,6 +174,9 @@ def test_decode_stream_raw_matches_jax(linked):
     if not linked:
         expect[5] = -1            # its first match reaches before the block
     assert olen == expect
+    if linked:
+        assert _stream_model(flat.tobytes(), bstart, clen, stored, caps) == \
+            olen
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
@@ -174,6 +198,8 @@ def test_decode_stream_bit_flip_verdicts_match_jax(seed):
     got = tdec.decode_stream(payloads, bs, len(data), linked=linked,
                              device=CPU)
     _, olen = _assert_same(*want, *got)
+    if linked:
+        assert _payload_model(payloads, bs) == olen
     if k == 0:
         try:
             assert olen[0] == len(decompress_block(payloads[0], bs))
@@ -189,7 +215,29 @@ def test_decode_stream_noise_matches_jax():
         want = jdec.decode_stream(payloads, 64 * KB, 0, linked=linked)
         got = tdec.decode_stream(payloads, 64 * KB, 0, linked=linked,
                                  device=CPU)
-        _assert_same(*want, *got)
+        _, olen = _assert_same(*want, *got)
+        if linked:
+            assert _payload_model(payloads, 64 * KB) == olen
+
+
+@pytest.mark.parametrize("case", ["first_block", "after_short_block"])
+def test_decode_stream_need_past_the_output_matches_jax(case):
+    """Linked blocks whose matches reach farther back than the output
+    decoded so far: a first block taken from the middle of a chain, and a
+    block reaching 5,000 bytes back behind a first block of 1,000."""
+    data = sparse_data(200_000, 21)
+    if case == "first_block":
+        chunks = [data[i:i + 40_000] for i in range(0, 200_000, 40_000)]
+        payloads = _payloads(chunks, True)[1:]
+    else:
+        rep = data[:5000] * 8
+        payloads = [compress_block(data[5000:6000]),
+                    compress_block(rep[:20_000], dict_=data[:6000])]
+    want = jdec.decode_stream(payloads, 64 * KB, 0, linked=True)
+    got = tdec.decode_stream(payloads, 64 * KB, 0, linked=True, device=CPU)
+    _, olen = _assert_same(*want, *got)
+    assert olen[-1 if case == "after_short_block" else 0] == -1
+    assert _payload_model(payloads, 64 * KB) == olen
 
 
 def test_decode_stream_checks_its_arguments(monkeypatch):
@@ -206,6 +254,42 @@ def test_decode_stream_checks_its_arguments(monkeypatch):
     monkeypatch.setattr(tdec, "STREAM_MAX_INPUT", 99)
     with pytest.raises(tdec.StreamEnvelopeError, match="int32"):
         tdec.decode_stream_raw(flat, [0], [1], [0], 64 * KB, 0)
+
+
+def _lz4_bd_caps(rng):
+    """A 2.3 GiB `lz4 -BD` chain: 600 blocks with the 4 MB cap."""
+    return np.full(600, 4 << 20, np.int64)
+
+
+def _flushed_caps(rng):
+    """Caps of a ragged flushed chain: 0 to 8 MB, some empty."""
+    caps = rng.integers(0, tdec.STREAM_BLOCK_CAP + 1, 300)
+    caps[rng.integers(300, size=40)] = 0
+    return caps
+
+
+@pytest.mark.parametrize("limit", [1, 64 * KB, 20_000_000, None])
+@pytest.mark.parametrize("make_caps", [_lz4_bd_caps, _flushed_caps])
+def test_cell_windows_bound_every_reference(limit, make_caps):
+    """On the card a linked chain decodes into int32 cells in windows
+    (``cell_windows``), each reading the final bytes of those before it.
+    The windows cover the blocks in order, and past block 0 each holds at
+    most ``limit`` bytes of caps or one block, and no fewer blocks than
+    fit.  A reference spans at most a window plus 64 KB, so with the
+    kernels' own limit it fits int32 on a chain of any length (the 2.3 GiB
+    chain included); so does kernel D's, whose windows are CELL_WINDOW //
+    block_size rows of at most 8 MB."""
+    limit = tdec.CELL_WINDOW if limit is None else limit
+    caps = make_caps(np.random.default_rng(5))
+    w = tdec.cell_windows(caps, limit)
+    assert w[0] == 0 and w[-1] == len(caps) and (np.diff(w) > 0).all()
+    for b0, b1 in zip(w[:-1], w[1:]):
+        held = caps[max(b0, 1):b1]
+        assert held.sum() <= limit or len(held) == 1
+        if b1 < len(caps):
+            assert held.sum() + caps[b1] > limit
+    assert tdec.CELL_WINDOW + 2 * tdec.STREAM_BLOCK_CAP + tdec.MAX_OFFSET \
+        < 2 ** 31
 
 
 def test_decode_stream_counts_plain_calls():
