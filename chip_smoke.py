@@ -2,12 +2,20 @@
 """Drive the PyTorch/CUDA port (lz4_tpu_torch) once on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --encode-times ROOT   # kernels A and B of ROOT only
 
 1. Checks for a card and prints its name and power limit.
 2. Builds the kernels from lz4_tpu_torch/csrc (nvcc, sm_90a).
 3. Holds every kernel against its plain PyTorch/Python version on the same
    inputs, byte for byte (tolerance 0: a codec's outputs are integers), at
-   the main path's shapes, and times both.  Kernel D's linked mode is held
+   the main path's shapes, and times both.  Kernel A is also held and timed
+   on 4 MB chunks of zeros, of one 7-byte period, of random bytes and of
+   the stdlib's charmap codec tables, and
+   kernel B on 256 KB rows (the -B5 split of the corpus, a short row,
+   zeros, one 7-byte period, noise), both also in groups of a few rows
+   (their scratch cut small), and
+   the profiler splits A's, B's and C's time per kernel launch (A and B run
+   three: probe, walk, emit; C's wrapper syncs the host).  Kernel D's linked mode is held
    against its plain version on kernel A's 64-block chunk with and without
    its window, on a 64-block chain of one 7-byte period (every block refers
    into the one before it), on the chunk with a short block at index 20,
@@ -112,6 +120,7 @@ card is present.  Writes nothing outside build/ (the kernel library and
 the temporary directories of steps 6 and 8).
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -332,14 +341,24 @@ def stream_files(corpus: bytes, dev) -> dict:
     'legacy' (32 per 8 MB block) and 'flushed' (a linked 64 KB-block frame
     from DeviceFrameCompressor, flush() after every third update, so the
     chain has short non-final blocks and real cross-block matches)."""
+    import torch
+
     from lz4_tpu_torch import device as D
     from lz4_tpu_torch import spec
     from lz4_tpu_torch.frame import FramePreferences, encode_frame_header
     from lz4_tpu_torch.ops.xxhash import xxh32
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     b5 = D.compress_frame_device(
         corpus, FramePreferences(block_size_id=5, block_independent=True),
         block_size=256 << 10, device=dev)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[memory] compress_frame_device of {len(corpus)} bytes as "
+        f"independent 256 KB blocks (kernel B): peak device memory "
+        f"{peak / 2**20:.1f} MiB ({peak / max(len(corpus), 1):.2f} bytes "
+        f"per input byte)")
     recs = frame_payloads(b5, 7)
     files = {
         "b5_linked": encode_frame_header(FramePreferences(
@@ -933,6 +952,194 @@ def in_windows(limit: int, fn, *args):
         dec.CELL_WINDOW = saved
 
 
+def in_groups(limit: int, fn, *args):
+    """``fn(*args)`` with kernel A's or B's scratch cut to ``limit`` bytes
+    (``encode_kernel.SCAN_SCRATCH``): the rows are scanned a group of a few
+    rows at a time."""
+    from lz4_tpu_torch.kernels import encode_kernel as enc
+
+    saved = enc.SCAN_SCRATCH
+    enc.SCAN_SCRATCH = limit
+    try:
+        return fn(*args)
+    finally:
+        enc.SCAN_SCRATCH = saved
+
+
+def make_linked_case(enc, dev, data, prefix, mm, rs=1, zero=False, acc=1):
+    """Kernel A's arguments for ``data`` as one linked stream behind
+    ``prefix``: (on ``dev``, on the CPU), the candidate tables built on
+    ``dev``."""
+    import torch
+
+    nb = -(-len(data) // W)
+    host = torch.zeros((1, (nb + 1) * W), dtype=torch.uint8)
+    if prefix:
+        host[0, W - len(prefix):W] = torch.frombuffer(
+            bytearray(prefix), dtype=torch.uint8)
+    host[0, W:W + len(data)] = torch.frombuffer(bytearray(data),
+                                                dtype=torch.uint8)
+    lens = torch.tensor([[min(W, len(data) - k * W) for k in range(nb)]],
+                        dtype=torch.int32)
+    pre = torch.tensor([len(prefix)], dtype=torch.int32)
+    delta, jump = enc.linked_tables(host.to(dev), nb, mm,
+                                    pre.to(dev) if zero else None)
+    args_card = (host.to(dev), lens.to(dev), pre.to(dev), delta, jump, acc,
+                 mm, rs)
+    args_cpu = (host, lens, pre, delta.cpu(), jump.cpu(), acc, mm, rs)
+    return args_card, args_cpu
+
+
+def edge_chunks(corpus: bytes) -> dict:
+    """Kernel A's main-path shape (a 4 MB chunk behind its 64 KB window) on
+    inputs at the greedy scan's extremes: all zeros (one match per block,
+    run to matchlimit), one 7-byte period (the same), random bytes (no
+    match: a 64 KB literal run per block), and the stdlib's charmap codecs
+    (``encodings/cp*.py``, tables whose lines recur across files: long
+    matches carry a walk of kernel A past where the next walk's parse
+    ends, so their walks often fail to join).  name -> (chunk, window)."""
+    import torch
+
+    n = (4 << 20) + W
+    period = mixed_bytes(7, corpus, 5)
+    noise = torch.randint(0, 256, (n,), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(3))
+    enc = Path(sysconfig.get_paths()["stdlib"]) / "encodings"
+    tables = b"".join(p.read_bytes() for p in sorted(enc.glob("cp*.py")))
+    out = {"zeros": bytes(n),
+           "period7": (period * (n // 7 + 1))[:n],
+           "random": noise.numpy().tobytes(),
+           "charmaps": (tables * (n // max(len(tables), 1) + 1))[:n]}
+    return {k: (v[W:], v[:W]) for k, v in out.items()}
+
+
+def kernel_b_wide_rows(corpus: bytes):
+    """Kernel B at its widest rows (256 KB, the -B5 split that
+    ``compress_frame_device(..., block_size=256 << 10)`` and the SG 'large'
+    layout send it): the corpus's first four 256 KB blocks, the fifth cut
+    to 200,003 bytes, 256 KB of zeros, of one 7-byte period and of noise.
+    (rows, lengths) on the CPU."""
+    import torch
+
+    n = 256 << 10
+    period = mixed_bytes(7, corpus, 5)
+    noise = torch.randint(0, 256, (n,), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(7))
+    srcs = [corpus[i * n:(i + 1) * n] for i in range(4)]
+    srcs += [corpus[4 * n:4 * n + 200_003], bytes(n),
+             (period * (n // 7 + 1))[:n], noise.numpy().tobytes()]
+    rows = torch.zeros((len(srcs), n), dtype=torch.uint8)
+    for i, src in enumerate(srcs):
+        rows[i, :len(src)] = torch.frombuffer(bytearray(src),
+                                              dtype=torch.uint8)
+    return rows, torch.tensor([len(x) for x in srcs], dtype=torch.int32)
+
+
+def kernel_b_rows(corpus: bytes):
+    """Kernel B's smoke rows: the corpus's first 64 rows of 64 KB, rows 5,
+    6 and 7 cut to 60,000, 13 and 0 bytes.  (rows, lengths) on the CPU."""
+    import torch
+
+    rows = torch.frombuffer(bytearray(corpus[:64 * W]),
+                            dtype=torch.uint8).reshape(64, W).clone()
+    lens = torch.full((64,), W, dtype=torch.int32)
+    lens[5], lens[6], lens[7] = 60_000, 13, 0
+    rows[5, 60_000:] = 0
+    rows[6, 13:] = 0
+    rows[7] = 0
+    return rows, lens
+
+
+def device_ms(fn, reps: int = 5) -> dict:
+    """Device ms per launch of each kernel ``fn`` launches, from
+    torch.profiler's CUDA activity over ``reps`` calls (the kernels alone,
+    without the host work of their wrappers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0)
+        if t > 0 and "kernel" in e.key:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + t / 1e3 / reps
+    return out
+
+
+def encode_times(root: Path) -> int:
+    """``--encode-times ROOT``: kernels A and B of the tree at ROOT (this
+    checkout, or another one unpacked beside it) on the smoke's inputs:
+    A on the main-path text chunk and on edge_chunks at min_match 8, B on
+    kernel_b_rows at min_match 8 and 4.  Prints one JSON line of
+    CUDA-event ms (mean of 10 calls after one warm-up), and ``A_corpus``:
+    ms of A over every 4 MB chunk of the 64 MiB corpus, each behind its
+    64 KB window, as compress_frame_device launches it at min_match 8 (the
+    main path's A time per 64 MiB; mean of 3 passes); and ``peak_MiB``:
+    the peak device memory of compress_frame_device on the corpus as
+    independent 256 KB blocks (kernel B over 256 rows, with its tables)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch.frame import FramePreferences
+    from lz4_tpu_torch.kernels import build
+    from lz4_tpu_torch.kernels import encode_kernel as enc
+
+    if not Path(enc.__file__).resolve().is_relative_to(root.resolve()):
+        raise SmokeFailure(f"imported {enc.__file__}, not from {root}")
+    build.kernels_lib()
+    cuda = torch.device("cuda")
+    corpus = real_text_corpus(CORPUS_BYTES)
+    chunks = {"text": (corpus[4 << 20:8 << 20],
+                       corpus[(4 << 20) - W:4 << 20]),
+              **edge_chunks(corpus)}
+    res = {}
+    for what, (data, window) in chunks.items():
+        card, _ = make_linked_case(enc, cuda, data, window, 8, zero=True)
+        enc.scan_linked(*card)
+        res[f"A_{what}"] = event_ms(
+            lambda: [enc.scan_linked(*card) for _ in range(10)])[1] / 10
+    main = [make_linked_case(enc, cuda, corpus[i:i + MB4],
+                             corpus[max(i - W, 0):i], 8, zero=True)[0]
+            for i in range(0, len(corpus), MB4)]
+    for card in main:
+        enc.scan_linked(*card)
+    res["A_corpus"] = event_ms(lambda: [enc.scan_linked(*card) for _ in
+                                        range(3) for card in main])[1] / 3
+    del main
+    rows, lens = kernel_b_rows(corpus)
+    rows, lens = rows.to(cuda), lens.to(cuda)
+    for mm in (8, 4):
+        delta, jump = enc.independent_tables(rows, mm)
+        args = (rows, lens, delta, jump, 1, mm, 1)
+        enc.scan_blocks(*args)
+        res[f"B_mm{mm}"] = event_ms(
+            lambda: [enc.scan_blocks(*args) for _ in range(10)])[1] / 10
+    del rows, lens, delta, jump, args
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    D.compress_frame_device(corpus, FramePreferences(
+        block_size_id=5, block_independent=True), block_size=256 << 10,
+        device=cuda)
+    res["peak_MiB"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    log(json.dumps({"encode_times": str(root), "device":
+                    torch.cuda.get_device_name(0), **res}))
+    return 0
+
+
 def event_ms(fn):
     """(fn's result, its CUDA-event ms)."""
     import torch
@@ -1316,23 +1523,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     # -- 3a. kernel A: 8 blocks + a partial, mm 4/8, prefix 0/64 KB ---------
-    def linked_case(data, prefix, mm, rs=1, zero=False, acc=1):
-        nb = -(-len(data) // W)
-        host = torch.zeros((1, (nb + 1) * W), dtype=torch.uint8)
-        if prefix:
-            host[0, W - len(prefix):W] = torch.frombuffer(
-                bytearray(prefix), dtype=torch.uint8)
-        host[0, W:W + len(data)] = torch.frombuffer(bytearray(data),
-                                                    dtype=torch.uint8)
-        lens = torch.tensor([[min(W, len(data) - k * W) for k in range(nb)]],
-                            dtype=torch.int32)
-        pre = torch.tensor([len(prefix)], dtype=torch.int32)
-        delta, jump = enc.linked_tables(
-            host.to(cuda), nb, mm, pre.to(cuda) if zero else None)
-        args_card = (host.to(cuda), lens.to(cuda), pre.to(cuda), delta,
-                     jump, acc, mm, rs)
-        args_cpu = (host, lens, pre, delta.cpu(), jump.cpu(), acc, mm, rs)
-        return args_card, args_cpu
+    linked_case = functools.partial(make_linked_case, enc, cuda)
 
     small = corpus[3 * W:3 * W + 8 * W + 20_011]
     for mm in (4, 8):
@@ -1342,6 +1533,10 @@ def main() -> int:
             p = enc.scan_linked(*cpu)
             cmp_rows("encode_linked", f"9 blocks mm={mm} prefix="
                      f"{len(prefix)}", *k, *p)
+            # the same in groups of 2 blocks (5 rounds of three launches)
+            k = in_groups(2 * enc.scan_row_bytes(W), enc.scan_linked, *card)
+            cmp_rows("encode_linked", f"9 blocks mm={mm} prefix="
+                     f"{len(prefix)}, groups of 2", *k, *p)
 
     # main-path shape: one 4 MB chunk with its 64 KB window, bench point
     chunk = corpus[4 << 20:8 << 20]
@@ -1362,6 +1557,22 @@ def main() -> int:
     log(f"[time] linked candidate tables (torch.sort etc.), 64 blocks: "
         f"{t_tab:.3f} ms")
     a_out, a_olen = k
+    stats["encode_linked"]["phase_ms"] = device_ms(
+        lambda: enc.scan_linked(*card))
+    # the same shape at the scan's extremes
+    for what, (data, win) in edge_chunks(corpus).items():
+        e_card, e_cpu = linked_case(data, win, 8, zero=True)
+        cmp_rows("encode_linked", f"64 blocks mm=8 ({what} chunk)",
+                 *enc.scan_linked(*e_card), *enc.scan_linked(*e_cpu))
+        stats["encode_linked"][f"ms_{what}"] = time_card(
+            lambda: enc.scan_linked(*e_card))
+    del e_card, e_cpu
+    log("[time] encode_linked (kernel A) per 4 MB chunk at mm=8: " + ", ".join(
+        f"{what} {stats['encode_linked'][key]:.4f} ms" for what, key in (
+            ("text", "ms"), ("zeros", "ms_zeros"), ("period7", "ms_period7"),
+            ("random", "ms_random"), ("charmaps", "ms_charmaps")))
+        + "; device ms per phase on text "
+        + json.dumps(stats["encode_linked"]["phase_ms"]))
 
     # -- 3b. kernel C on kernel A's output ----------------------------------
     blocks_d = stream_d[0, W:65 * W].view(64, W)
@@ -1375,6 +1586,14 @@ def main() -> int:
                                     a_olen.reshape(64).cpu(),
                                     blocks_d.cpu(), lens64))
     set_bound("pack", int(a_olen.sum()) + 2 * 4 * 64, int(k_total))
+    # "ms" above includes the wrapper's checks (a host sync); the kernel
+    # alone, from the profiler
+    stats["pack"]["kernel_ms"] = sum(device_ms(lambda: pack_frame_payloads(
+        a_out.reshape(64, -1), a_olen.reshape(64), blocks_d,
+        lens64.to(cuda))).values())
+    log(f"[time] pack (kernel C), 64 blocks: {stats['pack']['ms']:.4f} ms "
+        f"with its wrapper, {stats['pack']['kernel_ms']:.4f} ms kernel "
+        f"only")
     # a stored block and a padding row, too
     olen_mix = a_olen.reshape(64).clone()
     olen_mix[3] = W + 5
@@ -1456,13 +1675,7 @@ def main() -> int:
     del per_out, per_olen, per_args, short_rows
 
     # -- 3d. kernel B, then kernel D batch mode on its output -----------------
-    rows_h = torch.frombuffer(bytearray(corpus[:64 * W]),
-                              dtype=torch.uint8).reshape(64, W).clone()
-    blens = torch.full((64,), W, dtype=torch.int32)
-    blens[5], blens[6], blens[7] = 60_000, 13, 0
-    rows_h[5, 60_000:] = 0
-    rows_h[6, 13:] = 0
-    rows_h[7] = 0
+    rows_h, blens = kernel_b_rows(corpus)
     rows_d = rows_h.to(cuda)
     for mm in (4, 8):
         delta, jump = enc.independent_tables(rows_d, mm)
@@ -1479,8 +1692,30 @@ def main() -> int:
         if mm == 8:
             set_bound("encode", int(blens.sum()) + 4 * (
                 delta.numel() + jump.numel() + 64), int(k[1].sum()))
+            stats["encode"]["phase_ms"] = device_ms(
+                lambda: enc.scan_blocks(*card_b))
+            log(f"[time] encode (kernel B), 64 rows mm=8: "
+                f"{stats['encode']['ms']:.4f} ms; device ms per phase "
+                + json.dumps(stats["encode"]["phase_ms"]))
         cmp_rows("encode", f"64 rows of <= 64 KB mm={mm}", *k, *p)
     b_out, b_olen, b_src_lens = *k, blens
+    # kernel B at 256 KB rows: 18-bit positions, 2 KB walk segments; mm=8
+    # also in groups of 3 rows
+    wide_h, wide_lens = kernel_b_wide_rows(corpus)
+    wide_d = wide_h.to(cuda)
+    for mm in (4, 8):
+        delta, jump = enc.independent_tables(wide_d, mm)
+        card_w = (wide_d, wide_lens.to(cuda), delta, jump, 1, mm, 1)
+        p = enc.scan_blocks(wide_h, wide_lens, delta.cpu(), jump.cpu(), 1,
+                            mm, 1)
+        cmp_rows("encode", f"8 rows of <= 256 KB mm={mm}",
+                 *enc.scan_blocks(*card_w), *p)
+        if mm == 8:
+            k = in_groups(3 * enc.scan_row_bytes(wide_h.shape[1]),
+                          enc.scan_blocks, *card_w)
+            cmp_rows("encode", f"8 rows of <= 256 KB mm={mm}, groups of 3",
+                     *k, *p)
+    del wide_d, card_w
     db_args = (b_out, b_olen, W)
     stats["decode_batch"]["ms"] = time_card(
         lambda: dec.decode_blocks(*db_args))
@@ -2218,4 +2453,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--encode-times"] and len(sys.argv) == 3:
+        sys.exit(encode_times(Path(sys.argv[2])))
     sys.exit(main())

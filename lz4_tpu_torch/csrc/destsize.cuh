@@ -8,7 +8,7 @@
 // except that div255 is exact: the TPU kernels' int32 magic multiply wraps
 // from 65,280, which sizes literal runs of 65,295 bytes or more short and
 // lets a block pass its capacity.
-// Sequences are written through emit.cuh only.
+// Sequences are sized and written through emit.cuh only.
 #pragma once
 
 #include <stdint.h>
@@ -35,18 +35,6 @@ __device__ __forceinline__ int hash5(const uint8_t* p) {
 
 // y // 255 for y >= 0 (every caller's argument is).
 __device__ __forceinline__ int div255(int y) { return y / 255; }
-
-__device__ __forceinline__ int ext_bytes(int x) {
-  return x < 15 ? 0 : 1 + div255(x - 15);
-}
-
-__device__ __forceinline__ int seq_size(int litlen, int mlc) {
-  return 1 + litlen + 2 + ext_bytes(litlen) + ext_bytes(mlc);
-}
-
-__device__ __forceinline__ int final_run_size(int litlen) {
-  return 1 + litlen + ext_bytes(litlen);
-}
 
 __device__ __forceinline__ int fix_guess(int g, int room) {
   return (g >= 15 && final_run_size(g) > room) ? g - 1 : g;

@@ -47,7 +47,8 @@ from .. import spec
 from . import build
 from .common import LAUNCHES, PLAIN_CALLS, check, to_device, use_kernel
 from .encode_kernel import (MAX_BLOCK, _common_run, _emit_final, _emit_seq,
-                            _fill_rows, out_width)
+                            _fill_rows, _final_run_size, _seq_size,
+                            out_width)
 
 HASH_LOG = 14
 HASH_SIZE = 1 << HASH_LOG
@@ -69,20 +70,6 @@ def _div255(y: int) -> int:
     only below 65,280 and sizes literal runs of 65,295 bytes or more short;
     the port does not copy that."""
     return y // 255
-
-
-def _ext_bytes(x: int) -> int:
-    """Length-extension byte count for a nibble value x (0 when < 15)."""
-    return 0 if x < 15 else 1 + _div255(x - 15)
-
-
-def _seq_size(litlen: int, mlc: int) -> int:
-    """Encoded size of one sequence."""
-    return 1 + litlen + 2 + _ext_bytes(litlen) + _ext_bytes(mlc)
-
-
-def _final_run_size(litlen: int) -> int:
-    return 1 + litlen + _ext_bytes(litlen)
 
 
 def _max_final_literals(room: int, avail: int) -> int:

@@ -17,7 +17,10 @@ jumps barren runs through a jump table.
 
 The tables are PyTorch ops (the JAX package left them to XLA).  Each wrapper
 launches its CUDA kernel for tensors on the card and runs the plain Python
-scan below for tensors on the CPU.
+scan below for tensors on the CPU.  On the card the scan runs in three
+launches (probe words, speculative walks, emission; ``csrc/encode.cu``),
+modelled here by ``probe_words_plain``, ``walk_plain`` and ``emit_plain``
+for the CPU tests.
 """
 
 from __future__ import annotations
@@ -194,6 +197,20 @@ def _emit_final(out: bytearray, buf: bytes, anchor: int, n_end: int) -> None:
     out += buf[anchor:n_end]
 
 
+def _ext_bytes(x: int) -> int:
+    """Length-extension byte count for a nibble value x (0 when < 15)."""
+    return 0 if x < 15 else 1 + (x - 15) // 255
+
+
+def _seq_size(litlen: int, mlc: int) -> int:
+    """Encoded size of one sequence (csrc/emit.cuh seq_size)."""
+    return 1 + litlen + 2 + _ext_bytes(litlen) + _ext_bytes(mlc)
+
+
+def _final_run_size(litlen: int) -> int:
+    return 1 + litlen + _ext_bytes(litlen)
+
+
 def _common_run(data: bytes, a: int, b: int, room: int) -> int:
     """Length of the common prefix of data[a:] and data[b:], at most
     ``room``: what the kernels' word-wise extension with its XOR tail
@@ -251,6 +268,349 @@ def _scan_plain(buf: bytes, start: int, n: int, low: int, ip: int,
             scnt += 1
     _emit_final(out, buf, anchor, n_end)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the card's three phases, modelled (test-only): probe words, walk, emission
+# ---------------------------------------------------------------------------
+# csrc/encode.cu splits the scan above.  A candidate's forward end does not
+# depend on the walk (it runs from ip + 4 to the first mismatch, capped at
+# matchlimit), and its backward run depends on it only through the clamp
+# mp >= anchor.  So phase 1 measures both runs at every position, in
+# parallel, each up to a cap; phase 2 walks the decisions of the scan over
+# those words (and finishes a capped run itself); phase 3 writes the
+# sequences the walk recorded, each at the offset the walk summed.
+
+FWD_CAP = 127            # forward run measured per position: 7 bits
+BACK_CAP = 63            # backward run: 6 bits
+PROBE_VALID = 1 << 31    # word: valid | d (18 bits) << 13 | fwd << 6 | back
+WALKERS = 128            # speculative walks per block (four warps)
+WALK_OVERLAP = 512       # bytes a walk goes past its segment
+WALK_HEADS = 8           # first match ends a walker publishes
+WALK_RUN = 128           # bytes a walk follows a capped forward run
+
+
+def probe_words_plain(buf: torch.Tensor, start: int, n: int, low: int,
+                      delta: torch.Tensor,
+                      jump: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Phase 1 of the card's scan for one block, vectorised.
+
+    ``buf`` is the 1-D uint8 row the block's positions index, the block is
+    ``[start, start + n)``, matches reach back to ``low``; ``delta`` holds
+    the block's candidate deltas.  Returns int64 words, one per lane of
+    ``delta``: for a probe the scan can take (``d > 0``, ``q = p - d >=
+    low``, ``p <= mflimit``) ``PROBE_VALID | d << 13 | fwd << 6 | back``,
+    where ``fwd`` counts the equal bytes from ``p + 4`` (against ``q + 4``)
+    up to ``min(FWD_CAP, matchlimit - p - 4)`` and ``back`` the equal bytes
+    before ``p`` (against before ``q``) up to ``min(BACK_CAP, p - start,
+    q - low)``.  Other lanes hold ``jump`` clamped to [0, 2^30] (kernel B's
+    full-resolution table), or 0 without one.
+    """
+    ns = delta.shape[0]
+    b = buf.to(torch.int64)
+    p = start + torch.arange(ns, dtype=torch.int64)
+    d = delta.to(torch.int64)
+    q = p - d
+    valid = (d > 0) & (q >= low) & (p <= start + n - 12)
+    idx = valid.nonzero().reshape(-1)
+    fwd = _equal_run(b, p[idx] + 4, q[idx] + 4, torch.clamp(
+        start + n - 5 - p[idx] - 4, max=FWD_CAP), 1)
+    back = _equal_run(b, p[idx] - 1, q[idx] - 1, torch.minimum(
+        torch.clamp(p[idx] - start, max=BACK_CAP), q[idx] - low), -1)
+    if jump is None:
+        words = torch.zeros(ns, dtype=torch.int64)
+    else:
+        words = torch.clamp(jump.to(torch.int64), 0, 1 << 30)
+    words[idx] = PROBE_VALID | d[idx] << 13 | fwd << 6 | back
+    return words
+
+
+def _equal_run(b: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+               room: torch.Tensor, step: int) -> torch.Tensor:
+    """Per lane, the count of k < room with b[x + step*k] == b[y + step*k]
+    for all smaller k too."""
+    run = torch.zeros_like(x)
+    live = (room > 0).nonzero().reshape(-1)
+    k = 0
+    while live.numel():
+        eq = b[x[live] + step * k] == b[y[live] + step * k]
+        live = live[eq]
+        run[live] += 1
+        k += 1
+        live = live[room[live] > k]
+    return run
+
+
+def _walk_from(words, jump, buf: bytes, start: int, n: int, low: int,
+               state, stop: int, linked: bool, acceleration: int,
+               min_match: int, reject_step: int, can_open: bool = False,
+               meet=None):
+    """The scan's decisions over ``probe_words_plain``'s words (a list) from
+    ``state`` = (ip, anchor, scnt) while ip <= min(stop, mflimit), finishing
+    a capped backward run byte by byte.  A capped forward run is finished
+    byte by byte too; with ``can_open`` it is followed WALK_RUN bytes only,
+    and if it is still equal there and the match is taken whatever its end,
+    the walk stops at it.  ``meet``, a predicate on a match's end: the walk
+    also stops after a match whose end it holds.  Returns (matches [(mp,
+    end, d)], final state, steps, first, open): ``first`` the (x, d) of the
+    first match taken or opened (x = its probe + 4, where its forward run
+    starts), ``open`` the (mp, x, d) of the match the walk stopped at (its
+    run goes on from x), or None."""
+    ip, anchor, scnt = state
+    n_end = start + n
+    mflimit, matchlimit = n_end - 12, n_end - 5
+    accel0 = acceleration << SKIP_TRIGGER
+    ns4 = len(jump) - 1 if linked else 0
+    matches, steps, first = [], 0, None
+    while n >= 13 and ip <= mflimit and ip <= stop:
+        steps += 1
+        w = words[ip - start]
+        if w & PROBE_VALID:
+            d = (w >> 13) & 0x3FFFF
+            back, fwd = w & 63, (w >> 6) & 127
+            mp = max(ip - back, anchor)
+            if back == BACK_CAP and mp > anchor:
+                qq = mp - d
+                while mp > anchor and qq > low and buf[mp - 1] == buf[qq - 1]:
+                    mp -= 1
+                    qq -= 1
+            end = ip + 4 + fwd
+            if fwd == FWD_CAP and end < matchlimit:
+                lim = min(matchlimit, end + WALK_RUN) if can_open \
+                    else matchlimit
+                end += _common_run(buf, end - d, end, lim - end)
+                if end == lim < matchlimit:
+                    if end - mp >= min_match:
+                        first = first or (ip + 4, d)
+                        return matches, (ip, anchor, scnt), steps, first, \
+                            (mp, end, d)
+                    end += _common_run(buf, end - d, end, matchlimit - end)
+            if end - mp >= min_match:
+                first = first or (ip + 4, d)
+                matches.append((mp, end, d))
+                ip = anchor = end
+                scnt = accel0
+                if meet and meet(end):
+                    break
+                continue
+            ip += max(scnt >> SKIP_TRIGGER, reject_step)
+        elif linked:
+            ip2 = ip + (scnt >> SKIP_TRIGGER)
+            j = ip2 - start
+            if j < WINDOW:
+                ip2 = max(ip2, start + jump[min(j >> 2, ns4)])
+            ip = ip2
+        else:
+            ip += max(scnt >> SKIP_TRIGGER, w)
+        scnt += 1
+    return matches, (ip, anchor, scnt), steps, first, None
+
+
+def _sync(matches, s_next: int, ends_next) -> tuple:
+    """(index of the first of a lane's matches whose end is the next lane's
+    start ``s_next`` or one of its match ends ``ends_next``, index of the
+    next lane's match after that end), or (-1, 0): the card's sync."""
+    h = 0
+    for i, (_, e, _) in enumerate(matches):
+        if e < s_next:
+            continue
+        if e == s_next:
+            return i, 0
+        while h < len(ends_next) and ends_next[h] < e:
+            h += 1
+        if h == len(ends_next):
+            break
+        if ends_next[h] == e:
+            return i, h + 1
+    return -1, 0
+
+
+def _heads(lane) -> set:
+    """The first match ends a walker publishes."""
+    return {e for _, e, _ in lane["matches"][:WALK_HEADS]}
+
+
+def walk_plain(words, jump, buf: bytes, start: int, n: int, low: int,
+               ip: int, linked: bool, acceleration: int, min_match: int,
+               reject_step: int):
+    """Phase 2 of the card's scan.  WALKERS speculative walks, one per
+    segment of the block (the first from the block's true start, the others
+    from a fresh state at their segment's start), each WALK_OVERLAP bytes
+    past its segment; a walk stops at a capped forward run, and the runs
+    are finished from the last lane to the first, each one as the next
+    lane's first match if that match has the same distance and its run
+    starts at or after the stopped run's start and all bytes between are
+    equal; the walks go on until none stops.  The parse is taken from lane
+    to lane at their first shared match end; a serial walk goes on from the
+    last lane taken until it takes a match whose end a later lane's walk
+    starts at or also took, and the parse follows the lanes again from
+    there, to the block's end.  Returns (records, olen, steps): a record
+    ``(mp, end, d, op)`` per sequence, then the final one ``(n_end, n_end,
+    0, op)``; ``steps`` counts the decisions on the critical path (the
+    longest walk of each round, then the serial walk's).
+
+    The joins, the parking at capped runs and the rejoin search are the
+    card's.  One thing is a schedule: a walk also stops early at a match
+    ending at one of the next walk's first WALK_HEADS ends.  Here the lanes
+    of a round run last to first, so every such end is known; on the card
+    the lanes run at once and a walk sees the ends published so far.  The
+    stop only saves steps (the joins read the final records), so the
+    records and payload are the card's under any schedule, and ``steps``
+    is this schedule's count."""
+    n_end = start + n
+    mflimit, matchlimit = n_end - 12, n_end - 5
+    accel0 = acceleration << SKIP_TRIGGER
+    seg = max(-(-n // WALKERS), 1)
+    args = (words, jump, buf, start, n, low)
+    knobs = (linked, acceleration, min_match, reject_step)
+    lanes = []
+    for k in range(WALKERS):
+        s_k = start + k * seg
+        lanes.append({"state": (ip if k == 0 else s_k, s_k, accel0),
+                      "stop": mflimit if k == WALKERS - 1
+                      else s_k + seg + WALK_OVERLAP - 1,
+                      "matches": [], "first": None, "open": True})
+    steps = 0
+    while any(lane["open"] for lane in lanes):
+        longest = 0
+        for k in reversed(range(WALKERS)):
+            lane = lanes[k]
+            if not lane["open"] or lane.get("met"):
+                continue
+            meet = None
+            if k + 1 < WALKERS:
+                s_next = start + (k + 1) * seg
+                if lane["matches"] and lane["matches"][-1][1] in (
+                        s_next, *_heads(lanes[k + 1])):
+                    lane["met"], lane["open"] = True, None
+                    continue
+                meet = {s_next, *_heads(lanes[k + 1])}.__contains__
+            m, lane["state"], st, first, lane["open"] = _walk_from(
+                *args, lane["state"], lane["stop"], *knobs, can_open=True,
+                meet=meet)
+            lane["matches"] += m
+            lane["first"] = lane["first"] or first
+            longest = max(longest, st)
+        steps += longest
+        for k in reversed(range(WALKERS)):
+            if lanes[k]["open"] is None:
+                continue
+            mp, x, d = lanes[k]["open"]
+            nxt = lanes[k + 1] if k + 1 < WALKERS else None
+            follow = (nxt is not None and nxt["first"] is not None
+                      and nxt["first"][0] >= x and nxt["first"][1] == d)
+            lim = nxt["first"][0] if follow else matchlimit
+            end = x + _common_run(buf, x - d, x, lim - x)
+            if follow and end == lim:
+                end = nxt["matches"][0][1]
+            lanes[k]["matches"].append((mp, end, d))
+            lanes[k]["state"] = (end, end, accel0)
+    walks = [(lane["matches"], lane["state"]) for lane in lanes]
+    syncs = [_sync(walks[k][0], start + (k + 1) * seg,
+                   [e for _, e, _ in walks[k + 1][0]])
+             for k in range(WALKERS - 1)] + [(-1, 0)]
+    ends = [{e: i + 1 for i, (_, e, _) in enumerate(w[0])} for w in walks]
+    last_end = [w[0][-1][1] if w[0] else -1 for w in walks]
+
+    def follow(k, idx):
+        """Take lane k's matches from idx on, and the next lane's wherever
+        they meet; returns the lane whose final state the walk goes on
+        from."""
+        while True:
+            at, nxt_i = syncs[k]
+            if at < 0 or at < idx - 1:  # at == idx - 1: the end we came in by
+                parse.extend(walks[k][0][idx:])
+                return k
+            parse.extend(walks[k][0][idx:at + 1])
+            idx = nxt_i
+            k += 1
+
+    def rejoin(k, end):
+        """(a lane after k whose walk starts at ``end`` or took a match
+        ending there, the index of its next match), or None.  As on the
+        card, the search passes the lanes whose matches all end before
+        ``end`` and stops at the first lane that starts at or after it or
+        took a match ending at or after it."""
+        for j in range(k + 1, WALKERS):
+            s_j = start + j * seg
+            if end <= s_j:
+                return (j, 0) if end == s_j else None
+            if last_end[j] >= end:
+                return (j, ends[j][end]) if end in ends[j] else None
+        return None
+
+    parse = []
+    k = follow(0, 0)
+    tail_steps = 0
+    while True:
+        more, (_, anchor, _), st, _, _ = _walk_from(
+            *args, walks[k][1], mflimit, *knobs,
+            meet=lambda e, k=k: rejoin(k, e) is not None)
+        parse += more
+        tail_steps += st
+        back = rejoin(k, more[-1][1]) if more else None
+        if back is None:
+            break
+        k = follow(*back)
+    recs, op, prev = [], 0, start
+    for mp, end, d in parse:
+        recs.append((mp, end, d, op))
+        op += _seq_size(mp - prev, end - mp - 4)
+        prev = end
+    recs.append((n_end, n_end, 0, op))
+    return recs, op + _final_run_size(n_end - anchor), steps + tail_steps
+
+
+def emit_plain(buf: bytes, start: int, recs, olen: int) -> bytearray:
+    """Phase 3: every record's sequence written at its own offset, as the
+    card's warps write them (any order gives the same bytes)."""
+    out = bytearray(olen)
+    anchor = start
+    for i, (mp, end, d, op) in enumerate(recs):
+        seq = bytearray()
+        if i == len(recs) - 1:
+            _emit_final(seq, buf, anchor, mp)
+        else:
+            _emit_seq(seq, buf, anchor, mp - anchor, d, end - mp - 4)
+        out[op:op + len(seq)] = seq
+        anchor = end
+    return out
+
+
+SCAN_SCRATCH = 1 << 28    # bytes of the card's scan scratch per call
+
+
+def _scratch_shape(ns: int):
+    """(stride, lcap, rec_cap) of the card's scan scratch for rows of up to
+    ``ns`` bytes: words rows of ``stride`` int32 (ns rounded up to 4, so
+    that a row starts on 16 bytes), ``lcap`` matches per speculative walk
+    (a bound over its segment and the overlap: a match ends at least 4
+    bytes past its probe, so every match moves the anchor 4 bytes or more),
+    ``rec_cap`` records per block (up to ns / 4 sequences and the final
+    run)."""
+    return (-(-ns // 4) * 4, (-(-ns // WALKERS) + WALK_OVERLAP) // 4 + 2,
+            ns // 4 + 1)
+
+
+def scan_row_bytes(ns: int) -> int:
+    """Bytes of the card's scan scratch per block of up to ``ns`` bytes
+    (about 16 per input byte): its words, its walks' matches ([lcap,
+    WALKERS] of 4 int32), its (mp, end, d, op) records and their count."""
+    stride, lcap, rec_cap = _scratch_shape(ns)
+    return 4 * (stride + lcap * WALKERS * 4 + rec_cap * 4 + 1)
+
+
+def _scan_scratch(rows: int, ns: int, dev):
+    """The card's scratch for one group of the ``rows`` blocks of up to
+    ``ns`` bytes, the group as many blocks as fit SCAN_SCRATCH (16 MB of
+    input for 64 KB blocks).  Returns (words, lrec, rec, nrec, group)."""
+    stride, lcap, rec_cap = _scratch_shape(ns)
+    group = max(1, min(rows, SCAN_SCRATCH // scan_row_bytes(ns)))
+    return (torch.empty((group, stride), dtype=torch.int32, device=dev),
+            torch.empty((group, lcap, WALKERS, 4), dtype=torch.int32,
+                        device=dev),
+            torch.empty((group, rec_cap, 4), dtype=torch.int32, device=dev),
+            torch.empty((group,), dtype=torch.int32, device=dev), group)
 
 
 def _fill_rows(out: torch.Tensor, olen: torch.Tensor, rows) -> None:
@@ -332,9 +692,12 @@ def scan_linked(stream: torch.Tensor, src_lens: torch.Tensor,
     dev = stream.device
     out = torch.empty((S, NB, M), dtype=torch.uint8, device=dev)
     olen = torch.empty((S, NB), dtype=torch.int32, device=dev)
+    words, lrec, rec, nrec, group = _scan_scratch(S * NB, WINDOW, dev)
     err = build.kernels_lib().lz4tt_encode_linked(
         stream.data_ptr(), stream.stride(0), delta.data_ptr(),
         jump.data_ptr(), src_lens.data_ptr(), prefix_lens.data_ptr(),
+        words.data_ptr(), lrec.data_ptr(), lrec.shape[1], rec.data_ptr(),
+        rec.shape[1], nrec.data_ptr(), group,
         out.data_ptr(), M, olen.data_ptr(), S, NB, int(acceleration),
         int(min_match), int(reject_step),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -429,13 +792,17 @@ def scan_blocks(src_rows: torch.Tensor, src_lens: torch.Tensor,
                 for b in range(B)]
         _fill_rows(out, olen, rows)
         return out, olen
-    out = torch.empty((B, M), dtype=torch.uint8, device=src_rows.device)
-    olen = torch.empty((B,), dtype=torch.int32, device=src_rows.device)
+    dev = src_rows.device
+    out = torch.empty((B, M), dtype=torch.uint8, device=dev)
+    olen = torch.empty((B,), dtype=torch.int32, device=dev)
+    words, lrec, rec, nrec, group = _scan_scratch(B, NS, dev)
     err = build.kernels_lib().lz4tt_encode(
         src_rows.data_ptr(), NS, delta.data_ptr(), jump.data_ptr(),
-        src_lens.data_ptr(), out.data_ptr(), M, olen.data_ptr(), B,
-        int(acceleration), int(min_match), int(reject_step),
-        torch.cuda.current_stream(src_rows.device).cuda_stream)
+        src_lens.data_ptr(), words.data_ptr(), words.shape[1],
+        lrec.data_ptr(), lrec.shape[1], rec.data_ptr(), rec.shape[1],
+        nrec.data_ptr(), group, out.data_ptr(), M,
+        olen.data_ptr(), B, int(acceleration), int(min_match),
+        int(reject_step), torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("encode", err)
     LAUNCHES["encode"] += 1
     return out, olen
