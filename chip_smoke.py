@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --encode-times ROOT   # kernels A and B of ROOT only
+    python3 chip_smoke.py --destsize-times ROOT # kernels G and H of ROOT only
 
 1. Checks for a card and prints its name and power limit.
 2. Builds the kernels from lz4_tpu_torch/csrc (nvcc, sm_90a).
@@ -31,9 +32,10 @@
    Kernels G (the SG chain encoder) and F (the SG chain decoder) are held
    against their plain versions on small lists (4 KB, 64 KB and ragged
    iovecs, min_match 8, acceleration 2, small caps that force capacity
-   stops and zero-pads, mixed bytes; corrupted payloads and noise as SG
-   chains) and at every launch step 7 makes, and timed on the '4k' walk
-   and its chain in three rounds each.  Kernel I (the HC encoder) is held
+   stops and zero-pads, mixed bytes, 5-grams that share one hash slot,
+   noise with long skips, min_match 12 with acceleration 7; corrupted
+   payloads and noise as SG chains) and at every launch step 7 makes, and
+   timed on the '4k' walk and its chain in three rounds each.  Kernel I (the HC encoder) is held
    against its plain version on small rows (text, zeros, noise, periods 2
    and 3, 13-, 12- and 0-byte rows, far repeats) at levels 1, 2, 9, 12 and
    16, on two mixed 64 KB rows at levels 9 and 16, and on sampled rows of
@@ -45,7 +47,9 @@
    2, 5, 6, 10, 17, n/2 and compress_bound(n), behind prefixes of 1 to
    65,536 bytes, at min_match 8 and acceleration 2, on a 256 KB row, on
    66,000 bytes of noise (literal runs past the int32 range of the
-   reference's size arithmetic; every block within its cap) and on sampled
+   reference's size arithmetic; every block within its cap), on rows of
+   5-grams that share one hash slot and 64 KB of noise (long skips), also
+   at min_match 12 and acceleration 7, and on sampled
    rows of the two corpus batches of step 9;
    every such block is also decoded by kernel D in batch mode with the
    prefix as its dictionary row, against the plain decoder.  Kernel D's
@@ -225,6 +229,35 @@ def mixed_bytes(n: int, text: bytes, seed: int) -> bytes:
         elif out:
             start = rint(0, len(out))
             out += out[start:start + size]
+    return bytes(out[:n])
+
+
+def noise_bytes(n: int, seed: int) -> bytes:
+    """``n`` random bytes from ``numpy.random.default_rng(seed)``."""
+    import numpy as np
+    return np.random.default_rng(seed).integers(0, 256, n,
+                                                dtype=np.uint8).tobytes()
+
+
+def slot_collisions(n: int, seed: int) -> bytes:
+    """``n`` bytes of 24 distinct 5-grams that all hash to one slot of the
+    destSize table (HASH_LOG 14), in a random order, each followed by 0-2
+    random bytes: many lanes of one probe round of kernels G and H share a
+    slot, and the candidate a lower lane leaves mostly fails the word test
+    (it holds where a gram repeats)."""
+    import numpy as np
+    prime, hash_log = 2654435761, 14
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 256, (200_000, 5), dtype=np.uint8).astype(np.uint64)
+    w = g[:, 0] | g[:, 1] << 8 | g[:, 2] << 16 | g[:, 3] << 24
+    x = (w ^ (g[:, 4] * prime & 0xFFFFFFFF)) * prime & 0xFFFFFFFF
+    h = (x >> (32 - hash_log)).astype(np.int64)
+    grams = np.unique(g[h == np.bincount(h).argmax()], axis=0)[:24]
+    grams = grams.astype(np.uint8)
+    out = bytearray()
+    while len(out) < n:
+        out += grams[rng.integers(len(grams))].tobytes()
+        out += rng.integers(0, 256, rng.integers(3), dtype=np.uint8).tobytes()
     return bytes(out[:n])
 
 
@@ -624,6 +657,16 @@ def sg_chain_cases(text: bytes, mixed: bytes):
         ("small caps: capacity stops and zero-pads", *stops, 1, 4),
         ("mixed bytes, 8 KB -> 9,000", cut(mixed, 8192),
          [9000] * (len(mixed) // 8192 + 2), 1, 4),
+        ("slot collisions, 8 KB -> 5,000", cut(slot_collisions(200_000, 5),
+                                              8192), [5000] * 45, 1, 4),
+        ("noise, 20 KB -> 21,000: long skips", cut(noise_bytes(200_000, 6),
+                                                   20_000), [21_000] * 11,
+         1, 4),
+        ("16 x 4 KB, min_match 12, acceleration 7", cut(text[2 * W:3 * W],
+                                                        4096),
+         [4096] * 17, 7, 12),
+        ("slot collisions, 4 KB -> 4 KB, min_match 12, acceleration 7",
+         cut(slot_collisions(W, 7), 4096), [4096] * 17, 7, 12),
     ]
 
 
@@ -902,6 +945,17 @@ def ds_small_cases(text: bytes, mixed: bytes):
     caps = [65_290, 65_296, 65_300, 65_560, 66_270, 80_000]
     cases.append(("66,000 bytes of noise, then text: literal runs of 65,295 "
                   "and more", [wrap] * len(caps), caps, None, 1, 4))
+    # the probe rounds of the warp parse: lanes sharing a table slot, skips
+    # of 2 bytes and more, and the largest min_match and acceleration
+    adverse = [slot_collisions(W, 8), slot_collisions(n, 9),
+               noise_bytes(W, 10), text[:n]]
+    for cap in ("n/2", "compress_bound(n)"):
+        caps = [len(r) // 2 if cap == "n/2" else compress_bound(len(r))
+                for r in adverse]
+        cases.append((f"slot collisions, 64 KB of noise, text, cap {cap}",
+                      adverse, caps, None, 1, 4))
+        cases.append((f"the same, cap {cap}, min_match 12, acceleration 7",
+                      adverse, caps, None, 7, 12))
     return cases
 
 
@@ -1136,6 +1190,72 @@ def encode_times(root: Path) -> int:
         device=cuda)
     res["peak_MiB"] = (torch.cuda.max_memory_allocated() - base) / 2**20
     log(json.dumps({"encode_times": str(root), "device":
+                    torch.cuda.get_device_name(0), **res}))
+    return 0
+
+
+def destsize_times(root: Path) -> int:
+    """``--destsize-times ROOT``: kernels G and H of the tree at ROOT (this
+    checkout, or another one unpacked beside it) on the smoke's inputs: G
+    on the sg phase's '4k' and 'ragged' walks, H on the destsize phase's
+    batches (the corpus as 1,024 rows of 64 KB at cap n/2, and rows [block
+    i-1 | block i] behind their 64 KB prefix), both also on 16 MiB of
+    noise (G as 4 KB iovecs into 4 KB buffers, H as 256 rows of 64 KB at
+    cap n/2: long skip runs), and the SG walk over H (``sg_h_layout``
+    through sg.sg_compress, one H launch per block).  Prints one JSON line:
+    CUDA-event ms of each kernel call and wall ms of the walk, the median
+    of 3 after one warm-up."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    from lz4_tpu_torch import sg
+    from lz4_tpu_torch.kernels import build
+    from lz4_tpu_torch.kernels import destsize_kernel as dsk
+
+    if not Path(dsk.__file__).resolve().is_relative_to(root.resolve()):
+        raise SmokeFailure(f"imported {dsk.__file__}, not from {root}")
+    build.kernels_lib()
+    cuda = torch.device("cuda")
+    corpus = real_text_corpus(CORPUS_BYTES)
+
+    def median_ms(fn, wall=False):
+        fn()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, ms = event_ms(fn)
+            times.append((time.perf_counter() - t0) * 1e3 if wall else ms)
+        return sorted(times)[1]
+
+    res = {}
+    noise = noise_bytes(SG_BYTES, 11)
+    layouts = sg_layouts(corpus)
+    layouts["noise"] = sg_layouts(noise + corpus[SG_BYTES:])["4k"]
+    for lay in ("4k", "ragged", "noise"):
+        _, ins, caps = layouts[lay]
+        flat, ends = dsk.sg_chain_input(ins, cuda)
+        res[f"G_{lay}"] = median_ms(
+            lambda: dsk.sg_encode_chain(flat, ends, caps, sum(caps)))
+    del layouts, flat
+    for what, data in (("half", corpus), ("noise", noise)):
+        rows, lens = corpus_rows(data, cuda)
+        half = torch.clamp(lens // 2, min=64)
+        res[f"H_{what}"] = median_ms(
+            lambda: dsk.encode_blocks_dest_size(rows, lens, half))
+    rows, lens = corpus_rows(corpus, cuda)
+    joined, slens, wlens = prefix_rows(rows)
+    res["H_prefix"] = median_ms(
+        lambda: dsk.encode_blocks_dest_size(joined, slens, slens // 2, 1,
+                                            wlens))
+    del rows, joined
+    ins, caps = sg_h_layout(corpus)
+    res["sg_over_H_wall"] = median_ms(
+        lambda: sg.sg_compress(ins, caps, dest_size_compress=(
+            kernel_h_dest_size(cuda, {})), device=cuda), wall=True)
+    log(json.dumps({"destsize_times": str(root), "device":
                     torch.cuda.get_device_name(0), **res}))
     return 0
 
@@ -2455,4 +2575,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--encode-times"] and len(sys.argv) == 3:
         sys.exit(encode_times(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--destsize-times"] and len(sys.argv) == 3:
+        sys.exit(destsize_times(Path(sys.argv[2])))
     sys.exit(main())

@@ -11,16 +11,22 @@
 // decision, so blocks, lengths and consumed counts are bit-identical to
 // lz4_tpu's.
 //
-// What bounds it on the card: a row's parse is a chain of dependent loads
-// (hash -> table -> compare -> extend -> emit), so a row runs at the latency
-// of one thread, and the batch at its slowest rows over the rows resident
-// at once.  The design: one CTA per row; its threads set the row's own
-// 16,384-entry table (64 KB of dynamic shared memory, so at most three rows
-// are resident per SM) to -1 and seed the prefix together, then thread 0
-// scans.  The TPU kernel shared one table across rows under a row tag and
-// cleared it every 8,192 rows; a fresh table per row gives the same
-// answers.  The row is read where the parse stands, bytes [0, n) only: no
-// val32 lanes and no slack lanes.
+// What bounds it on the card: a row's parse is serial (each probe writes
+// the table slot the next may read; a match moves the scan to its end), so
+// a row runs at the latency of its chain of dependent steps, and the batch
+// at its slowest rows over the rows resident at once.  The design: one CTA
+// per row; its threads set the row's own 16,384-entry table to empty and
+// seed the prefix together, then warp 0 runs the parse (dest_size_block in
+// destsize.cuh) in rounds of 32 speculative probes, with the extension and
+// the writing of the sequences spread over its lanes.  Rows of at most
+// 64 KB keep 16-bit positions, so their table takes 32 KB of shared memory
+// and up to six rows are resident per SM; wider rows take 32-bit positions
+// and 64 KB, three rows per SM.  The TPU kernel shared one table across rows
+// under a row tag and cleared it every 8,192 rows; a fresh table per row
+// gives the same answers.  The row is read where the parse stands, in
+// global memory (through L1): staging it in shared memory beside the table
+// would leave room for fewer rows per SM.  No val32 lanes and no slack
+// lanes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,38 +34,82 @@
 
 namespace {
 
-using lz4tt::HASH_BYTES;
 using lz4tt::HASH_SIZE;
 
 constexpr int THREADS = 128;
+constexpr int SMALL_ROWS = 65536;  // rows up to this width take 16-bit tables
 
+// table[h] = max(table[h], pos), for a table that is empty (-1) where no
+// position went yet.
+__device__ __forceinline__ void seed(int32_t* table, int h, int pos) {
+  atomicMax(&table[h], pos);
+}
+
+__device__ __forceinline__ void seed(uint16_t* table, int h, int pos) {
+  // (no 16-bit atomics: a compare-and-swap on the word holding the entry;
+  // the empty entry 0xFFFF counts as below every position)
+  unsigned* word = (unsigned*)(table + (h & ~1));
+  const int sh = (h & 1) * 16;
+  unsigned old = *word, seen;
+  do {
+    seen = old;
+    const unsigned cur = (seen >> sh) & 0xFFFFu;
+    if (cur != 0xFFFFu && (int)cur >= pos) return;
+    old = atomicCAS(word, seen,
+                    (seen & ~(0xFFFFu << sh)) | ((unsigned)pos << sh));
+  } while (old != seen);
+}
+
+template <class T>
 __global__ void dest_size_kernel(const uint8_t* rows, int NS,
                                  const int32_t* slen, const int32_t* caps,
                                  const int32_t* wlen, int acceleration,
                                  int min_match, uint8_t* out, int M,
                                  int32_t* olen, int32_t* consumed) {
-  extern __shared__ int32_t table[];
+  extern __shared__ int32_t smem[];
+  T* table = (T*)smem;
   const int b = blockIdx.x;
   const uint8_t* src = rows + (long long)b * NS;
   const int start = min(max(wlen[b], 0), NS);
   const int n = start + min(max(slen[b], 0), NS - start);
   const bool scans = n - start >= 13;
   if (scans) {
-    for (int i = threadIdx.x; i < HASH_SIZE; i += blockDim.x) table[i] = -1;
+    for (int i = threadIdx.x; i < HASH_SIZE; i += blockDim.x)
+      table[i] = (T)-1;
     __syncthreads();
     // every third prefix position; a later position replaces an earlier one
     // with the same hash, which is what the maximum keeps
     const int seeds = start >= 4 ? (start - 4) / 3 + 1 : 0;
     for (int i = threadIdx.x; i < seeds; i += blockDim.x)
-      atomicMax(&table[lz4tt::hash5(src + 3 * i)], 3 * i);
+      seed(table, lz4tt::hash5(src + 3 * i), 3 * i);
     __syncthreads();
   }
-  if (threadIdx.x != 0) return;
+  if (threadIdx.x >= lz4tt::WARP) return;
   int cons = 0;
-  olen[b] = lz4tt::dest_size_block(
+  const int written = lz4tt::dest_size_block(
       src, start, n, 0, start + (start > 0 ? 0 : 1), min(caps[b], M), table,
       acceleration, min_match, out + (long long)b * M, &cons);
-  consumed[b] = cons;
+  if (threadIdx.x == 0) {
+    olen[b] = written;
+    consumed[b] = cons;
+  }
+}
+
+template <class T>
+int launch(const uint8_t* rows, int NS, const int32_t* slen,
+           const int32_t* caps, const int32_t* wlen, int acceleration,
+           int min_match, uint8_t* out, int M, int32_t* olen,
+           int32_t* consumed, int B, cudaStream_t stream) {
+  const int bytes = HASH_SIZE * (int)sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      dest_size_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0)
+    dest_size_kernel<T><<<B, THREADS, bytes, stream>>>(
+        rows, NS, slen, caps, wlen, acceleration, min_match, out, M, olen,
+        consumed);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -72,13 +122,12 @@ extern "C" int lz4tt_encode_dest_size(const uint8_t* rows, int NS,
                                       int min_match, uint8_t* out, int M,
                                       int32_t* olen, int32_t* consumed, int B,
                                       void* cuda_stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      dest_size_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      HASH_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0)
-    dest_size_kernel<<<B, THREADS, HASH_BYTES, (cudaStream_t)cuda_stream>>>(
-        rows, NS, slen, caps, wlen, acceleration, min_match, out, M, olen,
-        consumed);
-  return (int)cudaGetLastError();
+  // positions in a row fit 16 bits (65,535, never a probe, marks empty)
+  return NS <= SMALL_ROWS
+             ? launch<uint16_t>(rows, NS, slen, caps, wlen, acceleration,
+                                min_match, out, M, olen, consumed, B,
+                                (cudaStream_t)cuda_stream)
+             : launch<int32_t>(rows, NS, slen, caps, wlen, acceleration,
+                               min_match, out, M, olen, consumed, B,
+                               (cudaStream_t)cuda_stream);
 }

@@ -12,17 +12,23 @@
 // dest_size_block in destsize.cuh, which kernel H (destsize.cu) shares.
 //
 // What bounds it on the card: the walk is serial by format (each step's
-// source and room depend on what the step before consumed), and the parse
-// inside a step is a chain of dependent loads (hash -> table -> compare ->
-// extend -> emit).  So one thread runs it, as the TPU's ordered grid did,
-// and the kernel uses 1 of the 132 SMs.  The design keeps that chain's
-// loads short: the 16,384-entry hash table (64 KB) lives in dynamic shared
-// memory for the whole walk (the CTA's threads zero it together first);
-// the source is one flat buffer in global memory, read where the parse
-// stands, so it stays hot in L1; there is no 64 KB zero lead and there are
-// no val32 lanes, which the TPU needed only for its row copies.  The TPU
-// kernel wrote each step into a [T, M] row (about 574 MB at 16 MiB of 4 KB
-// buffers); here the steps' blocks follow each other at a running offset.
+// source and room depend on what the step before consumed), and so is the
+// parse inside a step (each probe writes the table slot the next may read;
+// a match moves the scan to its end).  So one CTA runs the walk on 1 of the
+// 132 SMs, and the time is the latency of the parse's chain of dependent
+// steps, not bytes.  The design shortens that chain per sequence: warp 0
+// runs each step's parse as dest_size_block in destsize.cuh does, in
+// rounds of 32 speculative probes with the extension and the writing of
+// the sequences spread over its lanes; its lanes hold the same walk state,
+// and lane 0 writes the step records.  The 16,384-entry hash table (64 KB)
+// lives in dynamic shared memory for the whole walk (the CTA's threads set
+// it to -1 together first); the source is one flat buffer in global
+// memory, read where the parse stands, so it stays hot in L1 (staging each
+// step's window in a 128 KB ring of shared memory measured slower); there
+// is no 64 KB zero lead and there are no val32 lanes, which the TPU needed
+// only for its row copies.  The TPU kernel wrote each step into a [T, M]
+// row (about 574 MB at 16 MiB of 4 KB buffers); here the steps' blocks
+// follow each other at a running offset.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,7 +42,7 @@ using lz4tt::HASH_SIZE;
 constexpr int SG_HEADER = 15;
 constexpr int BH = 4;
 constexpr int CHAIN_BLOCK = 65536;
-constexpr int ZERO_THREADS = 256;
+constexpr int THREADS = 256;  // all set the table; warp 0 walks
 
 // recs is int32 [4, T]: blen, consumed, isz, osz.
 __global__ void sg_chain_kernel(const uint8_t* src, const int32_t* in_ends,
@@ -48,7 +54,8 @@ __global__ void sg_chain_kernel(const uint8_t* src, const int32_t* in_ends,
   extern __shared__ int32_t table[];
   for (int i = threadIdx.x; i < HASH_SIZE; i += blockDim.x) table[i] = -1;
   __syncthreads();
-  if (threadIdx.x != 0) return;
+  if (threadIdx.x >= lz4tt::WARP) return;
+  const bool lead = threadIdx.x == 0;
   int32_t* blen = recs;
   int32_t* cons = recs + T;
   int32_t* isz = recs + 2 * T;
@@ -57,11 +64,13 @@ __global__ void sg_chain_kernel(const uint8_t* src, const int32_t* in_ends,
   bool done = false;
   long long off = 0;  // where the next step's block goes
   for (int t = 0; t < T; ++t) {
-    boff[t] = off;
+    if (lead) boff[t] = off;
     if (done || ipos >= total || ototal + BH >= max_dest) {
       done = true;
-      blen[t] = -1;
-      cons[t] = isz[t] = osz[t] = 0;
+      if (lead) {
+        blen[t] = -1;
+        cons[t] = isz[t] = osz[t] = 0;
+      }
       continue;
     }
     const int opos_h = opos + BH, ototal_h = ototal + BH;
@@ -77,10 +86,12 @@ __global__ void sg_chain_kernel(const uint8_t* src, const int32_t* in_ends,
         src, ipos, ipos + i_take, low, ipos + (ipos == 0 ? 1 : 0), cap, table,
         acceleration, min_match, blocks + off, &consumed);
     off += o_written;
-    blen[t] = o_written;
-    cons[t] = consumed;
-    isz[t] = i_size;
-    osz[t] = o_size;
+    if (lead) {
+      blen[t] = o_written;
+      cons[t] = consumed;
+      isz[t] = i_size;
+      osz[t] = o_size;
+    }
     // walk state update (sg.sg_compress's input and output advance)
     const bool no_progress = consumed == 0 || o_written == 0;
     ipos += consumed;
@@ -117,7 +128,7 @@ extern "C" int lz4tt_sg_encode_chain(const uint8_t* src,
       HASH_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (T > 0)
-    sg_chain_kernel<<<1, ZERO_THREADS, HASH_BYTES,
+    sg_chain_kernel<<<1, THREADS, HASH_BYTES,
                       (cudaStream_t)cuda_stream>>>(
         src, in_ends, n_in, caps, n_out, total, max_dest, T, M, acceleration,
         min_match, blocks, boff, recs);

@@ -34,10 +34,15 @@ so a final literal run of 65,295 bytes or more never passes its room.
 and runs ``sg_encode_chain_plain`` for tensors on the CPU.  Unlike the TPU
 kernel, which wrote every step into its own ``[T, M]`` row, both write the
 steps' blocks one after another into one flat buffer at ``boff``.
+
+On the card one warp runs the parse, in rounds of 32 speculative probes;
+``dest_size_block_rounds_plain`` is that schedule on the CPU, and the tests
+hold it equal to ``_dest_size_block``.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -158,17 +163,141 @@ def _dest_size_block(data: bytes, vals, hashes, table: List[int], start: int,
 
 
 # ---------------------------------------------------------------------------
+# the same parse as the card's warp runs it
+# ---------------------------------------------------------------------------
+
+WARP = 32                   # probes per round, and bytes per ballot
+
+
+def _skip_sum(scnt: int, k: int) -> int:
+    """How far k probes without a match move ip from a skip count of
+    ``scnt``: the sum of (scnt + i) >> SKIP_TRIGGER over i < k, in the
+    closed form lane k of the kernel computes."""
+    def below(n):               # sum of j >> SKIP_TRIGGER over j < n
+        q, r = n >> SKIP_TRIGGER, n & ((1 << SKIP_TRIGGER) - 1)
+        return ((q * (q - 1) // 2) << SKIP_TRIGGER) + q * r
+    return below(scnt + k) - below(scnt)
+
+
+def _first_diff(x: bytes, y: bytes) -> int:
+    return next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+
+
+def _warp_runs(data: bytes, p: int, e: int, back_limit: int, fwd_limit: int,
+               counts) -> Tuple[int, int]:
+    """The common runs at a match of p with e, as the kernel's warp_runs
+    measures them: backward from p - 1 and e - 1 (at most ``back_limit``)
+    and forward from p + 4 and e + 4 (at most ``fwd_limit``), both WARP
+    bytes a round (a byte a lane, one ballot a side), until both ends are
+    found."""
+    back = -1 if back_limit > 0 else 0
+    fwd, k = -1, 0
+    while back < 0 or fwd < 0:
+        counts["ballots"] += 1
+        if back < 0:
+            n = min(WARP, back_limit - k)
+            i = _first_diff(data[p - k - n:p - k][::-1],
+                            data[e - k - n:e - k][::-1])
+            if i < WARP:            # a difference, or the limit
+                back = k + i
+        if fwd < 0:
+            n = min(WARP, fwd_limit - k)
+            i = _first_diff(data[p + 4 + k:p + 4 + k + n],
+                            data[e + 4 + k:e + 4 + k + n])
+            if i < WARP:
+                fwd = k + i
+        k += WARP
+    return back, fwd
+
+
+def dest_size_block_rounds_plain(data: bytes, vals, hashes, table: List[int],
+                                 start: int, n_end: int, low: int,
+                                 first: int, cap: int, acceleration: int,
+                                 min_match: int, counts=None
+                                 ) -> Tuple[bytearray, int]:
+    """``_dest_size_block`` as one warp of ``csrc/destsize.cuh`` runs it:
+    the same arguments and results, in rounds of WARP speculative probes.
+
+    Lane k of a round probes where the serial scan would after k probes
+    without a match (``_skip_sum``).  Its candidate is the position of the
+    latest lower lane with the same hash slot, else the table's entry as
+    it stood before the round: what the serial scan reads, since every
+    probe writes its slot before the next one reads.  The lanes that pass
+    the serial test are taken in lane order and extended (``_warp_runs``);
+    one whose match is shorter than ``min_match`` is passed over, as the
+    serial scan skips it, and the first that holds ends the round.  The
+    table takes the positions of the lanes up to that one (all lanes when
+    none holds), the highest lane of a slot last, even when that lane's
+    sequence then stops the block at its capacity.  ``counts`` (a
+    collections.Counter) adds up rounds, probes, the probes the serial scan
+    makes (``serial_probes``), candidates taken from a lower lane
+    (``from_lane``), extension rounds (``ballots``, a ballot a side each)
+    and sequences.
+    """
+    counts = collections.Counter() if counts is None else counts
+    mflimit, matchlimit = n_end - 12, n_end - 5
+    accel0 = acceleration << SKIP_TRIGGER
+    out = bytearray()
+    ip, anchor, scnt = first, start, accel0
+    while n_end - start >= 13 and ip <= mflimit:
+        pos = [p for p in (ip + _skip_sum(scnt, k) for k in range(WARP))
+               if p <= mflimit]
+        hs = [hashes[p] for p in pos]
+        cand, latest = [], {}
+        for k, h in enumerate(hs):
+            counts["from_lane"] += h in latest
+            cand.append(pos[latest[h]] if h in latest else table[h])
+            latest[h] = k
+        counts["rounds"] += 1
+        counts["probes"] += len(pos)
+        m = None
+        for k, (p, e) in enumerate(zip(pos, cand)):
+            if not (low <= e < p and p - e <= 65535 and vals[e] == vals[p]):
+                continue
+            back, fwd = _warp_runs(data, p, e, min(p - anchor, e - low),
+                                   matchlimit - p - 4, counts)
+            mp, ml = p - back, 4 + back + fwd
+            if ml >= min_match:
+                m = k
+                break
+        serial = len(pos) if m is None else m + 1
+        counts["serial_probes"] += serial
+        for k in range(serial):
+            table[hs[k]] = pos[k]
+        if m is None:
+            ip += _skip_sum(scnt, len(pos))
+            scnt += len(pos)
+            continue
+        litlen = mp - anchor
+        need = _seq_size(litlen, ml - 4) + _final_run_size(
+            min(5, n_end - (mp + ml)))
+        if len(out) + need > cap:
+            break                   # capacity stop
+        counts["sequences"] += 1
+        _emit_seq(out, data, anchor, litlen, pos[m] - cand[m], ml - 4)
+        ip = anchor = mp + ml
+        table[hashes[ip - 2]] = ip - 2
+        scnt = accel0
+    lit = _max_final_literals(cap - len(out), n_end - anchor)
+    if lit < 0:
+        return bytearray(), 0
+    _emit_final(out, data, anchor, anchor + lit)
+    return out, anchor - start + lit
+
+
+# ---------------------------------------------------------------------------
 # kernel H: a batch of bounded blocks
 # ---------------------------------------------------------------------------
 
 def encode_dest_size_plain(row: bytes, wlen: int, slen: int, cap: int,
-                            acceleration: int = 1, min_match: int = 4
-                            ) -> Tuple[bytes, int]:
+                            acceleration: int = 1, min_match: int = 4,
+                            parse=_dest_size_block) -> Tuple[bytes, int]:
     """Plain version of kernel H for one row ``[prefix | source]``: the
     source ``row[wlen:wlen + slen]`` into at most ``cap`` bytes, matching
     into the ``wlen`` prefix bytes, which are seeded into a fresh table at
-    every third position (LZ4_loadDict's stride).  Returns (block,
-    consumed)."""
+    every third position (LZ4_loadDict's stride).  ``parse`` runs the block
+    (``dest_size_block_rounds_plain`` gives the card's rounds).  Returns
+    (block, consumed)."""
     n = wlen + slen
     vals = hashes = None
     table: List[int] = []
@@ -178,7 +307,7 @@ def encode_dest_size_plain(row: bytes, wlen: int, slen: int, cap: int,
         table = [-1] * HASH_SIZE
         for p in range(0, max((wlen - 4) // 3 + 1, 0) * 3, 3):
             table[hashes[p]] = p
-    out, consumed = _dest_size_block(
+    out, consumed = parse(
         row, vals, hashes, table, wlen, n, 0, wlen + (0 if wlen > 0 else 1),
         cap, acceleration, min_match)
     return bytes(out), consumed
@@ -283,13 +412,16 @@ def sg_chain_input(in_bufs: Sequence[bytes], device) -> Tuple[torch.Tensor,
 
 def sg_encode_chain_plain(data: bytes, in_ends: Sequence[int],
                           caps: Sequence[int], max_dest: int,
-                          acceleration: int = 1, min_match: int = 4):
+                          acceleration: int = 1, min_match: int = 4,
+                          parse=_dest_size_block):
     """Plain version of kernel G: the JAX kernel's walk, step for step.
 
     ``data`` holds the content (``in_ends[-1]`` bytes) and at least TAIL
-    more.  Returns (blocks, boff, blen, consumed, isz, osz): ``blocks``
-    holds step t's block at ``boff[t]``, ``blen[t]`` bytes long; steps after
-    the walk has ended report blen -1 and 0 in the other fields.
+    more; ``parse`` runs each step's block (``dest_size_block_rounds_plain``
+    gives the card's rounds).  Returns (blocks, boff, blen, consumed, isz,
+    osz): ``blocks`` holds step t's block at ``boff[t]``, ``blen[t]`` bytes
+    long; steps after the walk has ended report blen -1 and 0 in the other
+    fields.
     """
     total = in_ends[-1]
     n_in, n_out = len(in_ends) - 1, len(caps)
@@ -322,7 +454,7 @@ def sg_encode_chain_plain(data: bytes, in_ends: Sequence[int],
         cap = min(o_size, M)
         # matches reach back to the start of the previous input buffer
         low = max(ipos - 65535, in_ends[ibuf - 1] if ibuf > 0 else 0, 0)
-        out, consumed = _dest_size_block(
+        out, consumed = parse(
             data, vals, hashes, table, ipos, ipos + i_take, low,
             ipos + (1 if ipos == 0 else 0), cap, acceleration, min_match)
         o_written = len(out)

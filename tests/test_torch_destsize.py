@@ -1,13 +1,17 @@
 """The port's destSize kernels against lz4_tpu's, on the CPU: kernel H
 (``encode_blocks_dest_size``), kernel D's resumable mode
 (``decode_blocks_dest_size``) and dictionary rows (``decode_blocks``), and
-the batch hooks of ``lz4_tpu_torch.block``.
+the batch hooks of ``lz4_tpu_torch.block``; and the card's schedule of
+kernel H's parse (``dest_size_block_rounds_plain``: rounds of 32
+speculative probes) against the serial parse and lz4_tpu.
 
 The port's plain versions run on CPU tensors; the JAX kernels run in
 interpret mode.  Everything is compared at tolerance 0: block bytes, olen,
 consumed and cons.
 """
 
+import collections
+import functools
 import os
 import random
 import subprocess
@@ -19,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import noise_bytes, slot_collisions
 from lz4_tpu import block as jblock
 from lz4_tpu.kernels import decode_kernel as jdec
 from lz4_tpu.kernels import destsize_kernel as jds
@@ -248,6 +253,74 @@ def test_destsize_checks_its_arguments():
         tds.encode_blocks_dest_size(rows, lens[:1], caps)
     with pytest.raises(TypeError):
         tds.encode_blocks_dest_size(rows, lens.long(), caps)
+
+
+# ---------------------------------------------------------------------------
+# kernel H's parse as the card's warp runs it: rounds of 32 probes
+# ---------------------------------------------------------------------------
+
+_TEXT = functools.partial(gen_buffer, 30_000, 0.8)
+
+# name: lambda -> (buffers, caps, prefixes, acceleration, min_match)
+ROUND_CASES = {
+    "text": lambda: ([gen_buffer(20_000, p, 40 + i)
+                      for i, p in enumerate((0.5, 0.8, 0.95))],
+                     [20_100, 6_000, 1_500], None, 1, 4),
+    # long matches, and capacity stops inside them
+    "zeros": lambda: ([bytes(30_000)] * 3, [30_200, 200, 40], None, 1, 4),
+    # skip runs: scnt >> 6 reaches 2 and more
+    "noise": lambda: ([noise_bytes(30_000, 1), noise_bytes(30_000, 2)
+                       + _TEXT(2)[:5_000]], [30_200, 30_000], None, 1, 4),
+    "slot_collisions": lambda: ([slot_collisions(20_000, s)
+                                 for s in (1, 2)], [20_100, 4_000], None,
+                                1, 4),
+    "min_match_12_acceleration_7": lambda: (
+        [_TEXT(3), slot_collisions(20_000, 3)], [30_100, 20_100], None, 7,
+        12),
+    "min_match_8_acceleration_2": lambda: (
+        [_TEXT(4), _TEXT(5)[:20_000]], [30_100, 3_000], None, 2, 8),
+    "rows_of_12_and_13_bytes": lambda: (
+        [_TEXT(6)[:12], _TEXT(6)[:13], b"a" * 13, b"a" * 12],
+        [100, 100, 100, 8], [b"", b"", b"", _TEXT(6)[:40]], 1, 4),
+    "64k_prefixes": lambda: (
+        [_TEXT(7)[20_000:28_000]] * 2 + [noise_bytes(8_000, 3)],
+        [3_000, 9_000, 9_000], [_TEXT(7)[:20_000] + bytes(45_536)] * 2
+        + [noise_bytes(65_536, 3)], 1, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUND_CASES))
+def test_round_model_matches_the_parse_and_jax(case):
+    """``dest_size_block_rounds_plain`` gives, row for row, the blocks and
+    consumed counts of ``_dest_size_block`` (the plain kernel H), which
+    equal lz4_tpu's."""
+    bufs, caps, prefixes, acc, mm = ROUND_CASES[case]()
+    prefixes = prefixes or [b""] * len(bufs)
+    serial = destsize_both(bufs, caps, prefixes, mm, acc)
+    counts = collections.Counter()
+    parse = functools.partial(tds.dest_size_block_rounds_plain,
+                              counts=counts)
+    for i, (src, pre, cap) in enumerate(zip(bufs, prefixes, caps)):
+        block, consumed = tds.encode_dest_size_plain(
+            pre + src, len(pre), len(src), cap, acc, mm, parse=parse)
+        assert (consumed, block) == serial[i], i
+    if case == "noise":         # skips of 2 bytes and more
+        assert 0 < counts["probes"] < 30_000 // 2
+    if case == "slot_collisions":
+        assert counts["from_lane"] > 2 * counts["rounds"]
+    if case == "zeros":         # matches of many ballots each
+        assert counts["ballots"] > 100 * counts["sequences"] > 0
+    if case == "text":
+        assert 0 < counts["rounds"] < 2 * counts["sequences"]
+
+
+def test_skip_sum_is_the_serial_advance():
+    """The closed form every lane computes its probe position with."""
+    for scnt in (64, 100, 127, 128, 448, 5_000, 70_000):
+        ip = 0
+        for k in range(40):
+            assert tds._skip_sum(scnt, k) == ip
+            ip += (scnt + k) >> tds.SKIP_TRIGGER
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,24 @@
 """The port's scatter-gather layer (lz4_tpu_torch.sg) and the plain versions
-of its kernels, the chain encoder G (``sg_encode_chain``) and the chain
-decoder F (``decode_blocks_sg``), held against lz4_tpu.
+of its kernels, the chain encoder G (``sg_encode_chain``, also with the
+card's schedule of its parse, ``dest_size_block_rounds_plain``) and the
+chain decoder F (``decode_blocks_sg``), held against lz4_tpu.
 
 Both packages get the same bytes, made from seeds.  The JAX kernels run in
-interpret mode, so the lists are small (at most 128 KB, and one long but
+interpret mode, so the lists are small (at most 384 KB, and one long but
 sparse list for the large-block route).  Codec outputs are integers: every
 comparison is exact.  Nothing here needs the reference C library.
+
+    python -m tests.test_torch_sg
+
+prints what the round model counts (rounds, probes, the serial scan's
+probes, extension ballots, sequences) on ``chip_smoke.py``'s '4k' and
+'ragged' walks (the first 16 MiB of the stdlib corpus) and on 64 of its
+1,024 rows of 64 KB at cap n/2 (kernel H's batch): the work kernels G and H
+do on the card, per warp.
 """
 
+import collections
+import functools
 import random
 import struct
 
@@ -16,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import noise_bytes, slot_collisions
 from lz4_tpu import sg as jsg
 from lz4_tpu import spec as jspec
 from lz4_tpu.frame import decompress_frame
@@ -127,6 +139,69 @@ def test_sg_encode_chain_matches_jax(case):
         assert blocks[b:b + blen[t]].numpy().tobytes() == \
             j_out[t, :blen[t]].tobytes(), t
     assert len(blocks) == int(boff[live[-1]]) + blen[live[-1]]
+
+
+# the walks of kernel G's parse as the card's warp runs it
+ROUND_CHAIN_CASES = {
+    # name: (lambda -> (in_bufs, caps), acceleration, min_match)
+    "4k_walk": (lambda: (split(gen_buffer(96 * 4096, 0.7, 201),
+                               [4096] * 96), [4096] * 102), 1, 4),
+    "zeros": (lambda: (split(bytes(60_000), [6_000] * 10), [4096] * 20),
+              1, 4),
+    "noise": (lambda: (split(noise_bytes(40_000, 4), [20_000] * 2),
+                       [21_000] * 2), 1, 4),
+    "slot_collisions": (lambda: (split(slot_collisions(40_000, 5),
+                                       [8_000] * 5), [5_000] * 10), 1, 4),
+    # capacity-stopped steps followed by more steps: the table keeps
+    # entries at or past where the next step starts
+    "capacity_stops": (lambda: ragged_list(9, 60_000, 12_000, 300, 600),
+                       1, 4),
+    "min_match_12_acceleration_7": (lambda: (split(DATA64K, [8192] * 8),
+                                             [6000] * 12), 7, 12),
+    "min_match_8_acceleration_2": (lambda: (split(DATA64K, [4096] * 16),
+                                            [4096] * 17), 2, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUND_CHAIN_CASES))
+def test_round_model_walk_matches_the_parse_and_jax(case):
+    """``sg_encode_chain_plain`` with ``dest_size_block_rounds_plain`` as its
+    parse gives every step's records and block bytes of the serial parse,
+    and those are lz4_tpu's."""
+    make, acc, mm = ROUND_CHAIN_CASES[case]
+    in_bufs, caps = make()
+    max_dest = sum(caps)
+    vals, in_ends, _ = jsg.sg_chain_vals(in_bufs)
+    j_out, *j_recs = jdsk.sg_encode_chain(vals, in_ends,
+                                          np.asarray(caps, np.int32),
+                                          max_dest, acc, mm)
+    flat, t_ends = tdsk.sg_chain_input(in_bufs, CPU)
+    data = flat.numpy().tobytes()
+    ends, caps = t_ends.tolist(), list(caps)
+    serial = tdsk.sg_encode_chain_plain(data, ends, caps, max_dest, acc, mm)
+    counts = collections.Counter()
+    rounds = tdsk.sg_encode_chain_plain(
+        data, ends, caps, max_dest, acc, mm,
+        parse=functools.partial(tdsk.dest_size_block_rounds_plain,
+                                counts=counts))
+    assert rounds == serial
+    blocks, boff, blen, cons, isz, osz = serial
+    for j, t in zip(j_recs, (blen, cons, isz, osz)):
+        assert np.asarray(j).tolist() == t
+    j_out = np.asarray(j_out).astype(np.uint8)
+    live = [t for t, n in enumerate(blen) if n >= 0]
+    assert len(live) > 1
+    for t in live:
+        assert blocks[boff[t]:boff[t] + blen[t]] == \
+            j_out[t, :blen[t]].tobytes(), t
+    if case == "capacity_stops":
+        assert any(cons[t] < isz[t] and blen[t + 1] >= 0 for t in live)
+    if case == "slot_collisions":
+        assert counts["from_lane"] > 2 * counts["rounds"]
+    if case == "noise":
+        assert 0 < counts["probes"] < 40_000 // 2
+    if case == "4k_walk":
+        assert 0 < counts["rounds"] < 2 * counts["sequences"]
 
 
 def _final_run_sizes(lits: np.ndarray) -> np.ndarray:
@@ -522,3 +597,39 @@ def test_port_raises_where_jax_takes_its_host_path(case, monkeypatch):
         comp, sizes = _corrupt_chain_frame()
         with pytest.raises(Exception):
             jsg.sg_decompress(comp, sizes, use_device=True)
+
+
+def round_counts() -> None:
+    """Print the round model's counts on the smoke's walks and H rows."""
+    import chip_smoke
+
+    def model(counts):
+        return functools.partial(tdsk.dest_size_block_rounds_plain,
+                                 counts=counts)
+
+    layouts = chip_smoke.sg_layouts(chip_smoke.real_text_corpus(16 << 20))
+    for name in ("4k", "ragged"):
+        what, ins, caps = layouts[name]
+        flat, ends = tdsk.sg_chain_input(ins, CPU)
+        counts = collections.Counter()
+        recs = tdsk.sg_encode_chain_plain(flat.numpy().tobytes(),
+                                          ends.tolist(), caps, sum(caps),
+                                          parse=model(counts))
+        print(f"G {name} ({what}): steps {sum(n >= 0 for n in recs[2])}, "
+              f"{dict(counts)}")
+    corpus = chip_smoke.real_text_corpus(64 << 20)
+    rows = [corpus[i << 16:(i + 1) << 16] for i in range(0, 1024, 16)]
+    per = []
+    for row in rows:
+        counts = collections.Counter()
+        tdsk.encode_dest_size_plain(row, 0, len(row), len(row) // 2,
+                                    parse=model(counts))
+        per.append(counts)
+    total = sum(per, collections.Counter())
+    print(f"H, {len(rows)} rows of 64 KB at cap n/2: per row "
+          f"{ {k: v / len(rows) for k, v in total.items()} }, rounds at "
+          f"most {max(c['rounds'] for c in per)}")
+
+
+if __name__ == "__main__":
+    round_counts()
