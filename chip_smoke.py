@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --encode-times ROOT   # kernels A and B of ROOT only
     python3 chip_smoke.py --destsize-times ROOT # kernels G and H of ROOT only
+    python3 chip_smoke.py --decode-times ROOT   # kernels E, F, D of ROOT
 
 1. Checks for a card and prints its name and power limit.
 2. Builds the kernels from lz4_tpu_torch/csrc (nvcc, sm_90a).
@@ -302,6 +303,64 @@ def literal_head(n: int, match_nibble: int = 0) -> bytes:
         rest = n - 15
         head += b"\xff" * (rest // 255) + bytes([rest % 255])
     return bytes(head)
+
+
+def lz4_seq(lits: bytes, offset: int = 0, mlen: int = 0) -> bytes:
+    """One LZ4 sequence: ``lits``, then a match of ``mlen`` bytes at
+    ``offset`` (none when ``mlen`` is 0: a block's last sequence)."""
+    out = literal_head(len(lits), min(max(mlen - 4, 0), 15)) + lits
+    if mlen:
+        out += offset.to_bytes(2, "little")
+        if mlen - 4 >= 15:
+            rest = mlen - 19
+            out += b"\xff" * (rest // 255) + bytes([rest % 255])
+    return out
+
+
+def long_match(n: int, head: bytes) -> bytes:
+    """A block decoding to ``n`` bytes of ``head`` repeated: ``head`` as
+    literals, one match at offset len(head), five literals."""
+    tail = (head * (n // len(head) + 1))[n - 5:n]
+    return lz4_seq(head, len(head), n - len(head) - 5) + lz4_seq(tail)
+
+
+# a literal run whose extension sums past the int32 range in one 8 MB block
+INT32_RUN = b"\xf0" + b"\xff" * ((1 << 31) // 255 + 1) + b"\x00"
+
+
+def stream_adversarial(n: int, text: bytes):
+    """Kernel E's hard cases for its parallel parse, blocks of about ``n``
+    bytes: (what, payload, cap).  Every one but the last three decodes
+    to -1."""
+    ext = b"".join(lz4_seq(text[i:i + 300], 7, 600)
+                   for i in range(0, n // 900 * 300, 300))
+    return [
+        ("a payload of 255s", b"\xff" * n, n),
+        ("a match ending exactly at n", long_match(n, text[:7])[:-6], n),
+        ("an offset before the block", lz4_seq(b"a", 2, n - 10)
+         + lz4_seq(b"z"), n),
+        ("a block over its cap", long_match(n, text[:7]), n - 1),
+        ("zeros: offset 1, one long match", long_match(n, b"\0"), n),
+        ("a 7-byte period", long_match(n, text[:7]), n),
+        ("long extensions at every span bound", ext + lz4_seq(b"end"),
+         n // 900 * 900 + 3),
+    ]
+
+
+def sg_adversarial(P: int, text: bytes):
+    """Kernel F's hard cases, chains of blocks of ``P`` <= 32,767 bytes:
+    (what, payloads, sizes)."""
+    head = lz4_seq(text[:P])
+    copy = lz4_seq(b"", P, P) + lz4_seq(b"")
+    return [
+        ("references crossing 16 blocks", [head] + [copy] * 16, [P] * 17),
+        ("a failed middle block's bytes and zero tail, copied on",
+         [head, lz4_seq(b"", P, P // 2) + lz4_seq(b"x", 0, 4), copy,
+          lz4_seq(b"", 2 * P, P) + lz4_seq(b"")], [P] * 4),
+        ("a short block, copied on",
+         [head, lz4_seq(text[:P // 2]), copy,
+          lz4_seq(b"", 2 * P, P) + lz4_seq(b"")], [P] * 4),
+    ]
 
 
 def terminal_literals(payload: bytes) -> int:
@@ -1006,6 +1065,19 @@ def in_windows(limit: int, fn, *args):
         dec.CELL_WINDOW = saved
 
 
+def in_span_log(span_log: int, fn, *args):
+    """``fn(*args)`` with kernel E's independent spans of 2^span_log
+    sequences (``decode_kernel.SPAN_LOG``): more spans and walk steps."""
+    from lz4_tpu_torch.kernels import decode_kernel as dec
+
+    saved = dec.SPAN_LOG
+    dec.SPAN_LOG = span_log
+    try:
+        return fn(*args)
+    finally:
+        dec.SPAN_LOG = saved
+
+
 def in_groups(limit: int, fn, *args):
     """``fn(*args)`` with kernel A's or B's scratch cut to ``limit`` bytes
     (``encode_kernel.SCAN_SCRATCH``): the rows are scanned a group of a few
@@ -1256,6 +1328,68 @@ def destsize_times(root: Path) -> int:
         lambda: sg.sg_compress(ins, caps, dest_size_compress=(
             kernel_h_dest_size(cuda, {})), device=cuda), wall=True)
     log(json.dumps({"destsize_times": str(root), "device":
+                    torch.cuda.get_device_name(0), **res}))
+    return 0
+
+
+def decode_times(root: Path) -> int:
+    """``--decode-times ROOT``: kernels E and F of the tree at ROOT (this
+    checkout, or another one unpacked beside it) on the smoke's inputs,
+    each written by ROOT's own port: E independent on the whole -B7 and
+    legacy files and on the -B7 file's first 4 MB block, E linked on the
+    -B5 linked and flushed chains, F on the sg phase's '4k' and 'ragged'
+    chains, and D linked on the main-path chunk (kernel A's 64 blocks
+    behind their window).  Prints one JSON line of CUDA-event ms, the
+    median of 3 after one warm-up."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    from lz4_tpu_torch import sg
+    from lz4_tpu_torch.kernels import build
+    from lz4_tpu_torch.kernels import decode_kernel as dec
+    from lz4_tpu_torch.kernels import encode_kernel as enc
+
+    if not Path(dec.__file__).resolve().is_relative_to(root.resolve()):
+        raise SmokeFailure(f"imported {dec.__file__}, not from {root}")
+    build.kernels_lib()
+    cuda = torch.device("cuda")
+    corpus = real_text_corpus(CORPUS_BYTES)
+
+    def median_ms(fn):
+        fn()
+        return sorted(event_ms(fn)[1] for _ in range(3))[1]
+
+    res = {}
+    files = stream_files(corpus, cuda)
+    for name, (_, flat, st, sz, sd, bs, linked, caps) in \
+            stream_launches(files).items():
+        flat_d = torch.frombuffer(bytearray(flat), dtype=torch.uint8).to(cuda)
+        res[f"E_{name}"] = median_ms(lambda: dec.decode_stream_raw(
+            flat_d, st, sz, sd, bs, 0, linked, caps))
+    s7, n7, _ = _records(files["b7"], 7)
+    b7_d = torch.frombuffer(bytearray(files["b7"]), dtype=torch.uint8).to(
+        cuda)
+    res["E_one_4mb"] = median_ms(lambda: dec.decode_stream_raw(
+        b7_d, [s7[0]], [n7[0]], [0], MB4, 0, linked=False))
+    del files, flat_d, b7_d
+    for lay, (_, ins, caps) in sg_layouts(corpus).items():
+        if lay == "large":
+            continue
+        total, _, outs = sg.sg_compress(ins, caps, device=cuda)
+        _, payloads, sizes = sg.collect_chain(filled(outs, caps, total),
+                                              [len(b) for b in ins])
+        flat, bstart, clen = dec.join_payloads(payloads, cuda)
+        res[f"F_{lay}"] = median_ms(lambda: dec.decode_blocks_sg_raw(
+            flat, bstart, clen, sizes))
+    card, _ = make_linked_case(enc, cuda, corpus[4 << 20:8 << 20],
+                               corpus[(4 << 20) - W:4 << 20], 8, zero=True)
+    out, olen = enc.scan_linked(*card)
+    dl_args = (out.reshape(64, -1), olen.reshape(64), W, card[0][0, :W], W)
+    res["D_linked"] = median_ms(lambda: dec.decode_blocks_linked(*dl_args))
+    log(json.dumps({"decode_times": str(root), "device":
                     torch.cuda.get_device_name(0), **res}))
     return 0
 
@@ -1951,6 +2085,26 @@ def main() -> int:
                    dec.decode_stream(payloads, W, 0, device=cuda),
                    dec.decode_stream(payloads, W, 0, device="cpu"))
     del chains
+    # the hard cases of independent mode's parallel parse, at 4 MB, and a
+    # literal run summing past int32 in an 8 MB block; the 255s last
+    adv = stream_adversarial(MB4, corpus)
+    adv = adv[1:] + [("a literal run past int32", INT32_RUN,
+                      dec.STREAM_BLOCK_CAP)] + adv[:1]
+    flat_h, bst, cln = dec.join_payloads([p for _, p, _ in adv], "cpu")
+    flat_d = flat_h.to(cuda)
+    for linked in (False, True):
+        args = (bst, cln, [0] * len(adv), MB4, 0, linked,
+                [c for _, _, c in adv])
+        p = dec.decode_stream_raw(flat_h, *args)
+        cmp_stream(f"{len(adv)} hard blocks ("
+                   + "; ".join(w for w, _, _ in adv)
+                   + f"), {'linked' if linked else 'independent'}",
+                   dec.decode_stream_raw(flat_d, *args), p)
+        if not linked:
+            cmp_stream("the hard blocks in spans of 4 sequences",
+                       in_span_log(2, dec.decode_stream_raw, flat_d, *args),
+                       p)
+    del flat_d, flat_h, adv
     # every launch the stream phase makes (step 6), on the whole file; the
     # two linked chains timed too (median of three single launches)
     launches = stream_launches(files)
@@ -1964,24 +2118,25 @@ def main() -> int:
         p, plain_full[fname] = time_host(
             lambda: dec.decode_stream_raw(flat_h, *args))
         cmp_stream(f"{what} (the stream phase's launch)", k, p)
-        if linked:
-            # the same chain in windows of 1 MiB of caps
-            nwin = len(dec.cell_windows(
-                [min(c, dec.STREAM_BLOCK_CAP) for c in caps], 1 << 20)) - 1
-            k = in_windows(1 << 20, dec.decode_stream_raw, flat_d, *args)
-            cmp_stream(f"{what}, in {nwin} windows of 1 MiB of caps", k, p)
-            chain_ms[fname] = time_rounds(
-                lambda: dec.decode_stream_raw(flat_d, *args))
-            st_ = stats["decode_stream"]
-            st_[f"ms_{fname}"] = sorted(chain_ms[fname])[1]
-            st_[f"ms_rounds_{fname}"] = chain_ms[fname]
-            st_[f"plain_ms_{fname}"] = plain_full[fname]
-            # the input and 16 bytes of metadata per block in; the content
-            # and olen out
-            st_[f"bound_ms_{fname}"] = (len(flat) + 16 * len(st) + int(
-                p[1].clamp(min=0).sum()) + 4 * len(st)) / HBM_BYTES_PER_S * 1e3
+        # the same chain in windows of 1 MiB of caps (independent: a
+        # window per block)
+        k = in_windows(1 << 20, dec.decode_stream_raw, flat_d, *args)
+        cmp_stream(f"{what}, in windows of 1 MiB of caps", k, p)
+        if fname == "b7":
+            k = in_span_log(2, dec.decode_stream_raw, flat_d, *args)
+            cmp_stream(f"{what}, in spans of 4 sequences", k, p)
+        chain_ms[fname] = time_rounds(
+            lambda: dec.decode_stream_raw(flat_d, *args))
+        st_ = stats["decode_stream"]
+        st_[f"ms_{fname}"] = sorted(chain_ms[fname])[1]
+        st_[f"ms_rounds_{fname}"] = chain_ms[fname]
+        st_[f"plain_ms_{fname}"] = plain_full[fname]
+        # the input and 16 bytes of metadata per block in; the content and
+        # olen out
+        st_[f"bound_ms_{fname}"] = (len(flat) + 16 * len(st) + int(
+            p[1].clamp(min=0).sum()) + 4 * len(st)) / HBM_BYTES_PER_S * 1e3
         del k, p, flat_d
-    s7, n7, d7 = _records(files["b7"], 7)
+    s7, n7, _ = _records(files["b7"], 7)
     b7_d = torch.frombuffer(bytearray(files["b7"]), dtype=torch.uint8).to(cuda)
     one = ([s7[0]], [n7[0]], [0], MB4, 0)
     # three alternating rounds of the two modes on one 4 MB block; the
@@ -2007,8 +2162,7 @@ def main() -> int:
     stats["decode_stream"]["plain_ms"] = plain_ms[True]
     set_bound("decode_stream", n7[0] + 16, MB4 + 4)
     stats["decode_stream"]["plain_ms_independent"] = plain_ms[False]
-    t16 = time_card(lambda: dec.decode_stream_raw(
-        b7_d, s7, n7, d7, MB4, 0, linked=False))
+    t16 = stats["decode_stream"]["ms_b7"]
     stats["decode_stream"]["ms_64mib_independent"] = t16
     stats["decode_stream"]["plain_ms_64mib_independent"] = plain_full["b7"]
     log(f"[time] decode_stream, one 4 MB block: linked {ms[True]:.3f} ms "
@@ -2022,7 +2176,7 @@ def main() -> int:
         f"{plain_full['b7']:.1f} ms")
     log("[time] decode_stream plain version, whole files: " + ", ".join(
         f"{f} {t:.1f} ms" for f, t in plain_full.items()))
-    log("[time] decode_stream linked, whole chains: " + ", ".join(
+    log("[time] decode_stream, whole files: " + ", ".join(
         f"{f} rounds {[round(t, 3) for t in r]} ms "
         f"({len(corpus) / 1e3 / sorted(r)[1]:.1f} MB/s)"
         for f, r in chain_ms.items()))
@@ -2094,6 +2248,11 @@ def main() -> int:
             kf, pf = sg_decode_args(*sg_chain_of(ins, caps))
             cmp_sg(what, dec.decode_blocks_sg_raw(*kf),
                    dec.decode_blocks_sg_raw(*pf))
+    # kernel F's hard chains, each eight times over, blocks of 32,767
+    for what, chain, sizes in sg_adversarial(32767, corpus):
+        kf, pf = sg_decode_args(chain * 8, sizes * 8)
+        cmp_sg(f"{what} (x8)", dec.decode_blocks_sg_raw(*kf),
+               dec.decode_blocks_sg_raw(*pf))
     for what, rows, sizes in (("48 corrupted streams", comp_rows, [W] * 48),
                               ("64 payloads of noise", noise_rows,
                                [4096] * 64)):
@@ -2116,6 +2275,8 @@ def main() -> int:
         p2, sg_plain[f"F {lay}"] = time_host(
             lambda: dec.decode_blocks_sg_raw(*pf))
         cmp_sg(f"{what} (the sg phase's launch)", k2, p2)
+        cmp_sg(f"{what}, in windows of 1 MiB",
+               in_windows(1 << 20, dec.decode_blocks_sg_raw, *kf), p2)
         if lay == "4k":
             T = len(p[1])
             # content, input ends and caps in; blocks and step records out
@@ -2577,4 +2738,6 @@ if __name__ == "__main__":
         sys.exit(encode_times(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--destsize-times"] and len(sys.argv) == 3:
         sys.exit(destsize_times(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--decode-times"] and len(sys.argv) == 3:
+        sys.exit(decode_times(Path(sys.argv[2])))
     sys.exit(main())

@@ -10,13 +10,14 @@
 // length and every store against the output limit before it happens, so
 // hostile input cannot read or write outside its block.
 //
-// Chains of linked blocks are decoded with every block at once: a block
-// whose window is not final yet writes int32 *cells*, each a byte (0..255)
-// or a reference c < 0 to the cell -c positions back, which lies before
-// the block (a match inside the block copies cells, and a copied reference
-// keeps naming its cell).  Once every block's status is known, rounds of
-// pointer jumping (jump_cells) resolve the references in parallel, and no
-// block waits for another.  A chain is decoded this way in windows of
+// Chains of linked blocks (kernels D and E linked, F) are decoded with
+// every block at once, and kernel E's independent blocks in spans of
+// sequences at once: a block or span whose window is not final yet writes
+// int32 *cells*, each a byte (0..255) or a reference c < 0 to the cell -c
+// positions back, which lies before the block or span (a match inside it
+// copies cells, and a copied reference keeps naming its cell).  Once the
+// statuses are known, rounds of pointer jumping (jump_cells) resolve the
+// references in parallel, and no block waits for another.  A chain is decoded this way in windows of
 // blocks that hold at most CELL_WINDOW bytes of output
 // (kernels/decode_kernel.py), one window after another: a window's
 // references below its first block read the final bytes of the windows
@@ -97,19 +98,26 @@ __device__ __forceinline__ typename OutElem<K>::type copied(
 // farthest a match reached before the block's start, max(offset - opos -
 // litlen), 0 if none; a kParse walk with plen = 65535 fails no offset
 // check but offset 0.  kBytes compiles to the decoder without cells.
+//
+// A span of a block (kernel E's independent mode) starts at the token at
+// ip0 and, when stop < n, returns the bytes it wrote once it reaches the
+// token at stop; with out at the span's output base b, olim = cap - b and
+// plen = b, its checks are the whole block's.
 template <bool RESUMABLE, Out K = Out::kBytes>
 __device__ int decode_block_t(const uint8_t* src, int n,
                               typename OutElem<K>::type* out, int olim,
                               const uint8_t* win_end, int plen, int lane,
-                              int* cons, int* far = nullptr) {
+                              int* cons, int* far = nullptr, int ip0 = 0,
+                              int stop = -1) {
   static_assert(!RESUMABLE || K == Out::kBytes, "destSize decodes bytes");
-  int ip = 0, opos = 0, reach = 0;
+  const int end = stop < 0 ? n : stop;
+  int ip = ip0, opos = 0, reach = 0;
   auto malformed = [&]() {
     if (RESUMABLE) *cons = -1;
     return -1;
   };
-  while (ip < n) {
-    const int ip0 = ip;
+  while (ip < end) {
+    const int at = ip;
     const int token = src[ip++];
     int litlen = token >> 4;
     if (litlen == 15 && !read_ext(src, n, &ip, &litlen)) return malformed();
@@ -131,7 +139,7 @@ __device__ int decode_block_t(const uint8_t* src, int n,
         reach = max(reach, offset - opos - litlen);
     }
     if (RESUMABLE && (long long)opos + litlen + mlen > olim) {
-      *cons = ip0;                                // stop at the token
+      *cons = at;                                 // stop at the token
       return opos;
     }
     if constexpr (K != Out::kParse) {
@@ -170,6 +178,7 @@ __device__ int decode_block_t(const uint8_t* src, int n,
     opos += mlen;
     ip = ip_m;
   }
+  if (end < n) return opos;   // a span stops at its last token
   // the block must end with a literal-only sequence
   if (!RESUMABLE) return -1;
   *cons = ip;                 // the source ran out at a token boundary

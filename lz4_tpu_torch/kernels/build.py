@@ -53,9 +53,11 @@ _SIGNATURES = {
                             _P, _P],
     "lz4tt_decode_batch": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
                            _P],
-    "lz4tt_decode_stream": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P,
-                            _P, _P, _P],
-    "lz4tt_decode_sg": [_P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "lz4tt_decode_stream": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    "lz4tt_decode_stream_spans": [_P, _P, _I, _P, _P, _I, _I, _L, _L, _P,
+                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "lz4tt_decode_sg": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                        _P],
     "lz4tt_sg_encode_chain": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P],
     "lz4tt_encode_dest_size": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,

@@ -19,6 +19,10 @@ window.  The kernels decode every block of a linked chain at once and
 work the statuses out from per-block summaries; ``parse_block_plain``,
 ``linked_statuses_plain`` and ``stream_statuses_plain`` model those steps
 for the tests, while the wrappers' plain versions stay the serial walks.
+Likewise ``decode_stream_spans_plain`` models kernel E's independent mode
+on the card (a parallel parse of every block, spans decoded into cells)
+and ``decode_blocks_sg_cells_plain`` kernel F's (every block at once into
+cells).
 ``decode_blocks`` decodes independent rows, each with an optional
 dictionary; ``decode_blocks_dest_size`` is its resumable (destSize) variant:
 a row that runs out of room stops at a token boundary and reports the bytes
@@ -54,11 +58,20 @@ STREAM_MAX_INPUT = (1 << 31) - 1
 # flags of the pointer-jumping rounds that follow a linked decode into
 # cells (MAX_JUMP_ROUNDS in csrc/decode.cuh)
 JUMP_ROUND_FLAGS = 32
-# The most output bytes a linked decode on the card holds in int32 cells at
-# once: a longer chain is decoded in windows of blocks, one after another.
-# This bounds the cells' scratch to 1 GiB and every reference in them to
-# this plus two blocks, far inside int32.
+# The most output bytes a decode into int32 cells on the card (linked D and
+# E, independent E, F) holds at once: a longer chain is decoded in windows
+# of blocks, one after another.  This bounds the cells' scratch to 1 GiB
+# and every reference in them to this plus two blocks, far inside int32.
 CELL_WINDOW = 1 << 28
+# Kernel E's independent mode parses a block's payload in parallel
+# (csrc/stream.cu): 17 bytes of scratch per payload byte, for the payloads
+# of at most this many bytes at once (or one block), about 1.1 GiB.
+PARSE_WINDOW = 1 << 26
+# Its spans: one warp decodes 2^SPAN_LOG sequences of a block, and the
+# walk that places the spans takes one step per span.
+SPAN_LOG = 8
+# next(p) of the parallel parse: p's sequence ends the block, or fails
+SEQ_END, SEQ_FAIL = -1, -2
 
 
 class StreamEnvelopeError(ValueError):
@@ -430,20 +443,36 @@ def decode_stream_plain(flat: bytes, bstart: Sequence[int],
     return bytes(out), olen
 
 
-def cell_windows(caps: np.ndarray, limit: int) -> np.ndarray:
+def cell_windows(caps: np.ndarray, limit: int, first: int = 1
+                 ) -> np.ndarray:
     """The windows in which kernel E decodes a linked chain into cells:
     block indices ``w`` (int32, ``w[0] = 0``, ``w[-1] = B``) such that
     blocks ``[w[i], w[i + 1])`` other than block 0 have caps summing to at
     most ``limit``, or are one block.  Block 0 decodes straight into the
-    output and takes no cells."""
-    bounds, held, count = [0], 0, 0
-    for b in range(1, len(caps)):
-        if count and held + caps[b] > limit:
-            bounds.append(b)
-            held = count = 0
-        held += int(caps[b])
-        count += 1
-    bounds.append(len(caps))
+    output and takes no cells.  With ``first = 0`` block 0 takes cells
+    too: kernel F's windows."""
+    return _greedy_windows([np.asarray(caps, np.int64)], [limit], first)
+
+
+def _greedy_windows(sizes, limits, first: int = 0) -> np.ndarray:
+    """Bounds of the windows that take blocks in order while each of
+    ``sizes`` (per-block arrays) sums to at most its limit over the window's
+    blocks from ``first`` on, and at least one such block each: one
+    ``searchsorted`` per window."""
+    B = len(sizes[0])
+    cums = [np.concatenate([[0], np.cumsum(v)]) for v in sizes]
+    bounds = [0]
+    b0 = 0
+    while b0 < B:
+        a = max(b0, first)
+        if a >= B:
+            break
+        b1 = min(int(np.searchsorted(c, c[a] + lim, side="right")) - 1
+                 for c, lim in zip(cums, limits))
+        b0 = max(b1, a + 1)
+        bounds.append(b0)
+    if bounds[-1] != B or B == 0:
+        bounds.append(B)
     return np.array(bounds, np.int32)
 
 
@@ -488,8 +517,12 @@ def decode_stream_raw(flat: torch.Tensor, bstart, clen, stored,
     first into int32 cells, in windows whose caps sum to at most
     ``CELL_WINDOW`` (``cell_windows``): the call takes 4 bytes of scratch
     per byte of the largest window's caps (256 MB for a 64 MiB frame of
-    256 KB blocks, at most 1 GiB); independent mode takes 1 per byte of the
-    sum of the caps.
+    256 KB blocks, at most 1 GiB).  Independent mode parses every block in
+    parallel and decodes it in spans of 2^SPAN_LOG sequences into cells
+    (``span_layout``), in windows of at most CELL_WINDOW bytes of caps and
+    PARSE_WINDOW of payload: 4 bytes of scratch per byte of a window's
+    caps and 17 per byte of its payloads (about 0.7 GB for a 64 MiB -B7
+    frame, at most about 2.2 GB).
     """
     check(flat, "flat", torch.uint8, 1)
     if block_size <= 0 or block_size % STREAM_UNIT:
@@ -529,29 +562,354 @@ def decode_stream_raw(flat: torch.Tensor, bstart, clen, stored,
     meta = torch.from_numpy(np.stack([bstart, clen, caps, stored])
                             .astype(np.int32)).to(dev)
     dst = torch.empty((B,), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = build.kernels_lib()
     if linked:
-        cap_off = scratch = None
         win = cell_windows(caps, CELL_WINDOW)
         held = max(int(caps[max(b0, 1):b1].sum())
                    for b0, b1 in zip(win[:-1], win[1:]))
         cells = torch.empty((held,), dtype=torch.int32, device=dev)
         need = torch.empty((B + (len(win) - 1) * JUMP_ROUND_FLAGS,),
                            dtype=torch.int32, device=dev)
+        err = lib.lz4tt_decode_stream(
+            flat.data_ptr(), meta.data_ptr(), B, win.ctypes.data,
+            len(win) - 1, cells.data_ptr(), need.data_ptr(), dst.data_ptr(),
+            out.data_ptr(), olen.data_ptr(), stream)
     else:
-        offs = np.concatenate([[0], np.cumsum(caps)[:-1]]).astype(np.int64)
-        cap_off = torch.from_numpy(offs).to(dev)
-        scratch = torch.empty((cap_total,), dtype=torch.uint8, device=dev)
-        cells = need = None
-        win = np.zeros((1,), np.int32)
+        lay = span_layout(clen, caps, stored, SPAN_LOG)
+        wins = lay["windows"]
+        pmax = max(int(wins[:, 2].max()), 1)
+        smax = max(int(wins[:, 3].max()), 1)
 
-    err = build.kernels_lib().lz4tt_decode_stream(
-        flat.data_ptr(), meta.data_ptr(), B, int(linked), _ptr(cap_off),
-        _ptr(scratch), win.ctypes.data, len(win) - 1, _ptr(cells),
-        _ptr(need), dst.data_ptr(), out.data_ptr(), olen.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        def i32(n):
+            return torch.empty((n,), dtype=torch.int32, device=dev)
+
+        spans = torch.from_numpy(lay["spans"]).to(dev)
+        pbuf = torch.empty((pmax,), dtype=torch.uint8, device=dev)
+        parse, slots = i32(4 * pmax), i32(2 * smax)
+        tiles = i32(2 * -(-pmax // SPAN_TILE))
+        nspans, cells = i32(B), i32(max(lay["cells"], 1))
+        more = torch.zeros((len(wins) * JUMP_ROUND_FLAGS,), dtype=torch.int32,
+                           device=dev)
+        err = lib.lz4tt_decode_stream_spans(
+            flat.data_ptr(), meta.data_ptr(), B, spans.data_ptr(),
+            wins.ctypes.data, len(wins), SPAN_LOG, pmax, smax,
+            pbuf.data_ptr(), parse.data_ptr(), tiles.data_ptr(),
+            slots.data_ptr(), nspans.data_ptr(), cells.data_ptr(),
+            more.data_ptr(), dst.data_ptr(), out.data_ptr(), olen.data_ptr(),
+            stream)
     build.check_launch("decode_stream", err)
     LAUNCHES["decode_stream"] += 1
     return out, olen
+
+
+SPAN_TILE = 4096         # bytes per CTA of the run-end pass (csrc/stream.cu)
+
+
+def parse_limit(cap):
+    """The longest payload a block of ``cap`` decoded bytes can have: its
+    literals cost at most 16/15 of their bytes with their token and
+    extension, a match at most its length; a longer one is malformed and
+    kernel E does not parse it."""
+    return cap + cap // 8 + 64
+
+
+def span_slots(plen, span_log: int):
+    """The spans a parsed payload of ``plen`` bytes can take: every span
+    but the last covers 2^span_log sequences of at least 3 bytes."""
+    return plen // (3 << span_log) + 1
+
+
+def jump_rounds(links: int) -> int:
+    """Rounds of pointer jumping that resolve a chain of up to ``links``
+    blocks or spans (csrc/decode.cuh)."""
+    k = 1
+    while (1 << k) < links:
+        k += 1
+    return k
+
+
+def span_layout(clen, caps, stored, span_log: int) -> dict:
+    """How kernel E decodes independent blocks on the card, in windows:
+    ``parsed`` (a block's payload length if it is parsed, else 0: stored,
+    empty, or longer than ``parse_limit``); ``spans`` int64 [4, B], per
+    block and window-relative: its base in the parse space, its parsed
+    length, its cells' base and its first span slot; ``windows`` int64
+    [nwin, 6]: first block, end block, parse-space length, span slots,
+    jump rounds and the jump kernel's CTAs per block; ``cells``: the most
+    cells a window holds.  A window holds blocks whose parsed caps sum to
+    at most CELL_WINDOW and parsed payloads to at most PARSE_WINDOW, or one
+    block."""
+    clen = np.asarray(clen, np.int64)
+    caps = np.asarray(caps, np.int64)
+    stored = np.asarray(stored) != 0
+    B = len(clen)
+    parsed = np.where(~stored & (clen > 0) & (clen <= parse_limit(caps)),
+                      clen, 0)
+    held_caps = np.where(parsed > 0, caps, 0)
+    slots = np.where(parsed > 0, span_slots(parsed, span_log), 0)
+    out_caps = np.where(stored | (parsed > 0), caps, 0)
+    bounds = _greedy_windows([held_caps, parsed],
+                             [CELL_WINDOW, PARSE_WINDOW])
+    spans = np.zeros((4, B), np.int64)
+    rows = []
+    for b0, b1 in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        sl = slice(b0, b1)
+        for row, v in ((0, parsed), (2, held_caps), (3, slots)):
+            spans[row, sl] = np.cumsum(v[sl]) - v[sl]
+        rows.append([b0, b1, int(parsed[sl].sum()), int(slots[sl].sum()),
+                     min(jump_rounds(int(slots[sl].max(initial=0)) + 1),
+                         JUMP_ROUND_FLAGS),
+                     min(max(-(-int(out_caps[sl].max(initial=0))
+                               // SPAN_TILE), 1), 65535)])
+    spans[1] = parsed
+    return {"parsed": parsed, "spans": spans,
+            "windows": np.array(rows, np.int64).reshape(-1, 6),
+            "cells": max((int(held_caps[r[0]:r[1]].sum()) for r in rows),
+                         default=0)}
+
+
+# -- CPU models of kernel E's independent schedule (tests only) --------------
+
+def run_ends_plain(src: np.ndarray) -> np.ndarray:
+    """Kernel E's step 2: for every byte of ``src``, the first position at
+    or after it whose byte is not 255 (``len(src)`` if none)."""
+    n = len(src)
+    idx = np.where(src != 255, np.arange(n), n)
+    return np.minimum.accumulate(idx[::-1])[::-1]
+
+
+def next_plain(src: np.ndarray, cap: int, stats: Optional[dict] = None):
+    """Kernel E's step 3 over one payload: (J, S) int64 [n], J[p] the token
+    after a token at p (SEQ_END: p's literal-only sequence ends the block;
+    SEQ_FAIL: its literals or an extension run past n, its offset is 0, it
+    ends the block with a match, or it writes more than ``cap``), S[p] the
+    bytes its sequence writes.  ``stats['reads']`` counts the loads of
+    steps 2 and 3: O(n) whatever the bytes."""
+    n = len(src)
+    v = src.astype(np.int64)
+    run = run_ends_plain(src)
+    pos = np.arange(n, dtype=np.int64)
+    reads = 2 * n                               # step 2, then every token
+
+    def ext(at, want):
+        """(sum, next position, ok) of extensions at ``at`` where ``want``."""
+        ok = want & (at < n)
+        a = np.where(ok, at, 0)
+        r = run[a]
+        ok &= r < n
+        rr = np.where(ok, r, 0)
+        return 255 * (rr - a) + v[rr], rr + 1, ok
+
+    lit = v >> 4
+    has = lit == 15
+    e, nip, eok = ext(pos + 1, has)
+    reads += 2 * int(has.sum())
+    ok = ~has | eok
+    lit = np.where(has, lit + e, lit)
+    ip = np.where(has, nip, pos + 1)
+    ia = ip + lit
+    ok &= (ia <= n) & (lit <= cap)
+    end = ok & (ia == n)
+    mid = ok & ~end & (ia + 2 <= n)
+    a = np.where(mid, ia, 0)
+    off = v[a] | (v[np.minimum(a + 1, n - 1)] << 8)
+    reads += 2 * int(mid.sum())
+    mid &= off != 0
+    mh = mid & ((v & 15) == 15)
+    e, nim, eok = ext(ia + 2, mh)
+    reads += 2 * int(mh.sum())
+    mid &= ~mh | eok
+    ml = (v & 15) + 4 + np.where(mh, e, 0)
+    im = np.where(mh, nim, ia + 2)
+    mid &= (im != n) & (lit + ml <= cap)
+    J = np.full(n, SEQ_FAIL, np.int64)
+    S = np.zeros(n, np.int64)
+    J[end], S[end] = SEQ_END, lit[end]
+    J[mid], S[mid] = im[mid], (lit + ml)[mid]
+    if stats is not None:
+        stats["reads"] = stats.get("reads", 0) + reads
+    return J, S
+
+
+def double_plain(J: np.ndarray, S: np.ndarray, rounds: int,
+                 stats: Optional[dict] = None):
+    """Kernel E's step 4: ``rounds`` rounds of pointer doubling, (J, S) to
+    2^rounds sequences on, END and FAIL absorbing, sums saturating past
+    the 8 MB cap."""
+    for _ in range(rounds):
+        go = J >= 0
+        j = np.where(go, J, 0)
+        S = np.where(go, np.minimum(S + S[j], STREAM_BLOCK_CAP + 1), S)
+        J = np.where(go, J[j], J)
+        if stats is not None:
+            stats["reads"] = stats.get("reads", 0) + 2 * len(J) \
+                + 2 * int(go.sum())
+    return J, S
+
+
+def checkpoints_plain(J: np.ndarray, S: np.ndarray, cap: int,
+                      stats: Optional[dict] = None):
+    """Kernel E's step 5, one block's walk by the doubled (J, S): (spans,
+    olen), spans a list of (start token, output base); ([], -1) when the
+    chain fails or outgrows ``cap``."""
+    p, base, spans = 0, 0, []
+    while True:
+        spans.append((p, base))
+        if stats is not None:
+            stats["walk_steps"] = stats.get("walk_steps", 0) + 1
+        j = int(J[p])
+        if j == SEQ_FAIL:
+            return [], ERR_MALFORMED
+        base += int(S[p])
+        if base > cap:
+            return [], ERR_MALFORMED
+        if j == SEQ_END:
+            return spans, base
+        p = j
+
+
+def decode_cells_plain(src: bytes, n: int, olim: int, plen: int,
+                       ip: int = 0, stop: Optional[int] = None):
+    """``decode_block_t<false, Out::kCells>`` of csrc/decode.cuh without a
+    window buffer: the sequences of ``src[:n]`` from the token at ``ip``
+    decoded into int32 cells, a byte or a reference -d to the cell d
+    back, for every byte a match copies from before the output's start.
+    ``plen`` bounds the offsets as the window length does.  With ``stop``
+    (a token boundary before n) the span ends there.  Returns (length or
+    -1, the cells written, the bytes of every sequence before a failing
+    one included)."""
+    end = n if stop is None else stop
+    buf = np.zeros(256, np.int64)
+    opos = 0
+
+    def room(k):
+        nonlocal buf
+        if k > len(buf):
+            buf = np.concatenate([buf, np.zeros(max(k, 2 * len(buf))
+                                                - len(buf), np.int64)])
+
+    while ip < end:
+        token = src[ip]
+        ip += 1
+        litlen = token >> 4
+        if litlen == 15:
+            ext, ip, ok = _read_ext(src, ip, n)
+            if not ok:
+                return ERR_MALFORMED, buf[:opos]
+            litlen += ext
+        ip_after = ip + litlen
+        if ip_after > n or opos + litlen > olim:
+            return ERR_MALFORMED, buf[:opos]
+        ended = ip_after == n
+        if not ended:
+            if ip_after + 2 > n:
+                return ERR_MALFORMED, buf[:opos]
+            offset = src[ip_after] | (src[ip_after + 1] << 8)
+            ip_m = ip_after + 2
+            mlen = (token & 15) + 4
+            if token & 15 == 15:
+                ext, ip_m, ok = _read_ext(src, ip_m, n)
+                if not ok:
+                    return ERR_MALFORMED, buf[:opos]
+                mlen += ext
+            if offset == 0 or offset > opos + litlen + plen or \
+                    opos + litlen + mlen > olim:
+                return ERR_MALFORMED, buf[:opos]
+        room(opos + litlen)
+        buf[opos:opos + litlen] = np.frombuffer(src[ip:ip_after], np.uint8)
+        opos += litlen
+        if ended:
+            return opos, buf[:opos]
+        # element i of the match copies position opos - offset + i: before
+        # the output a reference -offset, else the cell there (a reference
+        # keeps naming its cell); a copy that overlaps itself repeats its
+        # first `offset` elements, a reference moving offset farther back
+        # on each repeat
+        room(opos + mlen)
+        first = np.arange(min(offset, mlen)) + opos - offset
+        head = np.where(first < 0, -offset, buf[np.maximum(first, 0)])
+        head = np.where((first >= 0) & (head < 0), head - offset, head)
+        q, r = np.divmod(np.arange(mlen), offset)
+        val = head[r]
+        buf[opos:opos + mlen] = np.where(val < 0, val - q * offset, val)
+        opos += mlen
+        ip = ip_m
+    if end < n:
+        return opos, buf[:opos]
+    return ERR_MALFORMED, buf[:opos]
+
+
+def jump_cells_plain(cells: np.ndarray, rounds: int,
+                     below: Optional[np.ndarray] = None) -> np.ndarray:
+    """``rounds`` synchronous rounds of pointer jumping over ``cells``
+    (a reference -d names the cell d back; one link a round, every cell
+    reading the values of the round before: the slowest schedule the
+    card's rounds can take); a reference below position 0 reads
+    ``below``, the final bytes before the cells.  Raises when a reference
+    is left, so that a test sees the bound on the rounds fail.  Returns
+    the bytes."""
+    v = cells.astype(np.int64).copy()
+    for _ in range(rounds):
+        ref = np.flatnonzero(v < 0)
+        if not len(ref):
+            break
+        tgt = ref + v[ref]
+        tv = v[np.maximum(tgt, 0)]
+        if below is not None and (tgt < 0).any():
+            tv = np.where(tgt < 0,
+                          below[np.minimum(tgt, -1) + len(below)], tv)
+        v[ref] = np.where(tv >= 0, tv, tgt + tv - ref)
+    if (v < 0).any():
+        raise AssertionError(f"{int((v < 0).sum())} references left after "
+                             f"{rounds} rounds")
+    return v.astype(np.uint8)
+
+
+def decode_stream_spans_plain(flat: bytes, bstart: Sequence[int],
+                              clen: Sequence[int], stored: Sequence[int],
+                              caps: Sequence[int],
+                              span_log: Optional[int] = None,
+                              stats: Optional[dict] = None
+                              ) -> Tuple[bytes, List[int]]:
+    """CPU model of kernel E's independent mode on the card
+    (csrc/stream.cu steps 1-7): per block the run ends, next and len of
+    every byte, ``span_log`` rounds of doubling, the walk that places the
+    spans, each span decoded into cells at its base, the rounds that
+    resolve them, the good blocks joined.  Equals ``decode_stream_plain``
+    with ``linked=False``.  ``stats`` gathers the loads of steps 2-4
+    (``reads``), the walk's steps and the spans.  Used by the tests."""
+    span_log = SPAN_LOG if span_log is None else span_log
+    out, olen = bytearray(), []
+    for s, n, st, cap in zip(bstart, clen, stored, caps):
+        src = flat[s:s + n]
+        if st or not 0 < n <= parse_limit(cap):
+            r = n if st and n <= cap else ERR_MALFORMED
+            olen.append(r)
+            if r > 0:
+                out += src
+            continue
+        J, S = double_plain(*next_plain(np.frombuffer(src, np.uint8), cap,
+                                        stats), span_log, stats)
+        spans, r = checkpoints_plain(J, S, cap, stats)
+        cells = np.zeros(max(r, 0), np.int64)
+        for k, (ip, base) in enumerate(spans):
+            stop = spans[k + 1][0] if k + 1 < len(spans) else None
+            got, c = decode_cells_plain(src, n, cap - base, base, ip, stop)
+            if got < 0:
+                r = ERR_MALFORMED
+                break
+            if stop is None and base + got != r:
+                raise AssertionError("the walk and the spans disagree")
+            cells[base:base + got] = c
+        if stats is not None:
+            stats["spans"] = stats.get("spans", 0) + len(spans)
+        olen.append(r)
+        if r > 0:
+            out += jump_cells_plain(
+                cells, min(jump_rounds(span_slots(n, span_log) + 1),
+                           JUMP_ROUND_FLAGS)).tobytes()
+    return bytes(out), olen
 
 
 def decode_stream(payloads: Sequence[bytes], block_size: int,
@@ -606,6 +964,40 @@ def decode_blocks_sg_plain(flat: bytes, bstart: Sequence[int],
     return bytes(out), olen
 
 
+def decode_blocks_sg_cells_plain(flat: bytes, bstart: Sequence[int],
+                                 clen: Sequence[int], sizes: Sequence[int],
+                                 limit: Optional[int] = None
+                                 ) -> Tuple[bytes, List[int]]:
+    """CPU model of kernel F on the card (csrc/sg_decode.cu): in windows of
+    at most ``limit`` (CELL_WINDOW) bytes of output (``cell_windows`` with
+    ``first=0``), zeroed cells, every block decoded into them at once at
+    cum[k] with plen = min(cum[k], 65535) (a failed block keeps its
+    sequences before the failing one; what no block writes stays the byte
+    0), then the rounds that resolve the references, those below the
+    window reading the final bytes before it.  Equals
+    ``decode_blocks_sg_plain``.  Used by the tests."""
+    limit = CELL_WINDOW if limit is None else limit
+    sizes = np.asarray(sizes, np.int64)
+    cum = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    out = np.zeros(int(cum[-1]), np.uint8)
+    olen: List[int] = []
+    win = cell_windows(sizes, limit, first=0)
+    for k0, k1 in zip(win[:-1], win[1:]):
+        origin = int(cum[k0])
+        cells = np.zeros(int(cum[k1]) - origin, np.int64)
+        for k in range(k0, k1):
+            n = int(clen[k])
+            src = flat[int(bstart[k]):int(bstart[k]) + n]
+            r, c = decode_cells_plain(src, n, int(sizes[k]),
+                                      min(int(cum[k]), MAX_OFFSET))
+            olen.append(r)
+            at = int(cum[k]) - origin
+            cells[at:at + len(c)] = c
+        out[origin:int(cum[k1])] = jump_cells_plain(
+            cells, jump_rounds(k1 - k0 + 1), below=out[:origin])
+    return out.tobytes(), olen
+
+
 def decode_blocks_sg_raw(flat: torch.Tensor, bstart, clen, out_sizes):
     """Decode an SG chain: kernel F on the card, the plain version on the
     CPU.
@@ -644,19 +1036,27 @@ def decode_blocks_sg_raw(flat: torch.Tensor, bstart, clen, out_sizes):
             sizes.tolist())
         return to_device(data, "cpu"), torch.tensor(olen, dtype=torch.int32)
     dev = flat.device
-    # zeroed, like the plain version: a failed block's unwritten bytes (and
-    # the windows that reach them) read zeros in both
-    out = torch.zeros((total,), dtype=torch.uint8, device=dev)
+    # every byte is written: the cells start zeroed, as the plain version's
+    # output does
+    out = torch.empty((total,), dtype=torch.uint8, device=dev)
     olen = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return out, olen
-    cum = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-    offs = torch.from_numpy(np.stack([bstart, cum])).to(dev)
+    cum = np.concatenate([[0], np.cumsum(sizes)])
+    win = cell_windows(sizes, CELL_WINDOW, first=0)
+    wcum = np.ascontiguousarray(cum[win], dtype=np.int64)
+    cells = torch.empty((max(int(np.diff(wcum).max()), 1),),
+                        dtype=torch.int32, device=dev)
+    more = torch.zeros(((len(win) - 1) * JUMP_ROUND_FLAGS,),
+                       dtype=torch.int32, device=dev)
+    offs = torch.from_numpy(np.stack([bstart, cum[:-1]])).to(dev)
     meta = torch.from_numpy(np.stack([clen, sizes]).astype(np.int32)).to(dev)
     err = build.kernels_lib().lz4tt_decode_sg(
         flat.data_ptr(), offs[0].data_ptr(), meta[0].data_ptr(),
-        meta[1].data_ptr(), offs[1].data_ptr(), B, out.data_ptr(),
-        olen.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        meta[1].data_ptr(), offs[1].data_ptr(), B, win.ctypes.data,
+        wcum.ctypes.data, len(win) - 1, cells.data_ptr(), more.data_ptr(),
+        out.data_ptr(), olen.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("decode_sg", err)
     LAUNCHES["decode_sg"] += 1
     return out, olen

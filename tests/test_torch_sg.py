@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import noise_bytes, slot_collisions
 from lz4_tpu import sg as jsg
 from lz4_tpu import spec as jspec
@@ -343,6 +344,91 @@ def test_decoded_length_agrees_with_the_decoder(seed):
         n = tsg.decoded_length(junk)
         r, _ = tdec.decode_block_plain(junk, len(junk), 1 << 20, bytes(65535))
         assert n == r or (r == -1 and n >= 0)
+
+
+def _sg_cells_model(chain, sizes, limits=(None, 10_000, 1)):
+    """``decode_blocks_sg_cells_plain`` (kernel F's schedule on the card) in
+    windows of each of ``limits`` bytes equals the serial walk: every
+    output byte and olen.  Returns the serial walk's."""
+    flat, bstart, clen = tdec.join_payloads(chain, CPU)
+    flat = flat.numpy().tobytes()
+    want = tdec.decode_blocks_sg_plain(flat, bstart.tolist(), clen.tolist(),
+                                       sizes)
+    for limit in limits:
+        got = tdec.decode_blocks_sg_cells_plain(flat, bstart, clen, sizes,
+                                                limit)
+        assert got == want, (limit, got[1], want[1])
+    return want
+
+
+@pytest.mark.parametrize("case", sorted(SG_DECODE_CASES))
+def test_sg_cells_model_matches_the_serial_walk(case):
+    _sg_cells_model(*SG_DECODE_CASES[case]())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_sg_cells_model_bit_flips(seed):
+    """Bit flips in a linked SG chain: failed blocks keep their bytes
+    before the failing sequence, and later blocks copy them."""
+    rng = np.random.default_rng(seed)
+    sizes = [4096] * 12 + [30_000]
+    chain = [bytearray(c) for c in _linked_chain(
+        gen_buffer(sum(sizes), 0.7, 20 + seed), sizes)]
+    for _ in range(2 + 2 * seed):
+        k = int(rng.integers(len(chain)))
+        i = int(rng.integers(len(chain[k])))
+        chain[k][i] ^= 1 << int(rng.integers(8))
+    _sg_cells_model([bytes(c) for c in chain], sizes)
+
+
+SG_ADVERSARIAL = chip_smoke.sg_adversarial(3000, gen_buffer(4000, 0.5, 30))
+
+
+@pytest.mark.parametrize("case", range(len(SG_ADVERSARIAL)))
+def test_sg_cells_model_adversarial_chains(case):
+    """chip_smoke's hard chains: references crossing 16 blocks (one more
+    window than a reference may skip at the smallest limit), a failed
+    middle block whose partial bytes and zero tail a later block copies,
+    and a short block copied on; also against lz4_tpu (statuses, and the
+    bytes where every block fills its size: lz4_tpu leaves what a failed
+    or short block does not write unspecified)."""
+    what, chain, sizes = SG_ADVERSARIAL[case]
+    out, olen = _sg_cells_model(chain, sizes, (None, 6000, 3000, 1))
+    if case == 0:
+        assert out == gen_buffer(4000, 0.5, 30)[:3000] * 17
+    if case == 1:
+        assert olen[1] == -1 and out[4500:6000] == bytes(1500)
+        assert out[6000:9000] == out[3000:6000]
+    if case == 2:
+        assert olen[1] == 1500 and out[6000:9000] == out[3000:6000]
+    M = -(-max(map(len, chain)) // 128) * 128
+    rows = np.zeros((len(chain), M), np.uint8)
+    for i, c in enumerate(chain):
+        rows[i, :len(c)] = np.frombuffer(c, np.uint8)
+    lens = np.array([len(c) for c in chain], np.int32)
+    j_out, j_olen = jdec.decode_blocks_sg(jnp.asarray(rows.astype(np.int32)),
+                                          jnp.asarray(lens), sizes)
+    assert np.asarray(j_olen).tolist() == olen, what
+    if olen == sizes:
+        j_flat = np.asarray(j_out).astype(np.uint8).reshape(-1)
+        assert j_flat[65536:65536 + len(out)].tobytes() == out
+
+
+def test_sg_cells_model_windows_and_rounds():
+    """A 40-block linked chain in windows of 1 byte to the whole chain:
+    the windows cover the blocks in order and hold at most the limit or
+    one block; the rounds of each (jump_rounds of its blocks + 1) resolve
+    every reference, those below a window reading the bytes before it."""
+    sizes = [int(x) for x in np.random.default_rng(7).integers(1, 9000, 40)]
+    data = sparse_data(sum(sizes), 77)
+    chain = _linked_chain(data, sizes)
+    out, olen = _sg_cells_model(chain, sizes, (None, 1, 5000, 20_000))
+    assert out == data and olen == sizes
+    for limit in (1, 5000, 20_000):
+        w = tdec.cell_windows(sizes, limit, first=0)
+        assert w[0] == 0 and w[-1] == len(sizes) and (np.diff(w) > 0).all()
+        for b0, b1 in zip(w[:-1], w[1:]):
+            assert sum(sizes[b0:b1]) <= limit or b1 - b0 == 1
 
 
 # ---------------------------------------------------------------------------

@@ -292,6 +292,33 @@ def test_cell_windows_bound_every_reference(limit, make_caps):
         < 2 ** 31
 
 
+def _cell_windows_loop(caps, limit, first):
+    """cell_windows as the loop it replaced: a block starts a new window
+    when the held caps (from block ``first`` on) would pass the limit."""
+    bounds, held, count = [0], 0, 0
+    for b in range(first, len(caps)):
+        if count and held + caps[b] > limit:
+            bounds.append(b)
+            held = count = 0
+        held += int(caps[b])
+        count += 1
+    bounds.append(len(caps))
+    return bounds
+
+
+@pytest.mark.parametrize("first", [0, 1])
+def test_cell_windows_equal_the_loop(first):
+    """The searchsorted windows equal the greedy loop on ragged caps with
+    zeros, limits from 1 to past the sum, and chains of 0 to 39 blocks."""
+    rng = np.random.default_rng(first)
+    for _ in range(400):
+        caps = rng.integers(0, 100, int(rng.integers(0, 40)))
+        caps[rng.random(len(caps)) < 0.2] = 0
+        for limit in (1, 50, 99, 150, 5000):
+            assert tdec.cell_windows(caps, limit, first).tolist() == \
+                _cell_windows_loop(caps, limit, first)
+
+
 def test_decode_stream_counts_plain_calls():
     common.reset_counts()
     tdec.decode_stream([compress_block(b"x" * 100)], 64 * KB, 100,
@@ -518,3 +545,250 @@ def test_merged_blocks_decode_to_their_content(group):
     d = FrameDecompressor()
     assert d.feed(b7) == (len(b7), data)
     assert tdev.decompress_frame_device(b7, device=CPU) == (data, len(b7))
+
+
+# ---------------------------------------------------------------------------
+# kernel E's independent mode on the card: the CPU model of its schedule
+# (run ends, next, doubling, the walk, spans into cells, rounds)
+# ---------------------------------------------------------------------------
+
+def _spans_model(flat: bytes, bstart, clen, stored, caps, span_logs=(0, 2)):
+    """``decode_stream_spans_plain`` at each span size equals the serial
+    walk (independent mode): bytes and olen.  Returns the serial walk's."""
+    want = tdec.decode_stream_plain(flat, bstart, clen, stored, caps, False)
+    for s in (*span_logs, tdec.SPAN_LOG):
+        got = tdec.decode_stream_spans_plain(flat, bstart, clen, stored,
+                                             caps, s)
+        assert got == want, (s, got[1], want[1])
+    return want
+
+
+def _layout(payloads, pad=b"\x55"):
+    """Payloads at odd offsets of one buffer: (flat, bstart, clen)."""
+    flat, bstart = bytearray(b"\x07\x01\x02"), []
+    for p in payloads:
+        bstart.append(len(flat))
+        flat += p + pad
+    return bytes(flat), bstart, [len(p) for p in payloads]
+
+
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+def test_spans_model_matches_the_serial_walk(case):
+    """Every stream case, its blocks taken as independent ones (linked
+    blocks whose matches reach back then fail, as the serial walk says)."""
+    bs, linked, sizes = STREAM_CASES[case]
+    data = sparse_data(sum(sizes), len(case))
+    chunks = np.split(np.frombuffer(data, np.uint8), np.cumsum(sizes)[:-1])
+    payloads = _payloads([c.tobytes() for c in chunks], linked)
+    flat, bstart, clen = _layout(payloads)
+    content, olen = _spans_model(flat, bstart, clen, [0] * len(payloads),
+                                 [bs] * len(payloads))
+    if not linked:
+        assert content == data and olen == sizes
+
+
+def test_spans_model_raw_layout_and_stored_blocks():
+    flat, bstart, clen, stored, caps, _ = _raw_layout()
+    _, olen = _spans_model(flat.tobytes(), bstart, clen, stored, caps)
+    assert olen[1] == 1000 and olen[4] == -1 and olen[5] == -1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
+def test_spans_model_bit_flips_match_jax(seed):
+    """Bit-flipped independent blocks: the model, the serial walk and
+    lz4_tpu's interpret-mode stream kernel agree on verdicts and bytes."""
+    rng = np.random.default_rng(seed)
+    data = sparse_data(300_000, 9)
+    bs = 256 * KB
+    payloads = [bytearray(p) for p in _payloads([data[:bs], data[bs:]],
+                                                False)]
+    for _ in range(1 + seed):
+        k = int(rng.integers(2))
+        i = int(rng.integers(len(payloads[k])))
+        payloads[k][i] ^= 1 << int(rng.integers(8))
+    payloads = [bytes(p) for p in payloads]
+    flat, bstart, clen = _layout(payloads)
+    content, olen = _spans_model(flat, bstart, clen, [0, 0], [bs, bs])
+    want = jdec.decode_stream(payloads, bs, len(data), linked=False)
+    assert np.asarray(want[1]).tolist() == olen
+    j_flat = np.asarray(want[0]).astype(np.uint8).reshape(-1)
+    assert j_flat[:len(content)].tobytes() == content
+
+
+def test_spans_model_noise():
+    rng = np.random.default_rng(13)
+    payloads = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+                for n in rng.integers(1, 3000, 40)]
+    flat, bstart, clen = _layout(payloads)
+    _, olen = _spans_model(flat, bstart, clen, [0] * 40, [64 * KB] * 40,
+                           span_logs=(0, 1, 3))
+    assert -1 in olen
+
+
+ADVERSARIAL = chip_smoke.stream_adversarial(
+    20_000, sparse_data(30_000, 61))
+
+
+@pytest.mark.parametrize("case", range(len(ADVERSARIAL)))
+def test_spans_model_adversarial_blocks(case):
+    """chip_smoke's hard cases at 20 KB: 255s, a match ending exactly at n,
+    an offset before the block, a block over its cap, zeros (offset 1),
+    a 7-byte period, long extensions at every span bound (with s = 0 and
+    1 every token starts a span, so one starts right after each long
+    extension)."""
+    what, payload, cap = ADVERSARIAL[case]
+    flat, bstart, clen = _layout([payload])
+    _, olen = _spans_model(flat, bstart, clen, [0], [cap],
+                           span_logs=(0, 1, 4))
+    assert (olen[0] == -1) == (case < 4), what
+
+
+def test_spans_model_on_adversarial_blocks_matches_jax():
+    """The adversarial blocks in one stream through lz4_tpu's
+    interpret-mode kernel: equal verdicts and bytes.  The payload of 255s
+    goes last (see the next test)."""
+    cases = ADVERSARIAL[1:] + ADVERSARIAL[:1]
+    flat, bstart, clen = _layout([p for _, p, _ in cases])
+    caps = [c for _, _, c in cases]
+    content, olen = _spans_model(flat, bstart, clen, [0] * len(caps), caps)
+    want = jdec.decode_stream_raw(np.frombuffer(flat, np.uint8), bstart,
+                                  clen, [0] * len(caps), 64 * KB,
+                                  sum(caps), linked=False, out_caps=caps)
+    assert np.asarray(want[1]).tolist() == olen
+    j_flat = np.asarray(want[0]).astype(np.uint8).reshape(-1)
+    assert j_flat[:len(content)].tobytes() == content
+
+
+def test_a_payload_of_255s_does_not_fail_the_next_block():
+    """A difference from lz4_tpu, on purpose: after a block whose literal
+    extension runs to its end (a payload of 255s), lz4_tpu's stream kernel
+    also rejects the next, good block; blocks are independent, and the
+    port (serial walk, model and kernel alike) decodes it."""
+    _, payload, cap = ADVERSARIAL[0]
+    good = chip_smoke.long_match(20_000, b"\0")
+    flat, bstart, clen = _layout([payload, good])
+    _, olen = _spans_model(flat, bstart, clen, [0, 0], [cap, 20_000])
+    assert olen == [-1, 20_000]
+    want = jdec.decode_stream_raw(np.frombuffer(flat, np.uint8), bstart,
+                                  clen, [0, 0], 64 * KB, cap + 20_000,
+                                  linked=False, out_caps=[cap, 20_000])
+    assert np.asarray(want[1]).tolist() == [-1, -1]
+
+
+@pytest.mark.parametrize("n", [1 << 16, 1 << 18])
+def test_spans_model_work_is_linear_on_255s(n):
+    """A payload of 255s: every byte starts a literal extension that runs
+    to the block's end.  Run ends make each extension O(1), so the model's
+    loads (steps 2-4) stay within 4 + 4 per doubling round per byte, and
+    the walk takes one step; reading each extension byte by byte would
+    take n^2 / 2."""
+    stats = {}
+    payload = b"\xff" * n
+    _, olen = tdec.decode_stream_spans_plain(payload, [0], [n], [0], [n],
+                                             8, stats)
+    assert olen == [-1]
+    assert stats["reads"] <= (4 + 4 * 8) * n
+    assert stats["walk_steps"] == 1
+
+
+def test_spans_model_literal_run_past_int32():
+    """A literal run whose extension sums to 255 * 8,421,505 > 2^31 in one
+    8 MB block: next() sums in int64 and rejects it; so does the serial
+    walk."""
+    payload = chip_smoke.INT32_RUN
+    assert 255 * (len(payload) - 2) > 2 ** 31
+    cap = tdec.STREAM_BLOCK_CAP
+    assert len(payload) <= tdec.parse_limit(cap)
+    J, _ = tdec.next_plain(np.frombuffer(payload, np.uint8), cap)
+    assert J[0] == tdec.SEQ_FAIL
+    assert tdec.decode_stream_spans_plain(payload, [0], [len(payload)], [0],
+                                          [cap]) == (b"", [-1])
+    assert tdec.decode_block_plain(payload, len(payload), cap)[0] == -1
+
+
+def test_spans_model_sums_saturate(monkeypatch):
+    """With the 8 MB cap patched down to 1,000 bytes, the doubled sums
+    saturate at 1,001 and a block that outgrows its cap fails in the walk
+    as in the serial decoder; one within it decodes."""
+    monkeypatch.setattr(tdec, "STREAM_BLOCK_CAP", 1000)
+    data = sparse_data(5000, 71)
+    payloads = [compress_block(data), compress_block(data[:900])]
+    flat, bstart, clen = _layout(payloads)
+    _, olen = _spans_model(flat, bstart, clen, [0, 0], [1000, 1000],
+                           span_logs=(3, 5))
+    assert olen == [-1, 900]
+
+
+def test_parse_limit_holds_for_the_densest_blocks():
+    """A valid block's payload is never longer than parse_limit of its
+    output: literal-only blocks, 15-literal sequences with 4-byte matches,
+    3-byte sequences of 4-byte matches, and compressed noise and text."""
+    lit15 = chip_smoke.lz4_seq(b"q" * 15, 1, 4)
+    blocks = [chip_smoke.lz4_seq(b"x" * n) for n in (0, 1, 14, 15, 270,
+                                                     100_000)]
+    blocks += [b"".join([lit15] * 500) + chip_smoke.lz4_seq(b"e"),
+               chip_smoke.lz4_seq(b"a", 1, 4) + b"".join(
+                   [chip_smoke.lz4_seq(b"", 1, 4)] * 2000)
+               + chip_smoke.lz4_seq(b""),
+               compress_block(incompressible(70_000, 3)),
+               compress_block(sparse_data(70_000, 4))]
+    for blk in blocks:
+        r, out = tdec.decode_block_plain(blk, len(blk), 1 << 20)
+        assert r == len(out) >= 0
+        assert len(blk) <= tdec.parse_limit(r)
+
+
+def test_span_layout_bounds_the_scratch():
+    """Near STREAM_MAX_INPUT: 255 blocks of 8 MB caps with 8.4 MB payloads.
+    Every window holds at most PARSE_WINDOW bytes of parsed payload and
+    CELL_WINDOW of caps, or one block; the windows cover the blocks in
+    order; a payload past parse_limit is not parsed; slots bound the
+    spans; the scratch stays near 2 GiB, not 17 bytes per input byte."""
+    B = 255
+    cap = tdec.STREAM_BLOCK_CAP
+    clen = np.full(B, 8_400_000)
+    clen[7] = tdec.parse_limit(cap) + 1          # too long: not parsed
+    stored = np.zeros(B, np.int64)
+    stored[9] = 1
+    lay = tdec.span_layout(clen, np.full(B, cap), stored, tdec.SPAN_LOG)
+    w = lay["windows"]
+    assert w[0, 0] == 0 and w[-1, 1] == B and (w[1:, 0] == w[:-1, 1]).all()
+    assert lay["parsed"][7] == 0 and lay["parsed"][9] == 0
+    for b0, b1, P, slots, rounds, jy in w.tolist():
+        parsed = lay["parsed"][b0:b1]
+        assert P == parsed.sum()
+        assert P <= tdec.PARSE_WINDOW or (parsed > 0).sum() == 1
+        assert slots == sum(tdec.span_slots(p, tdec.SPAN_LOG)
+                            for p in parsed if p)
+        assert 1 <= rounds <= tdec.JUMP_ROUND_FLAGS and jy == cap // 4096
+    pmax = int(w[:, 2].max())
+    scratch = 17 * pmax + 4 * lay["cells"] + 8 * int(w[:, 3].max())
+    assert scratch < 2.2 * 2 ** 30 and lay["cells"] <= tdec.CELL_WINDOW
+
+
+def test_jump_rounds_bound_the_spans_chain():
+    """A 7-byte period decoded in spans of one sequence each (s = 0): the
+    references run back through every span to the first, and the model's
+    rounds (one link each, synchronous) still resolve them all within the
+    bound the card's rounds use; one round fewer would not."""
+    head = b"abcdefg"
+    payload = chip_smoke.lz4_seq(head, 7, 5) + b"".join(
+        [chip_smoke.lz4_seq(b"", 7, 7)] * 40) + chip_smoke.lz4_seq(b"")
+    flat, bstart, clen = _layout([payload])
+    n = 7 + 5 + 40 * 7
+    content, olen = _spans_model(flat, bstart, clen, [0], [n],
+                                 span_logs=(0,))
+    assert olen == [n] and content == (head * 50)[:n]
+    src = np.frombuffer(payload, np.uint8)
+    J, S = tdec.next_plain(src, n)
+    spans, r = tdec.checkpoints_plain(J, S, n)
+    cells = np.zeros(r, np.int64)
+    for k, (ip, base) in enumerate(spans):
+        stop = spans[k + 1][0] if k + 1 < len(spans) else None
+        got, c = tdec.decode_cells_plain(payload, len(payload), n - base,
+                                         base, ip, stop)
+        cells[base:base + got] = c
+    with pytest.raises(AssertionError, match="references left"):
+        tdec.jump_cells_plain(cells, tdec.jump_rounds(len(spans)) - 1)
+    assert tdec.jump_cells_plain(
+        cells, tdec.jump_rounds(len(spans) + 1)).tobytes() == content
