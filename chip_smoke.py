@@ -5,6 +5,7 @@
     python3 chip_smoke.py --encode-times ROOT   # kernels A and B of ROOT only
     python3 chip_smoke.py --destsize-times ROOT # kernels G and H of ROOT only
     python3 chip_smoke.py --decode-times ROOT   # kernels E, F, D of ROOT
+    python3 chip_smoke.py --hc-times ROOT       # kernels I and C of ROOT
 
 1. Checks for a card and prints its name and power limit.
 2. Builds the kernels from lz4_tpu_torch/csrc (nvcc, sm_90a).
@@ -17,7 +18,11 @@
    zeros, one 7-byte period, noise), both also in groups of a few rows
    (their scratch cut small), and
    the profiler splits A's, B's and C's time per kernel launch (A and B run
-   three: probe, walk, emit; C's wrapper syncs the host).  Kernel D's linked mode is held
+   three: probe, walk, emit; C two: its bookkeeping, then the copy).  Kernel
+   C is held on kernel A's 64-block chunk, a stored block with a padding
+   row and HC's 1,024-row group; its wrapper must make no host sync (under
+   torch.cuda.set_sync_debug_mode("error")), and a length past its row must
+   raise ValueError when the total is read and write nothing.  Kernel D's linked mode is held
    against its plain version on kernel A's 64-block chunk with and without
    its window, on a 64-block chain of one 7-byte period (every block refers
    into the one before it), on the chunk with a short block at index 20,
@@ -40,8 +45,11 @@
    against its plain version on small rows (text, zeros, noise, periods 2
    and 3, 13-, 12- and 0-byte rows, far repeats) at levels 1, 2, 9, 12 and
    16, on two mixed 64 KB rows at levels 9 and 16, and on sampled rows of
-   the corpus batch (1,024 rows of 64 KB) at level 9; its chain tables built
-   on the card must equal the CPU's; it is timed on the whole batch in
+   the corpus batch (1,024 rows of 64 KB) at level 9, each against both
+   its plain version (the CPU model of its rounds) and the serial walk over
+   the d48 chain table, and on the small text rows at storage offsets 1, 2
+   and 3; its tables (perm and slot: one stable sort per row) built on the
+   card must equal the CPU's; it is timed on the whole batch in
    three rounds, with the tables' time and peak memory beside it.  Kernel H
    (the destSize encoder) is held against its plain version on small rows
    (text, zeros, noise, mixed bytes, rows of 0, 12 and 13 bytes) at caps 1,
@@ -1394,6 +1402,83 @@ def decode_times(root: Path) -> int:
     return 0
 
 
+def hc_times(root: Path) -> int:
+    """``--hc-times ROOT``: kernels I and C of the tree at ROOT (this
+    checkout, or another one unpacked beside it), on the smoke's inputs:
+    I on the corpus as 1,024 rows of 64 KB at level 9 (median of three
+    launches) and on its first 64 rows at levels 3, 9 and 16 (median of
+    three), its tables' time and peak device memory (``hc_sorted_tables``,
+    or ``hc_tables`` in a tree without it), the payloads' ratio; C on
+    kernel A's main-path chunk (64 blocks) and on HC's 1,024-row group,
+    per call with its wrapper (CUDA events around 20 calls, so a host sync
+    in the wrapper counts) and its kernels alone (the profiler).  Prints
+    one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    from lz4_tpu_torch.kernels import build
+    from lz4_tpu_torch.kernels import encode_kernel as enc
+    from lz4_tpu_torch.kernels import hc_kernel as hck
+    from lz4_tpu_torch.kernels.pack_kernel import pack_frame_payloads
+
+    if not Path(hck.__file__).resolve().is_relative_to(root.resolve()):
+        raise SmokeFailure(f"imported {hck.__file__}, not from {root}")
+    build.kernels_lib()
+    cuda = torch.device("cuda")
+    corpus = real_text_corpus(CORPUS_BYTES)
+    nrows = len(corpus) // W
+    rows = torch.frombuffer(bytearray(corpus), dtype=torch.uint8).reshape(
+        nrows, W).to(cuda)
+    lens = torch.full((nrows,), W, dtype=torch.int32, device=cuda)
+    tables = getattr(hck, "hc_sorted_tables", None) or hck.hc_tables
+    res = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tabs = tables(rows)
+    torch.cuda.synchronize()
+    res["tables_peak_MiB"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    res["tables_ms"] = sorted(event_ms(lambda: tables(rows))[1]
+                              for _ in range(3))[1]
+
+    def head(t, k):
+        return [x[:k] for x in t] if isinstance(t, (tuple, list)) else t[:k]
+
+    out, olen = hck.hc_scan(rows, lens, tabs, 9)
+    res["ratio_level9"] = int(olen.sum()) / len(corpus)
+    res["I_rows1024_level9"] = sorted(event_ms(
+        lambda: hck.hc_scan(rows, lens, tabs, 9))[1] for _ in range(3))[1]
+    for level in SWEEP_LEVELS:
+        args = (rows[:64], lens[:64], head(tabs, 64), level)
+        res[f"ratio_rows64_level{level}"] = int(
+            hck.hc_scan(*args)[1].sum()) / (64 * W)
+        res[f"I_rows64_level{level}"] = sorted(
+            event_ms(lambda: hck.hc_scan(*args))[1] for _ in range(3))[1]
+    del tabs
+    card, _ = make_linked_case(enc, cuda, corpus[4 << 20:8 << 20],
+                               corpus[(4 << 20) - W:4 << 20], 8, zero=True)
+    a_out, a_olen = enc.scan_linked(*card)
+    packs = {"chunk": (a_out.reshape(64, -1), a_olen.reshape(64),
+                       card[0][0, W:65 * W].view(64, W),
+                       torch.full((64,), W, dtype=torch.int32, device=cuda)),
+             "hc_group": (out, olen, rows, lens)}
+    def calls(args, k):
+        for _ in range(k):      # each result freed before the next call
+            pack_frame_payloads(*args)
+
+    for what, args in packs.items():
+        pack_frame_payloads(*args)
+        res[f"C_{what}_wrapper_ms"] = event_ms(lambda: calls(args, 20))[1] / 20
+        res[f"C_{what}_kernel_ms"] = sum(device_ms(
+            lambda: pack_frame_payloads(*args)).values())
+    log(json.dumps({"hc_times": str(root), "device":
+                    torch.cuda.get_device_name(0), **res}))
+    return 0
+
+
 def event_ms(fn):
     """(fn's result, its CUDA-event ms)."""
     import torch
@@ -1649,6 +1734,52 @@ def destsize_phase(corpus: bytes, dev) -> dict:
     return out
 
 
+def compare_pack(cmp_rows, pack_kernel, what, k, p):
+    """Kernel C against its plain version: totals, stored flags and the
+    body's bytes."""
+    import torch
+
+    (kf, kt, ks), (pf, pt, ps) = k, p
+    kn, pn = pack_kernel.body_length(kt), pack_kernel.body_length(pt)
+    if kn != pn or not torch.equal(ks.cpu(), ps):
+        raise SmokeFailure(f"pack totals or stored flags differ ({what})")
+    cmp_rows("pack", what, kf[:kn].reshape(1, -1), torch.tensor([kn]),
+             pf[:pn].reshape(1, -1), torch.tensor([pn]))
+
+
+PACK_GUARD = 4096                  # bytes after flat that kernel C must not touch
+
+
+def pack_guard_check(build, comp, olen, src, blen) -> int:
+    """Kernel C's entry point on a fault, with a flat buffer followed by
+    PACK_GUARD guard bytes, all holding one pattern: afterwards the total
+    carries the fault flag and every byte still holds the pattern.
+    Returns the number of guard bytes."""
+    import torch
+
+    B, M = comp.shape
+    NS = src.shape[1]
+    size = B * (4 + max(M, NS))
+    dev = comp.device
+    arena = torch.full((size + PACK_GUARD,), 0xA5, dtype=torch.uint8,
+                       device=dev)
+    sizes = torch.empty((2, B), dtype=torch.int32, device=dev)
+    dst = torch.empty((B,), dtype=torch.int64, device=dev)
+    stored = torch.empty((B,), dtype=torch.bool, device=dev)
+    total = torch.empty((2,), dtype=torch.int64, device=dev)
+    err = build.kernels_lib().lz4tt_pack(
+        comp.data_ptr(), M, src.data_ptr(), src.stride(0), NS,
+        olen.data_ptr(), blen.data_ptr(), B, sizes[0].data_ptr(),
+        sizes[1].data_ptr(), dst.data_ptr(), stored.data_ptr(),
+        total.data_ptr(), arena.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch("pack", err)
+    torch.cuda.synchronize()
+    if int(total[1]) != 1 or not bool((arena == 0xA5).all()):
+        raise SmokeFailure("pack wrote bytes after a fault, or missed it")
+    return PACK_GUARD
+
+
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 rate (NVIDIA data sheet)
 
 
@@ -1668,6 +1799,7 @@ def main() -> int:
     from lz4_tpu_torch.kernels import destsize_kernel as dsk
     from lz4_tpu_torch.kernels import encode_kernel as enc
     from lz4_tpu_torch.kernels import hc_kernel as hck
+    from lz4_tpu_torch.kernels import pack_kernel
     from lz4_tpu_torch.kernels.pack_kernel import pack_frame_payloads
 
     smi = subprocess.run(
@@ -1831,22 +1963,31 @@ def main() -> int:
     # -- 3b. kernel C on kernel A's output ----------------------------------
     blocks_d = stream_d[0, W:65 * W].view(64, W)
     lens64 = torch.full((64,), W, dtype=torch.int32)
-    stats["pack"]["ms"] = time_card(lambda: pack_frame_payloads(
-        a_out.reshape(64, -1), a_olen.reshape(64), blocks_d, lens64.to(cuda)))
-    k_flat, k_total, k_stored = pack_frame_payloads(
-        a_out.reshape(64, -1), a_olen.reshape(64), blocks_d, lens64.to(cuda))
+    pack_args = (a_out.reshape(64, -1), a_olen.reshape(64), blocks_d,
+                 lens64.to(cuda))
+    # the wrapper on the card makes no host sync: under "error" any sync
+    # (a .item(), a blocking copy) raises
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k_flat, k_total, k_stored = pack_frame_payloads(*pack_args)
+    except RuntimeError as e:
+        raise SmokeFailure(f"pack_frame_payloads synced the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("[check] pack_frame_payloads on the card makes no host sync "
+        "(torch.cuda.set_sync_debug_mode('error'))")
+    stats["pack"]["ms"] = time_card(lambda: pack_frame_payloads(*pack_args))
     (p_flat, p_total, p_stored), stats["pack"]["plain_ms"] = time_host(
-        lambda: pack_frame_payloads(a_out.reshape(64, -1).cpu(),
-                                    a_olen.reshape(64).cpu(),
-                                    blocks_d.cpu(), lens64))
-    set_bound("pack", int(a_olen.sum()) + 2 * 4 * 64, int(k_total))
-    # "ms" above includes the wrapper's checks (a host sync); the kernel
-    # alone, from the profiler
-    stats["pack"]["kernel_ms"] = sum(device_ms(lambda: pack_frame_payloads(
-        a_out.reshape(64, -1), a_olen.reshape(64), blocks_d,
-        lens64.to(cuda))).values())
+        lambda: pack_frame_payloads(*[t.cpu() for t in pack_args]))
+    k_bytes = pack_kernel.body_length(k_total)
+    set_bound("pack", int(a_olen.sum()) + 2 * 4 * 64, k_bytes)
+    # "ms" above is the wrapper's time per call; the kernels alone, from
+    # the profiler
+    stats["pack"]["kernel_ms"] = sum(device_ms(
+        lambda: pack_frame_payloads(*pack_args)).values())
     log(f"[time] pack (kernel C), 64 blocks: {stats['pack']['ms']:.4f} ms "
-        f"with its wrapper, {stats['pack']['kernel_ms']:.4f} ms kernel "
+        f"with its wrapper, {stats['pack']['kernel_ms']:.4f} ms kernels "
         f"only")
     # a stored block and a padding row, too
     olen_mix = a_olen.reshape(64).clone()
@@ -1857,14 +1998,32 @@ def main() -> int:
                              lens_mix.to(cuda))
     p2 = pack_frame_payloads(a_out.reshape(64, -1).cpu(), olen_mix.cpu(),
                              blocks_d.cpu(), lens_mix)
-    for what, (kf, kt, ks), (pf, pt, ps) in (
-            ("64 blocks (main-path chunk)", (k_flat, k_total, k_stored),
-             (p_flat, p_total, p_stored)),
-            ("stored block + padding row", k2, p2)):
-        if int(kt) != int(pt) or not torch.equal(ks.cpu(), ps):
-            raise SmokeFailure(f"pack totals or stored flags differ ({what})")
-        cmp_rows("pack", what, kf[:int(kt)].reshape(1, -1), kt.reshape(1),
-                 pf[:int(pt)].reshape(1, -1), pt.reshape(1))
+    cmp_pack = functools.partial(compare_pack, cmp_rows, pack_kernel)
+    cmp_pack("64 blocks (main-path chunk)", (k_flat, k_total, k_stored),
+             (p_flat, p_total, p_stored))
+    cmp_pack("stored block + padding row", k2, p2)
+    # a fault: one olen past its row, in compressed rows cut to half a
+    # block (M < NS, so the block is not stored instead).  The call returns
+    # without a sync; reading the total raises, and nothing was written
+    # (the flat buffer and the guard bytes after it keep their pattern)
+    comp_half = a_out.reshape(64, -1)[:, :W // 2].contiguous()
+    olen_bad = a_olen.reshape(64).clamp(max=W // 2).to(cuda)
+    olen_bad[5] = W // 2 + 1
+    bad = pack_frame_payloads(comp_half, olen_bad, blocks_d, lens64.to(cuda))
+    for what, read in (("body_length", lambda: pack_kernel.body_length(
+            bad[1])), ("device._fetch_body", lambda: D._fetch_body(
+                bad[0], bad[1], False))):
+        try:
+            read()
+            raise SmokeFailure(f"pack: {what} took a length past its row")
+        except ValueError as e:
+            if "exceeds its row" not in str(e):
+                raise
+    guard = pack_guard_check(build, comp_half, olen_bad, blocks_d,
+                             lens64.to(cuda))
+    log(f"[check] pack fault (olen {int(olen_bad[5])} > M on block 5): "
+        f"ValueError when the total is read (body_length, "
+        f"device._fetch_body); flat and {guard} guard bytes untouched")
 
     # -- 3c. kernel D, linked mode ------------------------------------------
     win_d = stream_d[0, :W]
@@ -2317,20 +2476,40 @@ def main() -> int:
     del timed
 
     # -- 3h. kernel I: small cases, sampled corpus rows, times --------------
-    def cmp_tables(what, k_d48, rows_h):
-        """The chain table the card built equals the CPU's (stable sorts)."""
-        if not torch.equal(k_d48.cpu(), hck.hc_tables(rows_h)):
-            raise SmokeFailure(f"the HC chain table differs on the card "
-                               f"({what})")
+    def cmp_tables(what, k_tabs, rows_h):
+        """The tables the card built equal the CPU's (one stable sort)."""
+        for k_t, p_t in zip(k_tabs, hck.hc_sorted_tables(rows_h)):
+            if not torch.equal(k_t.cpu(), p_t):
+                raise SmokeFailure(f"the HC tables differ on the card "
+                                   f"({what})")
+
+    def cmp_hc(what, k, rows_h, lens_h, tabs_h, level):
+        """Kernel I's rows equal the round model's (its plain version) and
+        the serial walk's over the d48 table, at tolerance 0."""
+        cmp_rows("encode_hc", f"{what}, level {level}", *k,
+                 *hck.hc_scan(rows_h, lens_h, tabs_h, level))
+        cmp_rows("encode_hc", f"{what}, level {level}, serial walk", *k,
+                 *hck.hc_scan_serial(rows_h, lens_h, level))
 
     for what, blocks, width in hc_small_cases(corpus, mixed):
         rows_h, lens_h = D.byte_rows(blocks, width, "cpu")
-        d48 = hck.hc_tables(rows_h.to(cuda))
-        cmp_tables(what, d48, rows_h)
+        tabs = hck.hc_sorted_tables(rows_h.to(cuda))
+        cmp_tables(what, tabs, rows_h)
+        tabs_h = [t.cpu() for t in tabs]
         for level in HC_LEVELS if width == HC_SMALL_NS else (9, 16):
-            k = hck.hc_scan(rows_h.to(cuda), lens_h.to(cuda), d48, level)
-            p = hck.hc_scan(rows_h, lens_h, d48.cpu(), level)
-            cmp_rows("encode_hc", f"{what}, level {level}", *k, *p)
+            cmp_hc(what, hck.hc_scan(rows_h.to(cuda), lens_h.to(cuda), tabs,
+                                     level), rows_h, lens_h, tabs_h, level)
+        if width == HC_SMALL_NS:
+            # rows that start at any byte of their storage: kernel I reads
+            # them as aligned words
+            for off in (1, 2, 3):
+                store = torch.zeros(rows_h.numel() + 4, dtype=torch.uint8,
+                                    device=cuda)
+                view = store[off:off + rows_h.numel()].view(rows_h.shape)
+                view.copy_(rows_h.to(cuda))
+                cmp_hc(f"{what}, at storage offset {off}",
+                       hck.encode_blocks_hc(view, lens_h.to(cuda), 9),
+                       rows_h, lens_h, tabs_h, 9)
     # the corpus batch: 1,024 rows of 64 KB at level 9 (what -9 launches)
     nrows = len(corpus) // W
     hc_rows_h = torch.frombuffer(bytearray(corpus), dtype=torch.uint8) \
@@ -2340,44 +2519,63 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    hc_d48 = hck.hc_tables(hc_args[0])
+    hc_tabs = hck.hc_sorted_tables(hc_args[0])
     torch.cuda.synchronize()
     t_peak = torch.cuda.max_memory_allocated() - base
-    t_tab = time_card(lambda: hck.hc_tables(hc_args[0]), reps=2)
-    k = hck.hc_scan(*hc_args, hc_d48, 9)
+    t_tab = time_card(lambda: hck.hc_sorted_tables(hc_args[0]), reps=2)
+    k = hck.hc_scan(*hc_args, hc_tabs, 9)
     sample = sorted({round(i * (nrows - 1) / (HC_SAMPLE_ROWS - 1))
                      for i in range(HC_SAMPLE_ROWS)})
     idx = torch.tensor(sample)
-    cmp_tables(f"{len(sample)} sampled corpus rows", hc_d48[idx.to(cuda)],
-               hc_rows_h[idx].contiguous())
+    cmp_tables(f"{len(sample)} sampled corpus rows",
+               [t[idx.to(cuda)] for t in hc_tabs], hc_rows_h[idx].contiguous())
     p, hc_plain = time_host(lambda: hck.hc_scan(
         hc_rows_h[idx].contiguous(), hc_args[1][idx.to(cuda)].cpu(),
-        hc_d48[idx.to(cuda)].cpu(), 9))
+        [t[idx.to(cuda)].cpu() for t in hc_tabs], 9))
     cmp_rows("encode_hc", f"corpus rows {sample} of {nrows}, level 9",
              k[0][idx.to(cuda)], k[1][idx.to(cuda)], *p)
-    hc_ms = time_rounds(lambda: hck.hc_scan(*hc_args, hc_d48, 9))
+    cmp_rows("encode_hc", f"corpus rows {sample} of {nrows}, level 9, "
+             f"serial walk", k[0][idx.to(cuda)], k[1][idx.to(cuda)],
+             *hck.hc_scan_serial(hc_rows_h[idx].contiguous(),
+                                 hc_args[1][idx.to(cuda)].cpu(), 9))
+    hc_ms = time_rounds(lambda: hck.hc_scan(*hc_args, hc_tabs, 9))
     # kernel I on what the hc phase gives it: the batch of -9, and the first
     # SWEEP_BYTES of the corpus at each level of the sweep
     ns = SWEEP_BYTES // W
     hc_phase_ms = {"-9": sorted(hc_ms)[1], **{
         level: time_card(lambda: hck.hc_scan(
-            hc_args[0][:ns], hc_args[1][:ns], hc_d48[:ns], level), reps=2)
+            hc_args[0][:ns], hc_args[1][:ns], [t[:ns] for t in hc_tabs],
+            level), reps=2)
         for level in SWEEP_LEVELS}}
     stats["encode_hc"].update(
         ms=sorted(hc_ms)[1], ms_rounds=hc_ms, plain_ms=hc_plain,
         plain_rows=len(sample), table_ms=t_tab, table_peak_bytes=t_peak)
-    # rows and the chain table in; payloads and lengths out
-    set_bound("encode_hc", hc_args[0].numel() + 4 * (hc_d48.numel() + nrows),
-              int(k[1].sum()) + 4 * nrows)
+    # rows and the two 16-bit tables in; payloads and lengths out
+    set_bound("encode_hc", hc_args[0].numel() + 2 * (
+        hc_tabs[0].numel() + hc_tabs[1].numel()) + 4 * nrows,
+        int(k[1].sum()) + 4 * nrows)
     log(f"[time] encode_hc (kernel I), {nrows} rows of 64 KB, level 9: "
         f"rounds {[round(t, 3) for t in hc_ms]} ms "
         f"({len(corpus) / 1e3 / sorted(hc_ms)[1]:.1f} MB/s), ratio of the "
-        f"payloads {int(k[1].sum()) / len(corpus):.6f}; chain tables "
-        f"{t_tab:.3f} ms, {t_peak / 2**30:.2f} GiB peak; plain version "
-        f"{hc_plain:.1f} ms on {len(sample)} rows; on the first "
+        f"payloads {int(k[1].sum()) / len(corpus):.6f}; tables (perm, "
+        f"slot) {t_tab:.3f} ms, {t_peak / 2**30:.2f} GiB peak; plain "
+        f"version {hc_plain:.1f} ms on {len(sample)} rows; on the first "
         f"{SWEEP_BYTES >> 20} MiB at levels {SWEEP_LEVELS}: " + ", ".join(
             f"{hc_phase_ms[lv]:.3f}" for lv in SWEEP_LEVELS) + " ms")
-    del hc_rows_h, hc_args, hc_d48, k, p
+    # kernel C on HC's group: the 1,024 rows' payloads, stored blocks where
+    # they do not shrink
+    hc_pack = (k[0], k[1], hc_args[0], hc_args[1])
+    compare_pack(cmp_rows, pack_kernel, f"HC's group of {nrows} rows",
+                 pack_frame_payloads(*hc_pack),
+                 pack_frame_payloads(*[t.cpu() for t in hc_pack]))
+    stats["pack"]["ms_hc_group"] = time_card(
+        lambda: pack_frame_payloads(*hc_pack))
+    stats["pack"]["kernel_ms_hc_group"] = sum(device_ms(
+        lambda: pack_frame_payloads(*hc_pack)).values())
+    log(f"[time] pack (kernel C), HC's group of {nrows} rows: "
+        f"{stats['pack']['ms_hc_group']:.4f} ms with its wrapper, "
+        f"{stats['pack']['kernel_ms_hc_group']:.4f} ms kernels only")
+    del hc_rows_h, hc_args, hc_tabs, hc_pack, k, p
 
     # -- 3i. kernels H, J, K and D resumable: small cases, sampled rows, times
     def cmp_third(kernel, what, k, p):
@@ -2740,4 +2938,6 @@ if __name__ == "__main__":
         sys.exit(destsize_times(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--decode-times"] and len(sys.argv) == 3:
         sys.exit(decode_times(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--hc-times"] and len(sys.argv) == 3:
+        sys.exit(hc_times(Path(sys.argv[2])))
     sys.exit(main())

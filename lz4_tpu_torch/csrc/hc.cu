@@ -1,27 +1,47 @@
 // High-compression (HC) block encoder: kernel I.
 //
 // Replaces the Pallas kernel of lz4_tpu/kernels/hc_kernel.py,
-// _make_hc_kernel (launched by _encode_blocks_hc): one independent block of
-// at most 64 KB per row, a match finder over precomputed 4-byte and 8-byte
-// candidate chains (the d48 table of cand_delta48_rows: low 16 bits the
-// 4-byte chain's delta, high 16 the 8-byte chain's), at most max_attempts
-// candidates per position, a lossless beat-gate, the switch to the 8-byte
-// chain once the best score reaches 8 + p - anchor, the stop at
-// SUFFICIENT_LEN, and an iterative one-step lazy parse.  The parse is the
-// same decision for decision, so payloads are bit-identical to the JAX
-// package's.  Output goes through emit.cuh.
+// _make_hc_kernel (launched by _encode_blocks_hc, hc_kernel.py:329): one
+// independent block of at most 64 KB per row, a match finder over the
+// 4-byte and 8-byte candidate chains, at most max_attempts candidates per
+// position, a lossless beat gate, the switch to the 8-byte chain once the
+// best score reaches 8 + p - anchor, the stop at SUFFICIENT_LEN, and an
+// iterative one-step lazy parse.  The parse is the same decision for
+// decision, so payloads are bit-identical to the JAX package's.  Output
+// goes through emit.cuh.
 //
-// What bounds it on the card: dependent loads along the chain walk.  Each
-// candidate costs a load of its delta (to find the next candidate), then the
-// beat-gate word at the best frontier, then, if the gate passes, the
-// extension; each address depends on the load before it, and a chain hops
-// backwards anywhere in the 64 KB row, so the walk runs at L1/L2 (or HBM)
-// latency, not at any bandwidth.  The design runs many walks at once: the
-// chains come from a sort done beforehand (no hash table, no chain upkeep,
-// no stores in the walk), every row is independent, and each row gets its
-// own warp so that the rows spread over all SMs (1,024 rows of 64 KB hold
-// about 8 warps on each of the 132 SMs).  Lane 0 walks; the source is read
-// as bytes from [0, n) and LE32 words are built in registers.
+// The chains come from one stable sort of each row's LE32 keys
+// (kernels/hc_kernel.py hc_sorted_tables: perm, the positions in key order,
+// and slot, its inverse, both 16-bit).  The 4-byte chain of p is the run of
+// equal keys just before slot[p], newest first, so a warp reads 32
+// candidates with one load and chases no pointer; the 8-byte chain is that
+// run filtered on bytes 4..7.
+//
+// What bounds it on the card: the latency of the serial walk.  The TPU
+// kernel, and this kernel before, walked a chain one dependent load per
+// candidate with one thread.  Here a search runs in rounds of 32
+// candidates, one a lane, the next round's candidates loaded while a round
+// runs: every lane loads its candidate's words and scores it (forward plus
+// backward run) unless the beat gate, against the best at the round's
+// start, shows it cannot win.  Ballots, popcounts and a warp maximum then
+// make the serial walk's decisions (the switch lane, the lanes visited
+// after it, the lane where the budget or SUFFICIENT_LEN stops the walk,
+// the first lane that holds the final maximum).  A search takes about
+// three rounds at level 9 instead of about seventy dependent steps.  Every
+// search between two taken matches has the same anchor, so a CTA of P
+// warps searches P consecutive positions at once; the lazy parse reads
+// their results in order (every thread makes the same decisions from
+// shared memory), and warp 0 writes each sequence with its 32 lanes.  The
+// take needs no loads: the hit's backward run is the one its search
+// counted.  Words are read as two aligned words and a funnel shift,
+// through L1 (a row may start at any address).  P and a row staged in
+// shared memory (three CTAs per SM) were measured with chip_smoke.py
+// --hc-times (PERF.md): P = 2 is within a few per cent of P = 1 on 1,024
+// rows at level 9 and faster on few rows at low levels; P = 4 and the
+// staged row are slower on 1,024 rows.
+// Each round is still a chain of dependent steps (table, words, gate,
+// extension, ballots), about 0.6 us.  kernels/hc_kernel.py
+// hc_row_rounds_plain models the rounds on the CPU.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,11 +49,72 @@
 
 namespace {
 
+constexpr int P = 2;  // search warps of a row's CTA
+constexpr int WARP = 32;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int SUFFICIENT_LEN = 64;
 
-__device__ __forceinline__ uint32_t le32(const uint8_t* p) {
-  return (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) |
-         ((uint32_t)p[3] << 24);
+// A row read as aligned words: w is the word that holds the row's byte 0,
+// at byte off of it.
+struct Row {
+  const uint32_t* w;
+  int off;
+};
+
+// The LE32 word of bytes pos..pos+3, from the two aligned words that hold
+// them.  Every caller keeps pos <= n - 5, so the second word starts at a
+// byte of the row (pos + 4 at the latest) and every word read holds one.
+__device__ __forceinline__ uint32_t ld32(Row r, int pos) {
+  pos += r.off;
+  const int i = pos >> 2;
+  return __funnelshift_r(r.w[i], r.w[i + 1], (uint32_t)(pos & 3) * 8);
+}
+
+__device__ __forceinline__ int byte_at(Row r, int pos) {
+  pos += r.off;
+  return (int)((r.w[pos >> 2] >> ((pos & 3) * 8)) & 0xFFu);
+}
+
+// The equal low bytes of two words, from their XOR (4 when they are
+// equal).
+__device__ __forceinline__ int low_run(uint32_t diff) {
+  return diff ? (__ffs(diff) - 1) >> 3 : 4;
+}
+
+// Forward match length of (c, p), the first 4 bytes known equal, capped at
+// matchlimit - p; 8 bytes a step.  Every word read ends below
+// matchlimit + 4 = n - 1.
+__device__ __forceinline__ int extend(Row w, int c, int p,
+                                      int matchlimit) {
+  int ml = 4;
+  while (p + ml + 8 <= matchlimit) {
+    const uint32_t d0 = ld32(w, c + ml) ^ ld32(w, p + ml);
+    const uint32_t d1 = ld32(w, c + ml + 4) ^ ld32(w, p + ml + 4);
+    if (d0 | d1) return ml + (d0 ? low_run(d0) : 4 + low_run(d1));
+    ml += 8;
+  }
+  if (p + ml + 4 <= matchlimit && ld32(w, c + ml) == ld32(w, p + ml))
+    ml += 4;
+  return min(ml + min(low_run(ld32(w, c + ml) ^ ld32(w, p + ml)), 3),
+             matchlimit - p);
+}
+
+// Backward run of (c, p): equal bytes before both, at most lim.
+__device__ __forceinline__ int back_run(Row w, int c, int p,
+                                        int lim) {
+  int k = 0;
+  while (k + 4 <= lim) {
+    const uint32_t d = ld32(w, p - k - 4) ^ ld32(w, c - k - 4);
+    if (d) return k + (__clz(d) >> 3);
+    k += 4;
+  }
+  while (k < lim && byte_at(w, p - k - 1) == byte_at(w, c - k - 1)) ++k;
+  return k;
+}
+
+// The lanes from the lowest set lane of `m` up (none when m is 0).
+__device__ __forceinline__ unsigned from_first(unsigned m) {
+  return m ? ~((m & (~m + 1u)) - 1u) : 0u;
 }
 
 struct Hit {
@@ -42,117 +123,155 @@ struct Hit {
   int pos;    // candidate position
 };
 
-// Forward match length of (q, p), the first 4 bytes known equal; 8 and 4
-// bytes at a time, then a <4-byte tail, capped at matchlimit - p.  Every
-// byte read lies below matchlimit + 3 = n - 2.
-__device__ __forceinline__ int extend(const uint8_t* buf, int q, int p,
-                                      int matchlimit) {
-  int ml = 4;
-  while (p + ml + 8 <= matchlimit &&
-         le32(buf + q + ml) == le32(buf + p + ml) &&
-         le32(buf + q + ml + 4) == le32(buf + p + ml + 4))
-    ml += 8;
-  if (p + ml + 4 <= matchlimit && le32(buf + q + ml) == le32(buf + p + ml))
-    ml += 4;
-  const uint32_t diff = le32(buf + q + ml) ^ le32(buf + p + ml);
-  const int tail = ((diff & 0xFFu) == 0) + ((diff & 0xFFFFu) == 0) +
-                   ((diff & 0xFFFFFFu) == 0);
-  return min(ml + tail, matchlimit - p);
-}
-
-// Walk p's chain for the widest match.
-__device__ Hit search(const uint8_t* buf, const int32_t* d, int p, int anchor,
-                      int matchlimit, int max_attempts) {
-  const int d0 = d[p] & 0xFFFF;
-  int cand = d0 > 0 ? p - d0 : p;  // p = stop sentinel
-  const uint32_t vp4 = le32(buf + p + 4);
-  const int tier8 = 8 + p - anchor;
-  const int gmax = matchlimit - p - 1;
-  Hit best = {0, 0, 0};
-  for (int att = max_attempts; att > 0 && best.score < SUFFICIENT_LEN &&
-                               cand >= 0 && cand < p && p - cand <= 65535;
-       --att) {
-    // beat-gate: the candidate can exceed the best score only if its bytes
-    // still agree at the best frontier (clamped below matchlimit) or it can
-    // extend backward
-    const int g = min(max(best.score - 3, 0), gmax);
-    if (le32(buf + cand + g) == le32(buf + p + g) ||
-        (p > anchor && cand > 0 && buf[cand - 1] == buf[p - 1])) {
-      const int fwd = extend(buf, cand, p, matchlimit);
-      int back = 0;
-      while (p - back > anchor && cand - back > 0 &&
-             buf[p - back - 1] == buf[cand - back - 1])
-        ++back;
-      if (fwd + back > best.score) best = {fwd + back, fwd, cand};
+// The widest match at p, searched by one warp (every lane returns it).
+// s0 = slot[p]: the candidates are perm[s0 - 1], perm[s0 - 2], ... while
+// they lie before p and share its 4 bytes.
+__device__ Hit search(Row w, const uint16_t* perm, int s0, int p,
+                      int anchor, int matchlimit, int max_attempts,
+                      int lane) {
+  const uint32_t vp = ld32(w, p), vp4 = ld32(w, p + 4);
+  const int before = p > anchor ? byte_at(w, p - 1) : -1;
+  const int tier8 = 8 + p - anchor, gmax = matchlimit - p - 1;
+  const unsigned below = (2u << lane) - 1u;  // lanes 0..lane
+  int bs = 0, bf = 0, bpos = 0, att = max_attempts;
+  bool switched = false;
+  int held = s0 - 1 - lane >= 0 ? (int)perm[s0 - 1 - lane] : p;
+  for (int base = s0 - 1;; base -= WARP) {
+    const int idx = base - lane;
+    int c = held;
+    // the next round's candidates, loaded while this round runs
+    held = idx - WARP >= 0 ? (int)perm[idx - WARP] : p;
+    // a lane past the run reads at p and drops what it reads
+    bool valid = c < p;
+    c = valid ? c : p;
+    const uint32_t vc = ld32(w, c), vc4 = ld32(w, c + 4);
+    const int g = min(max(bs - 3, 0), gmax);
+    const uint32_t gc = ld32(w, c + g), gp = ld32(w, p + g);
+    const int cb = byte_at(w, max(c - 1, 0));
+    valid = valid && vc == vp;
+    const bool m8 = valid && vc4 == vp4;
+    int score = 0, fwd = 0;
+    if (valid && (gc == gp || (c > 0 && cb == before))) {
+      fwd = extend(w, c, p, matchlimit);
+      score = fwd + back_run(w, c, p, min(p - anchor, c));
     }
-    const int pair = d[cand];
-    const bool use8 =
-        best.score >= tier8 && le32(buf + cand + 4) == vp4;
-    const int step = use8 ? (pair >> 16) & 0xFFFF : pair & 0xFFFF;
-    cand = step > 0 ? cand - step : p;  // delta 0 ends the chain
+    // The best after lane i reaches a threshold T from the first lane
+    // whose score reaches T on (every lane, when the best before the round
+    // does), so the serial walk's tests are ballots, not a prefix maximum.
+    const unsigned vmask = __ballot_sync(FULL, valid);  // a prefix of lanes
+    const unsigned m8mask = __ballot_sync(FULL, m8);
+    const unsigned reach8 =
+        bs >= tier8 ? FULL : from_first(__ballot_sync(FULL, score >= tier8));
+    const unsigned reach64 =
+        from_first(__ballot_sync(FULL, score >= SUFFICIENT_LEN));
+    const unsigned swmask = m8mask & reach8;  // possible switch lanes
+    unsigned visit = vmask;
+    if (switched) {
+      visit = m8mask;  // the 8-byte chain: the run filtered on bytes 4..7
+    } else if (swmask) {
+      const unsigned upto = (2u << (__ffs(swmask) - 1)) - 1u;
+      visit = (vmask & upto) | (m8mask & ~upto);
+    }
+    const bool vis = (visit >> lane) & 1u;
+    const unsigned stop =
+        (visit & reach64) |
+        __ballot_sync(FULL, vis && __popc(visit & below) == att);
+    const int last = stop ? __ffs(stop) - 1 : WARP - 1;
+    const int fin =
+        max(bs, (int)__reduce_max_sync(FULL, lane <= last ? score : 0));
+    if (fin > bs) {  // the first lane that holds the final maximum
+      const int j =
+          __ffs(__ballot_sync(FULL, score == fin && lane <= last)) - 1;
+      bf = __shfl_sync(FULL, fwd, j);
+      bpos = __shfl_sync(FULL, c, j);
+      bs = fin;
+    }
+    if (stop || vmask != FULL) break;
+    att -= __popc(visit);
+    switched = switched || swmask != 0;
   }
-  return best;
+  return {bs, bf, bpos};
 }
 
-// One row's parse into `out`; returns the bytes written.
-__device__ int parse_row(const uint8_t* buf, const int32_t* d, int n,
-                         int max_attempts, uint8_t* out) {
+// Kernel I: one CTA of P warps per independent row.
+__global__ void __launch_bounds__(P* WARP)
+    encode_hc_kernel(const uint8_t* src, int NS, const uint16_t* perm,
+                     const uint16_t* slot, const int32_t* slen, uint8_t* out,
+                     int M, int32_t* olen, int max_attempts) {
+  __shared__ Hit res[2][P];
+  const int row = blockIdx.x, warp = threadIdx.x / WARP,
+            lane = threadIdx.x % WARP;
+  const int n = min(max(slen[row], 0), NS);
+  const uint8_t* buf = src + (long long)row * NS;
+  const int off = (int)((uintptr_t)buf & 3);
+  const Row w = {(const uint32_t*)(buf - off), off};
+  const uint16_t* pr = perm + (long long)row * NS;
+  const uint16_t* sl = slot + (long long)row * NS;
+  uint8_t* o = out + (long long)row * M;
   int op = 0, anchor = 0;
   if (n >= 13) {
-    const int mflimit = n - 12;
-    const int matchlimit = n - 5;
-    int ip = 0;
-    while (ip <= mflimit) {
-      Hit h = search(buf, d, ip, anchor, matchlimit, max_attempts);
-      if (h.score < 4) {
-        ++ip;
-        continue;
+    const int mflimit = n - 12, matchlimit = n - 5;
+    int ip = 0, cur = 0, t = 0;
+    bool has = false;  // a match found at cur, waiting on the lazy test
+    Hit pend = {0, 0, 0};
+    while (true) {
+      const int q0 = has ? cur + 1 : ip;
+      bool took = q0 > mflimit;
+      if (!took) {
+        const int q = q0 + warp;
+        if (q <= mflimit) {
+          const Hit h = search(w, pr, sl[q], q, anchor, matchlimit,
+                               max_attempts, lane);
+          if (lane == 0) res[t][warp] = h;
+        }
+        __syncthreads();
+        // every thread reads the results in order and decides alike
+        const int nq = min(P, mflimit - q0 + 1);
+        for (int k = 0; k < nq; ++k) {
+          const Hit h = res[t][k];
+          if (!has) {
+            if (h.score < 4) {
+              ip = q0 + k + 1;
+              continue;
+            }
+            has = true;
+          } else if (h.score <= pend.score) {
+            took = true;
+            break;
+          }
+          pend = h;
+          cur = q0 + k;
+        }
+        t ^= 1;  // the next batch writes the other buffer
       }
-      // lazy: defer while the next position yields a strictly wider match
-      int cur = ip;
-      while (cur + 1 <= mflimit) {
-        const Hit h2 = search(buf, d, cur + 1, anchor, matchlimit,
-                              max_attempts);
-        if (h2.score <= h.score) break;
-        h = h2;
-        ++cur;
+      if (took) {
+        if (!has) break;
+        // the hit's backward run is its score less its forward length
+        const int mp = cur - (pend.score - pend.fwd);
+        if (warp == 0)
+          lz4tt::warp_emit_seq(o, op, buf + anchor, mp - anchor,
+                               cur - pend.pos, pend.score - 4, lane);
+        op += lz4tt::seq_size(mp - anchor, pend.score - 4);
+        ip = anchor = mp + pend.score;
+        has = false;
       }
-      // take the match at cur, extended backward from there
-      int mp = cur, q = h.pos;
-      while (mp > anchor && q > 0 && buf[mp - 1] == buf[q - 1]) {
-        --mp;
-        --q;
-      }
-      const int ml = h.fwd + (cur - mp);
-      op = lz4tt::emit_seq(out, op, buf + anchor, mp - anchor, cur - h.pos,
-                           ml - 4);
-      ip = anchor = mp + ml;
     }
   }
-  return lz4tt::emit_final(out, op, buf + anchor, n - anchor);
-}
-
-// Kernel I: one warp per independent row; lane 0 parses.
-__global__ void encode_hc_kernel(const uint8_t* src, int NS,
-                                 const int32_t* d48, const int32_t* slen,
-                                 uint8_t* out, int M, int32_t* olen,
-                                 int max_attempts) {
-  if (threadIdx.x != 0) return;
-  const int row = blockIdx.x;
-  const int n = min(max(slen[row], 0), NS);
-  olen[row] = parse_row(src + (long long)row * NS,
-                        d48 + (long long)row * NS, n, max_attempts,
-                        out + (long long)row * M);
+  if (warp == 0) {
+    lz4tt::warp_emit_final(o, op, buf + anchor, n - anchor, lane);
+    if (lane == 0) olen[row] = op + lz4tt::final_run_size(n - anchor);
+  }
 }
 
 }  // namespace
 
 extern "C" int lz4tt_encode_hc(const uint8_t* src, int NS,
-                               const int32_t* d48, const int32_t* slen,
-                               uint8_t* out, int M, int32_t* olen, int B,
-                               int max_attempts, void* cuda_stream) {
+                               const uint16_t* perm, const uint16_t* slot,
+                               const int32_t* slen, uint8_t* out, int M,
+                               int32_t* olen, int B, int max_attempts,
+                               void* cuda_stream) {
   if (B > 0)
-    encode_hc_kernel<<<B, 32, 0, (cudaStream_t)cuda_stream>>>(
-        src, NS, d48, slen, out, M, olen, max_attempts);
+    encode_hc_kernel<<<B, P * WARP, 0, (cudaStream_t)cuda_stream>>>(
+        src, NS, perm, slot, slen, out, M, olen, max_attempts);
   return (int)cudaGetLastError();
 }

@@ -52,7 +52,7 @@ from .kernels.decode_kernel import (StreamEnvelopeError, decode_blocks,
                                     decode_blocks_linked, decode_stream_raw)
 from .kernels.encode_kernel import encode_blocks, encode_blocks_linked
 from .kernels.hc_kernel import encode_blocks_hc
-from .kernels.pack_kernel import pack_frame_payloads
+from .kernels.pack_kernel import body_length, pack_frame_payloads
 from .ops.xxhash import XXH32State, xxh32
 
 BLOCK = 65536  # device-path block granularity
@@ -64,8 +64,9 @@ DEC_GROUP_BLOCKS = 64
 
 CHUNK = 4 << 20          # DeviceFrameCompressor chunk of compress_frame_device
 CHUNKED_ABOVE = 8 << 20  # inputs larger than this are compressed in chunks
-HC_GROUP_ROWS = 1024     # 64 MiB of blocks per launch of kernel I (bounds
-                         # the chain tables' sort temporaries to a few GB)
+HC_GROUP_ROWS = 1024     # 64 MiB of blocks per launch of kernel I (rows,
+                         # 16-bit tables and output: about 0.4 GB; the
+                         # tables' sort peaks at 0.63 GiB per group)
 
 
 class DeviceLayoutUnsupported(Lz4FrameError):
@@ -158,8 +159,9 @@ def _block_view(stream: torch.Tensor, nb: int) -> torch.Tensor:
 
 def _fetch_body(flat: torch.Tensor, total, block_checksum: bool) -> bytes:
     """The body kernel C packed, as bytes; with block checksums, the XXH32
-    of each record's payload is inserted after the record."""
-    body = to_host(flat[:int(total)]).tobytes()
+    of each record's payload is inserted after the record.  Reading the
+    total raises ValueError if kernel C found a length outside its row."""
+    body = to_host(flat[:body_length(total)]).tobytes()
     if not block_checksum:
         return body
     parts, pos = [], 0

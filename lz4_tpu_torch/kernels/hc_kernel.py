@@ -4,25 +4,39 @@ Counterpart of ``lz4_tpu/kernels/hc_kernel.py``.  The parse is the JAX
 package's, decision for decision, so payloads are bit-identical to
 ``lz4_tpu``'s:
 
-* ``cand_delta48_rows`` builds both candidate chains by sorting: lane p's low
-  16 bits hold the distance to the nearest earlier position with the same 4
-  bytes, its high 16 bits the same for the same 8 bytes (0 when there is
-  none within 65535).  Walking ``p - d[p] - d[.] - ...`` lists every earlier
-  4-byte match, newest first, with no hash table.
+* ``cand_delta48_rows`` builds both candidate chains by sorting, as the
+  JAX package does: lane p's low 16 bits hold the distance to the nearest
+  earlier position with the same 4 bytes, its high 16 bits the same for the
+  same 8 bytes (0 when there is none within 65535).  Walking
+  ``p - d[p] - d[.] - ...`` lists every earlier 4-byte match, newest first,
+  with no hash table.
 * The scan walks a position's chain for the widest match (forward plus
   backward length), at most ``1 << (level - 1)`` candidates.  A candidate is
   extended only if it can beat the best so far (its bytes still agree at the
   best frontier, or it can extend backward); once the best reaches
   ``8 + p - anchor`` the walk steps the 8-byte chain; it stops at
   ``SUFFICIENT_LEN``.  A match is deferred while the next position yields a
-  strictly wider one (an iterative one-step lazy parse).
+  strictly wider one (an iterative one-step lazy parse).  ``_hc_row_plain``
+  is that walk over the d48 table, step by step.
 
-``hc_scan`` launches ``csrc/hc.cu`` for tensors on the card and runs the
-plain Python parse below for tensors on the CPU; ``encode_blocks_hc`` builds
-the table and calls it.
+Kernel I reads the chains from one stable sort instead
+(``hc_sorted_tables``): the 4-byte chain of p is the run of equal keys just
+before p's slot in the sorted order, newest first, so a warp reads 32
+candidates with one load; the 8-byte chain is that run filtered on bytes
+4..7.  A round of 32 candidates makes the walk's decisions with ballots,
+popcounts and a warp maximum, and P consecutive positions are searched at
+once (every search between two taken matches has the same anchor).
+``hc_row_rounds_plain`` models that decomposition on the CPU.
+
+``hc_scan`` launches ``csrc/hc.cu`` for tensors on the card and runs
+``hc_row_rounds_plain`` for tensors on the CPU; ``encode_blocks_hc`` builds
+the tables and calls it.
 """
 
 from __future__ import annotations
+
+import collections
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,6 +49,9 @@ from .encode_kernel import (_common_run, _emit_final, _emit_seq, _fill_rows,
 MAX_BLOCK = 1 << 16           # one independent 64 KB block per row
 DEFAULT_LEVEL = 9
 SUFFICIENT_LEN = 64           # the walk stops once the best score reaches it
+LANES = 32                    # candidates per round: a warp's lanes
+POSITIONS = 2                 # positions searched at once (P in csrc/hc.cu)
+TABLE_ROWS = 128              # rows per sort in hc_sorted_tables
 
 
 def _chain_deltas(keys: torch.Tensor) -> torch.Tensor:
@@ -62,10 +79,45 @@ def cand_delta48_rows(val: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
+def _val32_rows(rows: torch.Tensor) -> torch.Tensor:
+    """val32 lanes of [B, NS] uint8 rows, wrapping at the row end as in the
+    JAX package."""
+    return le32_lanes(torch.cat([rows, rows[:, :3]], 1))
+
+
 def hc_tables(rows: torch.Tensor) -> torch.Tensor:
-    """The chain table of kernel I for [B, NS] uint8 rows (val32 lanes wrap
-    at the row end, as in the JAX package)."""
-    return cand_delta48_rows(le32_lanes(torch.cat([rows, rows[:, :3]], 1)))
+    """The d48 chain table of [B, NS] uint8 rows (``cand_delta48_rows``),
+    which ``_hc_row_plain`` walks."""
+    return cand_delta48_rows(_val32_rows(rows))
+
+
+def _u16(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 65535] -> int16 with the same 16 bits."""
+    return (t - ((t >> 15) << 16)).to(torch.int16)
+
+
+def hc_sorted_tables(rows: torch.Tensor):
+    """Kernel I's tables for [B, NS] uint8 rows: ``(perm, slot)``, both
+    [B, NS] int16 holding unsigned 16-bit positions (NS <= 65536).
+
+    ``perm[b]`` is one stable sort of row b's val32 lanes (wrapping at the
+    row end): the positions in key order, equal keys in position order.
+    ``slot[b]`` is its inverse.  The 4-byte chain of p is
+    ``perm[slot[p] - 1], perm[slot[p] - 2], ...`` for as long as the key
+    equals p's.  Rows are sorted TABLE_ROWS at a time, which bounds the
+    sort's temporaries."""
+    B, NS = rows.shape
+    dev = rows.device
+    perm = torch.empty((B, NS), dtype=torch.int16, device=dev)
+    slot = torch.empty((B, NS), dtype=torch.int16, device=dev)
+    for g in range(0, B, TABLE_ROWS):
+        r = rows[g:g + TABLE_ROWS]
+        _, p = torch.sort(_val32_rows(r), dim=1, stable=True)
+        pos = torch.arange(NS, device=dev).expand_as(p)
+        perm[g:g + TABLE_ROWS] = _u16(p)
+        slot[g:g + TABLE_ROWS] = _u16(torch.empty_like(p).scatter_(1, p,
+                                                                   pos))
+    return perm, slot
 
 
 def encode_blocks_hc(rows: torch.Tensor, src_lens: torch.Tensor,
@@ -83,7 +135,7 @@ def encode_blocks_hc(rows: torch.Tensor, src_lens: torch.Tensor,
     length 0 still gets its one-byte block.
     """
     _check_rows(rows, src_lens)
-    return _scan(rows, src_lens, hc_tables(rows), level)
+    return _scan(rows, src_lens, hc_sorted_tables(rows), level)
 
 
 def _check_rows(rows, src_lens) -> None:
@@ -98,55 +150,59 @@ def _check_rows(rows, src_lens) -> None:
         raise ValueError("src_lens must be [B]")
 
 
-def hc_scan(rows: torch.Tensor, src_lens: torch.Tensor, d48: torch.Tensor,
+def hc_scan(rows: torch.Tensor, src_lens: torch.Tensor, tables,
             level: int = DEFAULT_LEVEL):
-    """Kernel I proper: the parse of ``encode_blocks_hc`` over a table from
-    ``hc_tables``.  Launches csrc/hc.cu for tensors on the card, runs the
-    plain parse for tensors on the CPU."""
+    """Kernel I proper: the parse of ``encode_blocks_hc`` over the
+    ``(perm, slot)`` tables of ``hc_sorted_tables``.  Launches csrc/hc.cu
+    for tensors on the card, runs ``hc_row_rounds_plain`` for tensors on the
+    CPU."""
     _check_rows(rows, src_lens)
-    check(d48, "d48", torch.int32, 2)
-    if d48.shape != rows.shape:
-        raise ValueError("d48 must be [B, NS]")
-    return _scan(rows, src_lens, d48, level)
+    perm, slot = tables
+    check(perm, "perm", torch.int16, 2)
+    check(slot, "slot", torch.int16, 2)
+    if perm.shape != rows.shape or slot.shape != rows.shape:
+        raise ValueError("perm and slot must be [B, NS]")
+    return _scan(rows, src_lens, (perm, slot), level)
 
 
-def _scan(rows, src_lens, d48, level):
+def _scan(rows, src_lens, tables, level):
     """hc_scan on checked arguments."""
+    perm, slot = tables
     B, NS = rows.shape
     M = out_width(NS)
     max_attempts = 1 << (max(1, min(int(level), 16)) - 1)
-    if not use_kernel(rows, src_lens, d48):
+    if not use_kernel(rows, src_lens, perm, slot):
         PLAIN_CALLS["encode_hc"] += 1
         out = torch.zeros((B, M), dtype=torch.uint8)
         olen = torch.zeros((B,), dtype=torch.int32)
         lens = src_lens.tolist()
         _fill_rows(out, olen, [
-            _hc_row_plain(rows[b].numpy().tobytes(),
-                          min(max(lens[b], 0), NS), d48[b].numpy(),
-                          max_attempts) for b in range(B)])
+            hc_row_rounds_plain(rows[b].numpy().tobytes(),
+                                min(max(lens[b], 0), NS), perm[b].numpy(),
+                                slot[b].numpy(), max_attempts)
+            for b in range(B)])
         return out, olen
     out = torch.empty((B, M), dtype=torch.uint8, device=rows.device)
     olen = torch.empty((B,), dtype=torch.int32, device=rows.device)
     err = build.kernels_lib().lz4tt_encode_hc(
-        rows.data_ptr(), NS, d48.data_ptr(), src_lens.data_ptr(),
-        out.data_ptr(), M, olen.data_ptr(), B, max_attempts,
-        torch.cuda.current_stream(rows.device).cuda_stream)
+        rows.data_ptr(), NS, perm.data_ptr(), slot.data_ptr(),
+        src_lens.data_ptr(), out.data_ptr(), M, olen.data_ptr(), B,
+        max_attempts, torch.cuda.current_stream(rows.device).cuda_stream)
     build.check_launch("encode_hc", err)
     LAUNCHES["encode_hc"] += 1
     return out, olen
 
 
 # ---------------------------------------------------------------------------
-# plain version of the parse (CPU tensors)
+# plain versions of the parse (CPU tensors)
 # ---------------------------------------------------------------------------
 
 def _hc_row_plain(buf: bytes, n: int, d48: np.ndarray,
                   max_attempts: int) -> bytearray:
-    """One row's HC parse; the same decisions as csrc/hc.cu and the JAX
-    kernel.  ``d48`` is the row's chain table.  Forward lengths come from
-    byte runs instead of the kernels' words and XOR tail; every candidate
-    shares its first 4 bytes with p, so both give min(common run,
-    matchlimit - p)."""
+    """One row's HC parse, the serial walk over the d48 table: the same
+    decisions as the JAX kernel.  Forward lengths come from byte runs
+    instead of the kernels' words and XOR tail; every candidate shares its
+    first 4 bytes with p, so both give min(common run, matchlimit - p)."""
     out = bytearray()
     if n < 13:
         _emit_final(out, buf, 0, n)
@@ -209,5 +265,158 @@ def _hc_row_plain(buf: bytes, n: int, d48: np.ndarray,
         ml += cur - mp
         _emit_seq(out, buf, anchor, mp - anchor, cur - mpos, ml - 4)
         ip = anchor = mp + ml
+    _emit_final(out, buf, anchor, n)
+    return out
+
+
+def hc_scan_serial(rows: torch.Tensor, src_lens: torch.Tensor,
+                   level: int = DEFAULT_LEVEL):
+    """The parse of ``encode_blocks_hc`` by the serial walk
+    ``_hc_row_plain`` over the d48 table of ``hc_tables``, for rows on the
+    CPU: the reference that ``hc_row_rounds_plain`` and kernel I are held
+    against.  Returns (out, olen) as ``hc_scan`` does."""
+    _check_rows(rows, src_lens)
+    B, NS = rows.shape
+    d48 = hc_tables(rows).numpy()
+    max_attempts = 1 << (max(1, min(int(level), 16)) - 1)
+    out = torch.zeros((B, out_width(NS)), dtype=torch.uint8)
+    olen = torch.zeros((B,), dtype=torch.int32)
+    lens = src_lens.tolist()
+    _fill_rows(out, olen, [
+        _hc_row_plain(rows[b].numpy().tobytes(), min(max(lens[b], 0), NS),
+                      d48[b], max_attempts) for b in range(B)])
+    return out, olen
+
+
+def hc_row_rounds_plain(buf: bytes, n: int, perm: np.ndarray,
+                        slot: np.ndarray, max_attempts: int,
+                        lanes: int = LANES, positions: int = POSITIONS,
+                        stats: Optional[collections.Counter] = None
+                        ) -> bytearray:
+    """One row's HC parse as csrc/hc.cu decomposes it; the same bytes as
+    ``_hc_row_plain``.  ``perm`` and ``slot`` are the row's tables from
+    ``hc_sorted_tables``.
+
+    A search reads the 4-byte chain of p as the run before p's slot, in
+    rounds of ``lanes`` candidates; a lane holds a candidate while it lies
+    before p and shares p's 4 bytes.  Every lane scores its candidate
+    (forward plus backward run) unless the beat gate, against the best at
+    the round's start, shows it cannot win.  The round then makes the
+    serial walk's decisions at once: the best after lane i is the prefix
+    maximum; the switch to the 8-byte chain falls on the first lane whose
+    best reaches ``8 + p - anchor`` and whose bytes 4..7 equal p's; after
+    it only such lanes are visited and count against the budget; the walk
+    stops after the first visited lane where the budget runs out or the
+    best reaches SUFFICIENT_LEN, or at the run's end; the hit is the first
+    lane that holds the final maximum.  Each of these is a prefix
+    quantity (a prefix maximum, the first lane of a ballot, a popcount of
+    the lanes below), so the lanes after the stop lane change nothing and
+    the model scores the lanes in order up to it.  ``positions``
+    consecutive positions are searched at once, and the lazy parse reads
+    their results in order; the take's backward run is the one its
+    search counted.
+
+    ``stats``, when given, counts the kernel's schedule: it then searches
+    every position of a batch, as the kernel does, and adds up
+    ``searches``, ``rounds``, ``batches``, ``path_rounds`` (per batch the
+    rounds of its longest search: the row's critical path), the rounds
+    that the budget stops before their last lane (``budget_mid_round``)
+    and those that switch to the 8-byte chain at a lane that is neither
+    their first nor their last (``switch_mid_round``)."""
+    out = bytearray()
+    if n < 13:
+        _emit_final(out, buf, 0, n)
+        return out
+    u = np.frombuffer(buf, np.uint8).astype(np.int64)
+    u = np.concatenate([u, u[:3]])
+    val = (u[:-3] | (u[1:-2] << 8) | (u[2:-1] << 16) | (u[3:] << 24)).tolist()
+    perm = (perm.astype(np.int64) & 0xFFFF).tolist()
+    slot = (slot.astype(np.int64) & 0xFFFF).tolist()
+    mflimit, matchlimit = n - 12, n - 5
+
+    def search(p: int, anchor: int):
+        """(score, forward length, candidate position) of p's widest
+        match; score < 4 means none."""
+        vp, vp4 = val[p], val[p + 4]
+        tier8 = 8 + p - anchor
+        gmax = matchlimit - p - 1
+        room = matchlimit - p - 4
+        bs = bf = bp = 0
+        att, switched = max_attempts, False
+        i = slot[p] - 1
+        rounds[0] = 0
+        while True:                     # one round
+            rounds[0] += 1
+            g = min(max(bs - 3, 0), gmax)   # the gate's best: the round's start
+            pm, cnt, sw = bs, 0, switched
+            for k in range(lanes):
+                c = perm[i - k] if i - k >= 0 else p
+                if c >= p or val[c] != vp:
+                    return pm, bf, bp   # the run ends: so does the chain
+                if val[c + g] == val[p + g] or (
+                        p > anchor and c > 0 and buf[c - 1] == buf[p - 1]):
+                    fwd = 4 + _common_run(buf, c + 4, p + 4, room)
+                    back = 0
+                    while p - back > anchor and c - back > 0 and \
+                            buf[p - back - 1] == buf[c - back - 1]:
+                        back += 1
+                    if fwd + back > pm:     # the first lane of a new maximum
+                        pm, bf, bp = fwd + back, fwd, c
+                m8 = val[c + 4] == vp4
+                if sw:
+                    visited = m8            # past the switch: the 8-byte chain
+                else:
+                    visited = True
+                    sw = m8 and pm >= tier8     # this lane is the switch lane
+                    if sw and stats is not None and 0 < k < lanes - 1:
+                        stats["switch_mid_round"] += 1
+                cnt += visited
+                if visited and (cnt == att or pm >= SUFFICIENT_LEN):
+                    if stats is not None and cnt == att and \
+                            k < lanes - 1:
+                        stats["budget_mid_round"] += 1
+                    return pm, bf, bp   # the stop lane
+            bs, att, switched = pm, att - cnt, sw
+            i -= lanes
+
+    rounds = [0]                         # the last search's rounds
+    ip = anchor = 0
+    pending = None                       # (score, fwd, pos, cur)
+    while True:
+        q0 = pending[3] + 1 if pending else ip
+        took = q0 > mflimit
+        if not took:
+            batch = range(q0, min(q0 + positions, mflimit + 1))
+            if stats is not None:
+                found = {}
+                for q in batch:
+                    found[q] = search(q, anchor)
+                    stats["searches"] += 1
+                    stats["rounds"] += rounds[0]
+                    stats["path"] = max(stats["path"], rounds[0])
+                stats["batches"] += 1
+                stats["path_rounds"] += stats.pop("path")
+            for q in batch:
+                sc, f, pos = found[q] if stats is not None else \
+                    search(q, anchor)
+                if pending is None:
+                    if sc < 4:
+                        ip = q + 1
+                        continue
+                    pending = (sc, f, pos, q)
+                elif sc <= pending[0]:
+                    took = True
+                    break
+                else:
+                    pending = (sc, f, pos, q)
+        if took:
+            if pending is None:
+                break
+            # the hit's backward run is the one its search counted
+            sc, f, pos, cur = pending
+            mp = cur - (sc - f)
+            _emit_seq(out, buf, anchor, mp - anchor, cur - pos, sc - 4)
+            ip = anchor = mp + sc
+            pending = None
     _emit_final(out, buf, anchor, n)
     return out

@@ -8,6 +8,8 @@ comparison is exact (chain tables lane for lane, ``out[:olen]`` and
 ``olen``, whole frames and files byte for byte).
 """
 
+import collections
+import functools
 import io
 import os
 import subprocess
@@ -35,6 +37,7 @@ from lz4_tpu_torch.kernels import hc_kernel as thc
 from lz4_tpu_torch.kernels.common import le32_lanes
 
 from .test_hc_kernel import BLOCKS, NS
+from .test_torch_kernels import stdlib_text
 
 CPU = "cpu"
 REPO = Path(__file__).resolve().parent.parent
@@ -133,6 +136,162 @@ def test_encode_blocks_hc_counts_and_checks():
                              torch.zeros((1,), dtype=torch.int32), 9)
     with pytest.raises(TypeError):
         thc.encode_blocks_hc(rows, torch.from_numpy(lens).long(), 9)
+
+
+def _u16(t):
+    return t.numpy().astype(np.int64) & 0xFFFF
+
+
+@pytest.mark.parametrize("case", sorted(TABLE_CASES))
+def test_sorted_tables_hold_the_jax_chains(case):
+    """Kernel I's (perm, slot) against lz4_tpu's cand_delta48_rows: every
+    link of the 4-byte chain is the next member of p's run before its slot,
+    every link of the 8-byte chain the next member of that run whose bytes
+    4..7 equal p's; and chains walked from sampled positions equal the runs
+    read from perm, whole or filtered."""
+    blocks, ns = TABLE_CASES[case]
+    val, _, rows = _rows(blocks, ns)
+    d48 = np.asarray(jhc.cand_delta48_rows(val)).astype(np.int64)
+    d4, d8 = d48 & 0xFFFF, (d48 >> 16) & 0xFFFF
+    perm, slot = thc.hc_sorted_tables(rows)
+    assert perm.dtype == slot.dtype == torch.int16
+    perm, slot = _u16(perm), _u16(slot)
+    key = np.asarray(val).astype(np.int64) & 0xFFFFFFFF
+    key4 = np.roll(key, -4, axis=1)          # bytes 4..7, wrapping as lz4_tpu
+    pos = np.arange(ns)
+    rng = np.random.default_rng(7)
+    for b in range(len(blocks)):
+        k, pb, sb = key[b], perm[b], slot[b]
+        assert (pb[sb] == pos).all()
+        # equal keys lie together, in position order
+        same = k[pb][1:] == k[pb][:-1]
+        assert (pb[1:][same] > pb[:-1][same]).all()
+        assert len(set(k[pb][np.r_[True, ~same]])) == int((~same).sum()) + 1
+        # the 4-byte link: the member of the run just before p's slot
+        prev = np.where(sb > 0, pb[np.maximum(sb - 1, 0)], -1)
+        linked = (sb > 0) & (k[np.maximum(prev, 0)] == k)
+        assert (d4[b] == np.where(linked, pos - prev, 0)).all()
+        # the 8-byte link: the newest earlier member with equal bytes 4..7
+        last = {}
+        for p in range(ns):
+            q = last.get((k[p], key4[b, p]), p)
+            assert d8[b, p] == p - q
+            last[(k[p], key4[b, p])] = p
+        # walked chains from sampled positions, at most 300 links
+        for p in rng.integers(0, ns, 40):
+            run = pb[:sb[p]][::-1]
+            run = run[k[run] == k[p]][:300]
+            for d, members in ((d4[b], run),
+                               (d8[b], run[key4[b, run] == key4[b, p]])):
+                walk, q = [], p
+                while d[q] and len(walk) < len(members):
+                    q -= d[q]
+                    walk.append(q)
+                assert walk == members[:len(walk)].tolist()
+                assert len(walk) == len(members)
+
+
+NSR = 4096
+ROUND_BLOCKS = [bytes(NSR), b"ab" * (NSR // 2), (b"abc" * NSR)[:NSR],
+                incompressible(NSR), BLOCKS[-1], b"y" * 12, b"x" * 13,
+                gen_buffer(NSR, 0.8, 91), gen_buffer(NSR, 0.95, 92)]
+MODEL_SHAPES = [(1, 1), (1, 2), (4, 1), (4, 4), (32, 1), (32, 2), (32, 4)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_rows(level, blocks=tuple(ROUND_BLOCKS), ns=NSR):
+    val, lens, rows = _rows(list(blocks), ns)
+    out, olen = jhc.encode_blocks_hc(val, jnp.asarray(lens), level)
+    out, olen = np.asarray(out), np.asarray(olen)
+    return rows, [out[i, :olen[i]].astype(np.uint8).tobytes()
+                  for i in range(len(blocks))]
+
+
+def _model_rows(rows, blocks, level, lanes, positions, stats=None):
+    """(serial walk, round model) payloads of every row."""
+    d48 = thc.hc_tables(rows)
+    perm, slot = thc.hc_sorted_tables(rows)
+    ma = 1 << (level - 1)
+    out = []
+    for i, blk in enumerate(blocks):
+        buf = rows[i].numpy().tobytes()
+        out.append((bytes(thc._hc_row_plain(buf, len(blk), d48[i].numpy(),
+                                            ma)),
+                    bytes(thc.hc_row_rounds_plain(
+                        buf, len(blk), perm[i].numpy(), slot[i].numpy(), ma,
+                        lanes, positions, stats))))
+    return out
+
+
+@pytest.mark.parametrize("lanes,positions", MODEL_SHAPES)
+def test_round_model_matches_serial_walk_and_jax(lanes, positions):
+    """hc_row_rounds_plain in rounds of 1, 4 and 32 lanes and batches of 1,
+    2 and 4 positions: zeros, periods 2 and 3, noise, the needle case, rows
+    of 12 and 13 bytes and text, levels 1-16."""
+    for level in (1, 2, 9, 12, 16):
+        rows, want = _jax_rows(level)
+        for i, (serial, rounds) in enumerate(_model_rows(
+                rows, ROUND_BLOCKS, level, lanes, positions)):
+            assert serial == want[i], (level, i)
+            assert rounds == want[i], (level, i)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_encode_blocks_hc_takes_rows_at_any_offset(offset):
+    """Rows that start at any byte of their storage (kernel I reads them as
+    aligned words on the card) parse alike: encode_blocks_hc on such a view
+    and hc_scan_serial equal lz4_tpu."""
+    rows, want = _jax_rows(9)
+    lens = torch.tensor([len(b) for b in ROUND_BLOCKS], dtype=torch.int32)
+    store = torch.zeros(rows.numel() + 4, dtype=torch.uint8)
+    view = store[offset:offset + rows.numel()].view(rows.shape)
+    view.copy_(rows)
+    for out, olen in (thc.encode_blocks_hc(view, lens, 9),
+                      thc.hc_scan_serial(view, lens, 9)):
+        assert [out[i, :olen[i]].numpy().tobytes()
+                for i in range(len(want))] == want
+
+
+@pytest.mark.parametrize("lanes,positions", [(32, 4), (32, 1), (4, 2)])
+def test_round_model_on_a_64k_stdlib_row(lanes, positions):
+    text = stdlib_text(3 * W)[2 * W:]
+    rows, want = _jax_rows(9, (text,), W)
+    [(serial, rounds)] = _model_rows(rows, [text], 9, lanes, positions)
+    assert serial == rounds == want[0]
+
+
+@pytest.mark.parametrize("level,counter", [
+    (1, "budget_mid_round"), (2, "budget_mid_round"),
+    (9, "switch_mid_round"), (12, "switch_mid_round")])
+def test_round_model_stops_and_switches_inside_rounds(level, counter):
+    """Rows where the budget runs out before a round's last lane (levels 1
+    and 2 on the long chains of text and periods) and where the switch to
+    the 8-byte chain falls in the middle of a round: the counts show the
+    case happened, and the payloads still equal the serial walk's and
+    lz4_tpu's."""
+    rows, want = _jax_rows(level)
+    stats = collections.Counter()
+    for i, (serial, rounds) in enumerate(_model_rows(
+            rows, ROUND_BLOCKS, level, 32, 4, stats)):
+        assert serial == rounds == want[i], i
+    assert stats[counter] > 0, stats
+    assert stats["path_rounds"] <= stats["rounds"]
+    assert stats["batches"] <= stats["searches"]
+
+
+def test_hc_scan_checks_its_tables():
+    _, lens, rows = _rows(BLOCKS, NS)
+    perm, slot = thc.hc_sorted_tables(rows)
+    lens = torch.from_numpy(lens)
+    common.reset_counts()
+    out, olen = thc.hc_scan(rows, lens, (perm, slot), 9)
+    assert common.PLAIN_CALLS["encode_hc"] == 1
+    assert torch.equal(olen, thc.encode_blocks_hc(rows, lens, 9)[1])
+    with pytest.raises(TypeError):
+        thc.hc_scan(rows, lens, (perm.int(), slot), 9)
+    with pytest.raises(ValueError, match="perm and slot"):
+        thc.hc_scan(rows, lens, (perm[:, :128].contiguous(),
+                                 slot[:, :128].contiguous()), 9)
 
 
 FRAME_CASES = {

@@ -24,6 +24,7 @@ from lz4_tpu.utils.datagen import gen_buffer
 from lz4_tpu_torch.kernels import common
 from lz4_tpu_torch.kernels import decode_kernel as tdec
 from lz4_tpu_torch.kernels import encode_kernel as tenc
+from lz4_tpu_torch.kernels import pack_kernel as tpk
 from lz4_tpu_torch.kernels.pack_kernel import pack_frame_payloads as tpack
 
 from .test_adversarial_kernel import _cases as adversarial_cases
@@ -206,10 +207,69 @@ def test_pack_frame_payloads_matches_jax():
     t_flat, t_total, t_stored = tpack(
         common.from_jax_lanes(comp), torch.from_numpy(olen),
         common.from_jax_lanes(plain), blens)
-    assert int(t_total) == j_total
+    assert tpk.body_length(t_total) == j_total
     assert (t_stored.numpy() == j_stored).all()
     want = np.asarray(j_flat).reshape(-1)[:j_total].astype(np.uint8)
     assert (t_flat[:j_total].numpy() == want).all()
+
+
+PROLOGUE_CASES = {
+    # (olen, blens, M, NS): stored rows, padding rows, an empty batch
+    "stored and padding": ([100, 300, 17, 5, 199, 1, 0],
+                           [384, 300, 384, 1, 200, 0, 0], 512, 384),
+    "40 rows": (list(np.random.default_rng(23).integers(0, 300, 40)),
+                list(np.random.default_rng(24).integers(0, 257, 40)), 384,
+                256),
+    "padding only": ([0, 3], [0, 0], 128, 128),
+    "empty": ([], [], 128, 128),
+    # lengths outside their rows: a fault (lz4_tpu has no such check)
+    "olen past M": ([200, 5], [250, 20], 128, 256),
+    "negative olen": ([-1, 5], [10, 20], 128, 256),
+    "blen past NS": ([5, 5], [10, 300], 128, 256),
+    "negative blen": ([5, 5], [10, -4], 128, 256),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PROLOGUE_CASES))
+def test_pack_prologue_plain_matches_jax_bookkeeping(case):
+    """Kernel C's first launch, modelled: stored flags, record offsets,
+    headers and the total equal what lz4_tpu's pack writes; a length
+    outside its row sets the fault flag, and the CPU wrapper raises."""
+    olen, blens, M, NS = PROLOGUE_CASES[case]
+    olen = np.asarray(olen, np.int32)
+    blens = np.asarray(blens, np.int32)
+    stored, eff, hdr, dst, total = tpk.pack_prologue_plain(
+        torch.from_numpy(olen), torch.from_numpy(blens), M, NS)
+    fault = case in ("olen past M", "negative olen", "blen past NS",
+                     "negative blen")
+    assert total.dtype == torch.int64 and total[1] == int(fault)
+    if fault:
+        with pytest.raises(ValueError, match="exceeds its row"):
+            tpk.body_length(total)
+        return
+    B = len(olen)
+    if B == 0:
+        assert total.tolist() == [0, 0]
+        return
+    rng = np.random.default_rng(25)
+    comp = rng.integers(0, 256, (B, M)).astype(np.int32)
+    plain = rng.integers(0, 256, (B, NS)).astype(np.int32)
+    j_flat, j_total, j_stored = jpack(jnp.asarray(comp), jnp.asarray(olen),
+                                      jnp.asarray(plain), blens)
+    assert tpk.body_length(total) == j_total
+    assert (stored.numpy() == j_stored).all()
+    body = np.asarray(j_flat).reshape(-1)[:j_total].astype(np.uint8)
+    pos = 0
+    for b in range(B):
+        assert dst[b] == pos
+        if blens[b] <= 0:
+            assert eff[b] == 0
+            continue
+        head = int.from_bytes(body[pos:pos + 4].tobytes(), "little")
+        assert int(hdr[b]) & 0xFFFFFFFF == head
+        assert int(eff[b]) == head & ~0x80000000
+        pos += 4 + int(eff[b])
+    assert pos == j_total
 
 
 # ---------------------------------------------------------------------------
