@@ -11,7 +11,10 @@ decompress_frame_device; for each stream cell (the files of chip_smoke.py's
 stream phase: a -B7 independent frame with a content checksum, a -B5
 linked frame, a legacy file, a 64 KB linked frame with flushed short
 blocks) it decodes the file through decompress_frame_device or
-decompress_legacy_device; for each scatter-gather cell (chip_smoke.py's sg
+decompress_legacy_device; for the -B4 cell it decodes the corpus as a -B4
+frame written by io.compress_stream at -1 -B4 (independent 64 KB blocks,
+kernel D's batch mode) through decompress_frame_device; for each
+scatter-gather cell (chip_smoke.py's sg
 phase layouts over the first 16 MiB: 4 KB iovecs into 4 KB iovecs, and
 ragged iovecs) it runs lz4_tpu_torch.sg.sg_compress, then sg_decompress
 back into the input iovecs; for the HC cell it runs the corpus through
@@ -108,10 +111,10 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (DS_DECODE_CAP, FILE_SETTINGS, corpus_rows, filled,
-                            kernel_b_payloads, kernel_h_dest_size,
-                            real_text_corpus, sg_h_layout, sg_layouts,
-                            stream_files)
+    from chip_smoke import (DS_DECODE_CAP, FILE_SETTINGS, b4_frame,
+                            corpus_rows, filled, kernel_b_payloads,
+                            kernel_h_dest_size, real_text_corpus,
+                            sg_h_layout, sg_layouts, stream_files)
     from lz4_tpu_torch import device as D
     from lz4_tpu_torch import io as tio
     from lz4_tpu_torch import sg
@@ -204,6 +207,11 @@ def main() -> int:
         measure(f"stream_{name}/decompress", lambda: decode(files[name])[0],
                 corpus)
     del files
+    frame = b4_frame(corpus, "cuda")
+    measure("b4/decompress", lambda: D.decompress_frame_device(frame)[0],
+            corpus)
+    results["b4/decompress"]["ratio"] = len(frame) / len(corpus)
+    del frame
     layouts = sg_layouts(corpus)
     for name in SG_CELLS:
         _, ins, caps = layouts[name]

@@ -65,9 +65,13 @@
    resumable mode is held against its plain version on kernel B's 64 rows at
    caps 0 to 65,536, on their resumed rounds (dictionary rows), on an
    offset-0 corruption, a block cut after a match, the corrupted streams,
-   noise, and sampled rows of step 9's first round.  Kernels J and K are
-   held against their plain versions on every length from 0 to 70 (aligned
-   and unaligned rows), on ragged rows up to 100,001 bytes at four seeds, J
+   noise, and sampled rows of step 9's first round.  Kernel D's batch mode
+   is also held on kernel B's payloads of the corpus as 1,024 rows of 64
+   KB (every row must be its corpus row, sampled rows the plain version's;
+   the shape of a 64 MiB -B4 frame) and timed there.  Kernel D's plain
+   versions are the serial decoders.  Kernels J and K are held against
+   their plain versions on every length from 0 to 70 (aligned and
+   unaligned rows), on ragged rows up to 100,001 bytes at four seeds, J
    also against the host XXH32, and on every row of step 9's two batches.
    H, D resumable, J and K are timed on step 9's batches, median of three.
 4. Runs the main path at full size: a 64 MiB real-text corpus (the Python
@@ -78,9 +82,12 @@
    counters are reset just before and read just after: kernels A, C and
    linked D must have launched and no plain version may have run.
 5. Resets the counters again and runs the smaller entry points: a 4 MB
-   one-shot linked frame, a 60 KB input (kernel B), and independent frames
-   with and without block and content checksums.  Kernels A to D, B and
-   batch D included, must launch here, and no plain version may run.
+   one-shot linked frame, a 60 KB input (kernel B), independent frames
+   with and without block and content checksums, and the corpus as a -B4
+   frame written by io.compress_stream at -1 -B4 (``b4_frame``), decoded
+   through decompress_frame_device (1,024 rows in one launch of batch D).
+   Kernels A to D, B and batch D included, must launch here, and no plain
+   version may run.
 6. The stream path, with its own counter reset and read: the corpus as a
    -B7 frame with a content checksum (what ``lz4 file`` writes), a -B5
    linked frame, a legacy file (8 MB blocks), a linked 64 KB-block frame
@@ -480,6 +487,20 @@ def stream_files(corpus: bytes, dev) -> dict:
     parts.append(comp.end())
     files["flushed"] = b"".join(parts)
     return files
+
+
+def b4_frame(corpus: bytes, dev) -> bytes:
+    """The corpus as a -B4 frame (independent 64 KB blocks, with a content
+    checksum), written by ``io.compress_stream`` at -1 -B4 on ``dev``: what
+    ``lz4 -B4 file`` writes, and decoded by kernel D's batch mode."""
+    import io
+
+    from lz4_tpu_torch import io as tio
+    dst = io.BytesIO()
+    tio.compress_stream(io.BytesIO(corpus), dst,
+                        tio.IoPrefs(level=1, block_size_id=4, verbosity=0),
+                        len(corpus), device=dev)
+    return dst.getvalue()
 
 
 def _records(frame: bytes, pos: int):
@@ -1341,20 +1362,25 @@ def destsize_times(root: Path) -> int:
 
 
 def decode_times(root: Path) -> int:
-    """``--decode-times ROOT``: kernels E and F of the tree at ROOT (this
+    """``--decode-times ROOT``: kernels E, F and D of the tree at ROOT (this
     checkout, or another one unpacked beside it) on the smoke's inputs,
     each written by ROOT's own port: E independent on the whole -B7 and
     legacy files and on the -B7 file's first 4 MB block, E linked on the
     -B5 linked and flushed chains, F on the sg phase's '4k' and 'ragged'
-    chains, and D linked on the main-path chunk (kernel A's 64 blocks
-    behind their window).  Prints one JSON line of CUDA-event ms, the
-    median of 3 after one warm-up."""
+    chains, D linked on the main-path chunk (kernel A's 64 blocks behind
+    their window), D batch on kernel B's 64 smoke rows at mm=8 and on its
+    payloads of the corpus as 1,024 rows of 64 KB, D resumable on those at
+    out_caps = 32,768 (each D shape also split per kernel by the
+    profiler), and the wall of decompress_frame_device on the corpus as a
+    -B4 frame (``b4_frame``).  Prints one JSON line of CUDA-event ms, the
+    median of 3 after one warm-up (the wall: host clock, median of 3)."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(root.resolve()))
+    from lz4_tpu_torch import device as D
     from lz4_tpu_torch import sg
     from lz4_tpu_torch.kernels import build
     from lz4_tpu_torch.kernels import decode_kernel as dec
@@ -1397,6 +1423,34 @@ def decode_times(root: Path) -> int:
     out, olen = enc.scan_linked(*card)
     dl_args = (out.reshape(64, -1), olen.reshape(64), W, card[0][0, :W], W)
     res["D_linked"] = median_ms(lambda: dec.decode_blocks_linked(*dl_args))
+    rows, lens = kernel_b_rows(corpus)
+    b_out, b_olen = enc.encode_blocks(rows.to(cuda), lens.to(cuda), 1,
+                                      min_match=8)
+    c_rows, c_lens = corpus_rows(corpus, cuda)
+    comp, clen = kernel_b_payloads(c_rows, c_lens)
+    del c_rows
+    caps = torch.full_like(clen, DS_DECODE_CAP)
+    fill = torch.empty((1,), device=cuda)
+    for key, fn in (
+            ("D_batch_64", lambda: dec.decode_blocks(b_out, b_olen, W)),
+            ("D_resumable_1024", lambda: dec.decode_blocks_dest_size(
+                comp, clen, caps, DS_DECODE_CAP)),
+            ("D_batch_1024", lambda: dec.decode_blocks(comp, clen, W))):
+        res[key] = median_ms(fn)
+        # (the profiler drops the first kernel it sees: a fill goes first)
+        res[key + "_split"] = device_ms(lambda: (fill.zero_(), fn()))
+    del comp
+    frame = b4_frame(corpus, cuda)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = D.decompress_frame_device(frame)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if out != corpus:
+            raise SmokeFailure("the -B4 frame does not decode to the corpus")
+    res["B4_wall"] = sorted(walls)[1]
+    res["B4_walls"] = walls
     log(json.dumps({"decode_times": str(root), "device":
                     torch.cuda.get_device_name(0), **res}))
     return 0
@@ -2773,6 +2827,26 @@ def main() -> int:
     # bytes produced, olen and cons out
     set_bound("decode_dest_size", int(k[2].sum()) + 8 * nrows,
               int(k[1].sum()) + 8 * nrows)
+    # D batch on the same payloads, whole rows: the shape of a 64 MiB -B4
+    # frame; every row must be its corpus row, sampled rows the plain's
+    b_args = (ds_comp, ds_clen, W)
+    k = dec.decode_blocks(*b_args)
+    p, b_plain = time_host(lambda: dec.decode_blocks(
+        ds_comp[idx].cpu(), ds_clen[idx].cpu(), W))
+    cmp_rows("decode_batch", f"kernel B's payloads of corpus rows {sample}",
+             k[0][idx], k[1][idx], *p)
+    if not (bool((k[1] == W).all()) and torch.equal(k[0], ds_rows_d)):
+        raise SmokeFailure("batch D does not decode the 1,024 corpus rows "
+                           "to the corpus")
+    b_ms = time_rounds(lambda: dec.decode_blocks(*b_args))
+    stats["decode_batch"].update(
+        ms_rows1024=sorted(b_ms)[1], ms_rounds_rows1024=b_ms,
+        plain_ms_rows1024=b_plain, plain_rows=len(sample),
+        bound_ms_rows1024=(int(ds_clen.sum()) + 4 * nrows + nrows * W)
+        / HBM_BYTES_PER_S * 1e3)
+    log(f"[time] decode_batch (D), {nrows} corpus rows of 64 KB: rounds "
+        f"{[round(t, 3) for t in b_ms]} ms, plain {b_plain:.1f} ms on "
+        f"{len(sample)} rows; every row equals the corpus")
     del ds_comp, k, p
     # J and K on the rows and on 4 KB pages, every row against the plain
     for shape, (r, n) in (("rows", (ds_rows_d, ds_lens)),
@@ -2871,6 +2945,18 @@ def main() -> int:
             raise SmokeFailure(f"round trip differs: {what}")
         log(f"[entry] {what}: ratio {len(frame) / len(data):.6f}, "
             f"round trip byte-exact")
+    # the corpus as a -B4 frame: 1,024 rows in one launch of batch D
+    frame = b4_frame(corpus, cuda)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, used = D.decompress_frame_device(frame)
+    wall = time.perf_counter() - t0
+    if out != corpus or used != len(frame):
+        raise SmokeFailure("the 64 MiB -B4 frame does not round-trip")
+    log(f"[entry] {len(corpus) >> 20} MiB -B4 frame (io.compress_stream -1 "
+        f"-B4): ratio {len(frame) / len(corpus):.6f}, decompress "
+        f"{len(corpus) / 1e6 / wall:.1f} MB/s ({wall:.3f} s), byte-exact")
+    del out, frame
     counts["entry"] = phase_counts(
         "entry points",
         [k for k, v in KERNELS.items() if v[3] in ("main", "entry")])

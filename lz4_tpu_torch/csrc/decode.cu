@@ -34,8 +34,36 @@
 // these steps for W = CELL_WINDOW / N rows at a time, window after window.  A
 // first design filled the references in one CTA, row after row in order:
 // 20 % of the kernel's time on the main path, so the rounds replaced it
-// (PERF.md).  Batch mode runs one warp per row, all rows in parallel.  The
-// warp-wide block decoder and the rounds are in decode.cuh.
+// (PERF.md).
+//
+// Batch mode (and its resumable variant) has independent rows, but one
+// warp per row decoded each row as one serial chain of dependent loads and
+// 32-byte strides, and 64 rows fill half the SMs with one warp each (1.6
+// ms for 64 rows of 64 KB on the H100).  The row is split like kernel E's
+// independent blocks, but its spans come from a serial walk that moves no
+// byte:
+// (1) one warp per row walks its tokens (walk_block in decode.cuh, with
+//     the row's cap and dictionary length), which alone sets olen and cons
+//     exactly as the serial decoder does (sequences after a resumable stop
+//     are never read), and records a checkpoint every 2^span_log
+//     sequences: its token offset and output base, in the row's `stride`
+//     slots;
+// (2) one warp per span of a good row decodes its sequences into int32
+//     cells at its base (the last span stops at cons): a copy from the row
+//     before the span is a reference, one from before the row reads the
+//     dictionary's final byte (window_elem's three regions);
+// (3) the rounds of pointer jumping of linked mode resolve each row's
+//     references (a chain crosses at most stride - 1 spans) and write the
+//     row at out + b * N.
+// Steps 2 and 3 run over windows of W = CELL_WINDOW / N rows.  The walk is
+// the floor of a row: a chain of dependent steps per sequence, one warp
+// per row and nothing to hide its latency.  So it checks each offset one
+// sequence late (its load is off the chain), takes the common sequence in
+// a loop of its own, and prefetches the payload 256 bytes ahead: 0.2 ->
+// 0.15 us a sequence on the card (PERF.md).  The rounds run on about
+// JUMP_GRID CTAs, whatever the rows, so that a round after the last
+// reference returns at once.  The warp-wide block decoder and the rounds
+// are in decode.cuh.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,6 +73,8 @@ namespace {
 
 constexpr int JUMP_THREADS = 256;
 constexpr int JUMP_CTAS_PER_ROW = 16;
+constexpr int SPAN_WARPS = 4;         // warps per CTA of batch step 2
+constexpr int JUMP_GRID = 2048;       // CTAs of a batch round
 
 // (1) Warp i decodes block b = r0 + i into cells row i: olen[b] its length
 // or -1, far[b] how far it reaches before the row (0 when it does not
@@ -57,10 +87,10 @@ __global__ void linked_cells_kernel(const uint8_t* comp, int M,
   const int b = r0 + blockIdx.x;
   const int n = min(max(clen[b], 0), M);
   int reach = 0;
-  const int r = decode_block_t<false, Out::kCells>(
+  const int r = decode_block_t<Out::kCells>(
       comp + (long long)b * M, n, cells + (long long)blockIdx.x * N, N,
       b == 0 ? init_window + N : nullptr, b == 0 ? init_len : N, threadIdx.x,
-      nullptr, &reach);
+      &reach);
   if (threadIdx.x == 0) {
     olen[b] = r;
     far[b] = reach;
@@ -76,12 +106,11 @@ __global__ void linked_status_kernel(int32_t* olen, const int32_t* far,
     if (far[b] > 0 && olen[b - 1] != N) olen[b] = -1;
 }
 
-// (3) Round k, grid (r1 - r0, JUMP_CTAS_PER_ROW): every good row's cells,
-// cells row 0 at row r0; a round after one that left no reference returns
-// at once.
-__global__ void linked_jump_kernel(int32_t* cells, int N,
-                                   const int32_t* olen, uint8_t* out,
-                                   int32_t* more, int k, int r0) {
+// (3) Round k, grid (r1 - r0, CTAs per row): every good row's cells, cells
+// row 0 at row r0; a round after one that left no reference returns at
+// once.  Linked and batch mode.
+__global__ void rows_jump_kernel(int32_t* cells, int N, const int32_t* olen,
+                                 uint8_t* out, int32_t* more, int k, int r0) {
   if (k > 0 && !more[k - 1]) return;
   const long long row = (long long)(r0 + blockIdx.x) * N;
   jump_cells(cells, (long long)r0 * N, out, row,
@@ -90,25 +119,107 @@ __global__ void linked_jump_kernel(int32_t* cells, int N,
              (long long)gridDim.y * blockDim.x, more + k);
 }
 
-// Row b's dictionary is right-aligned in dict[b * P, (b + 1) * P); `dict`
-// may be null (no dictionary).  RESUMABLE writes cons[b] too.
+// Batch mode's rows: row b's payload, length, cap and dictionary (right-
+// aligned in dict[b * P, (b + 1) * P); dict may be null).
+struct Rows {
+  const uint8_t* comp;
+  int M;
+  const int32_t* clen;
+  const int32_t* ocap;
+  const uint8_t* dict;
+  int P;
+  const int32_t* dict_lens;
+  int N;
+  __device__ const uint8_t* src(int b) const {
+    return comp + (long long)b * M;
+  }
+  __device__ int n(int b) const { return min(max(clen[b], 0), M); }
+  __device__ int cap(int b) const { return min(ocap[b], N); }
+  __device__ int plen(int b) const {
+    return dict ? min(max(dict_lens[b], 0), P) : 0;
+  }
+  __device__ const uint8_t* dict_end(int b) const {
+    return dict ? dict + (long long)(b + 1) * P : nullptr;
+  }
+};
+
+// (1) Warp b walks row b: olen[b], cons[b] (RESUMABLE), and the spans of a
+// good row, nspans[b] of them, span k from token span_ip[b * stride + k]
+// at output byte span_base[b * stride + k].
 template <bool RESUMABLE>
-__global__ void decode_batch_kernel(const uint8_t* comp, int M,
-                                    const int32_t* clen, const int32_t* ocap,
-                                    const uint8_t* dict, int P,
-                                    const int32_t* dict_lens, uint8_t* out,
-                                    int N, int32_t* olen, int32_t* cons) {
-  const int b = blockIdx.x;
-  const int n = min(max(clen[b], 0), M);
-  const int plen = dict ? min(max(dict_lens[b], 0), P) : 0;
-  const uint8_t* win_end = dict ? dict + (long long)(b + 1) * P : nullptr;
-  int c = 0;
-  const int r = decode_block_t<RESUMABLE>(
-      comp + (long long)b * M, n, out + (long long)b * N, min(ocap[b], N),
-      win_end, plen, threadIdx.x, RESUMABLE ? &c : nullptr);
-  if (threadIdx.x == 0) {
-    olen[b] = r;
+__global__ void rows_walk_kernel(Rows r, int span_log, int stride,
+                                 int32_t* span_ip, int32_t* span_base,
+                                 int32_t* nspans, int32_t* olen,
+                                 int32_t* cons) {
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const long long so = (long long)b * stride;
+  const int mask = (1 << span_log) - 1;
+  int seq = 0, k = 0, c = 0;
+  auto mark = [&](int at, int opos) {
+    const bool m = (seq++ & mask) == 0;
+    if (m && lane == 0) {
+      span_ip[so + k] = at;
+      span_base[so + k] = opos;
+    }
+    k += m;
+  };
+  const int res = walk_block<RESUMABLE>(r.src(b), r.n(b), r.cap(b),
+                                       r.plen(b), &c, mark);
+  if (lane == 0) {
+    olen[b] = res;
+    nspans[b] = res < 0 ? 0 : k;
     if (RESUMABLE) cons[b] = c;
+  }
+}
+
+// (2) Warp g decodes span slot g of the rows [r0, r1) into cells row
+// g / stride; slots past a row's spans return at once.
+template <bool RESUMABLE>
+__global__ void rows_spans_kernel(Rows r, int stride, long long nslots,
+                                  int r0, const int32_t* span_ip,
+                                  const int32_t* span_base,
+                                  const int32_t* nspans, const int32_t* cons,
+                                  int32_t* cells) {
+  const long long g =
+      (long long)blockIdx.x * SPAN_WARPS + threadIdx.x / WARP;
+  if (g >= nslots) return;
+  const int i = (int)(g / stride), k = (int)(g % stride), b = r0 + i;
+  const int ns = nspans[b];
+  if (k >= ns) return;
+  const long long s = (long long)b * stride + k;
+  const int base = span_base[s];
+  const int stop = k + 1 < ns ? span_ip[s + 1] : RESUMABLE ? cons[b] : -1;
+  int far;
+  decode_block_t<Out::kCells>(
+      r.src(b), r.n(b), cells + (long long)i * r.N + base, r.cap(b) - base,
+      r.dict_end(b), base + r.plen(b), threadIdx.x % WARP, &far,
+      span_ip[s], stop, base);
+}
+
+template <bool RESUMABLE>
+void decode_rows(const Rows& r, int B, int span_log, int stride,
+                 int32_t* slots, int32_t* nspans, int32_t* cells, int W,
+                 int32_t* more, uint8_t* out, int32_t* olen, int32_t* cons,
+                 cudaStream_t s) {
+  int32_t* span_ip = slots;
+  int32_t* span_base = slots + (long long)B * stride;
+  rows_walk_kernel<RESUMABLE><<<B, WARP, 0, s>>>(
+      r, span_log, stride, span_ip, span_base, nspans, olen, cons);
+  const int rounds = min(jump_rounds(stride + 1), MAX_JUMP_ROUNDS);
+  for (int r0 = 0; r0 < B; r0 += W, more += MAX_JUMP_ROUNDS) {
+    const int r1 = min(r0 + W, B);
+    // CTAs per row: JUMP_GRID in all, at most one per JUMP_THREADS cells
+    const int ctas = max(min((JUMP_GRID + r1 - r0 - 1) / (r1 - r0),
+                             (r.N + JUMP_THREADS - 1) / JUMP_THREADS),
+                         1);
+    const long long nslots = (long long)(r1 - r0) * stride;
+    rows_spans_kernel<RESUMABLE>
+        <<<(int)((nslots + SPAN_WARPS - 1) / SPAN_WARPS), SPAN_WARPS * WARP,
+           0, s>>>(r, stride, nslots, r0, span_ip, span_base, nspans, cons,
+                   cells);
+    for (int k = 0; k < rounds; ++k)
+      rows_jump_kernel<<<dim3(r1 - r0, ctas), JUMP_THREADS, 0, s>>>(
+          cells, r.N, olen, out, more, k, r0);
   }
 }
 
@@ -131,27 +242,34 @@ extern "C" int lz4tt_decode_linked(const uint8_t* comp, int M,
     linked_status_kernel<<<1, 1, 0, s>>>(olen, far, more, N, r0, r1);
     // a chain links rows r1 - 1, ..., max(r0, 1) and ends in a byte
     for (int k = 0; k < jump_rounds(r1 - max(r0, 1) + 1); ++k)
-      linked_jump_kernel<<<dim3(r1 - r0, JUMP_CTAS_PER_ROW), JUMP_THREADS, 0,
-                           s>>>(cells, N, olen, out, more, k, r0);
+      rows_jump_kernel<<<dim3(r1 - r0, JUMP_CTAS_PER_ROW), JUMP_THREADS, 0,
+                         s>>>(cells, N, olen, out, more, k, r0);
   }
   return (int)cudaGetLastError();
 }
 
 // cons selects the resumable decoder (null: a row that does not fit its
-// cap reports -1); dict may be null.
+// cap reports -1); dict may be null.  Scratch: slots (int32 [2, B *
+// stride], stride = the span slots of an M-byte payload), nspans (int32
+// [B]), cells (int32 [W, N]: rows decoded in windows of W) and more (int32
+// [ceil(B / W) * MAX_JUMP_ROUNDS], zeroed).
 extern "C" int lz4tt_decode_batch(const uint8_t* comp, int M,
                                   const int32_t* clen, const int32_t* ocap,
                                   const uint8_t* dict, int P,
                                   const int32_t* dict_lens, uint8_t* out,
                                   int N, int32_t* olen, int32_t* cons, int B,
-                                  void* cuda_stream) {
+                                  int span_log, int stride, int32_t* slots,
+                                  int32_t* nspans, int32_t* cells, int W,
+                                  int32_t* more, void* cuda_stream) {
+  const cudaStream_t s = (cudaStream_t)cuda_stream;
+  const Rows r{comp, M, clen, ocap, dict, P, dict_lens, N};
   if (B > 0) {
     if (cons)
-      decode_batch_kernel<true><<<B, WARP, 0, (cudaStream_t)cuda_stream>>>(
-          comp, M, clen, ocap, dict, P, dict_lens, out, N, olen, cons);
+      decode_rows<true>(r, B, span_log, stride, slots, nspans, cells, W,
+                        more, out, olen, cons, s);
     else
-      decode_batch_kernel<false><<<B, WARP, 0, (cudaStream_t)cuda_stream>>>(
-          comp, M, clen, ocap, dict, P, dict_lens, out, N, olen, cons);
+      decode_rows<false>(r, B, span_log, stride, slots, nspans, cells, W,
+                         more, out, olen, cons, s);
   }
   return (int)cudaGetLastError();
 }

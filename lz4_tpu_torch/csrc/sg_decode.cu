@@ -49,9 +49,9 @@ __global__ void sg_cells_kernel(const uint8_t* flat, const long long* bstart,
                                 int32_t* olen) {
   const int b = k0 + blockIdx.x;
   int far;
-  const int r = decode_block_t<false, Out::kCells>(
+  const int r = decode_block_t<Out::kCells>(
       flat + bstart[b], clen[b], cells + (cum[b] - cum[k0]), cap[b], nullptr,
-      (int)min(cum[b], (long long)MAX_OFFSET), threadIdx.x, nullptr, &far);
+      (int)min(cum[b], (long long)MAX_OFFSET), threadIdx.x, &far);
   if (threadIdx.x == 0) olen[b] = r;
 }
 

@@ -120,9 +120,9 @@ __global__ void stream_parse_kernel(const uint8_t* flat, Meta meta,
     r = decode_block(flat + meta.start(0), meta.clen(0), out, meta.cap(0),
                      out, 0, threadIdx.x);
   else
-    r = decode_block_t<false, Out::kParse>(
+    r = decode_block_t<Out::kParse>(
         flat + meta.start(b), meta.clen(b), nullptr, meta.cap(b), nullptr,
-        MAX_OFFSET, threadIdx.x, nullptr, &far);
+        MAX_OFFSET, threadIdx.x, &far);
   if (threadIdx.x == 0) {
     olen[b] = r;
     need[b] = far;
@@ -165,9 +165,9 @@ __global__ void stream_cells_kernel(const uint8_t* flat, Meta meta,
     for (int i = threadIdx.x; i < olen[b]; i += WARP) c[i] = src[i];
   } else {
     int far;
-    decode_block_t<false, Out::kCells>(
+    decode_block_t<Out::kCells>(
         src, meta.clen(b), c, meta.cap(b), nullptr,
-        (int)min(dst[b], (long long)MAX_OFFSET), threadIdx.x, nullptr, &far);
+        (int)min(dst[b], (long long)MAX_OFFSET), threadIdx.x, &far);
   }
 }
 
@@ -441,10 +441,10 @@ __global__ void spans_decode_kernel(const uint8_t* flat, Meta meta, Spans sp,
   const bool last = k + 1 == nspans[b];
   const int base = span_base[g];
   int far;
-  const int r = decode_block_t<false, Out::kCells>(
+  const int r = decode_block_t<Out::kCells>(
       flat + meta.start(b), n, cells + sp.cbase(b) + base,
-      meta.cap(b) - base, nullptr, base, lane, nullptr, &far, span_ip[g],
-      last ? n : span_ip[g + 1]);
+      meta.cap(b) - base, nullptr, base, lane, &far, span_ip[g],
+      last ? -1 : span_ip[g + 1]);
   if (r < 0 && lane == 0) olen[b] = -1;
 }
 

@@ -332,7 +332,10 @@ class DeviceFrameCompressor:
     whole-buffer compression.  Parity: LZ4F_compressBegin/Update/flush/End.
 
     ``update`` dispatches its chunk's kernels and only then fetches the
-    previous chunk's bytes, so one chunk is always in flight."""
+    previous chunk's bytes, so one chunk is always in flight.  No state
+    moves until those bytes are in hand: a call that raises (a launch, a
+    copy, or kernel C's range fault, which surfaces in the fetch) leaves
+    the compressor as it was, and the caller may retry it."""
 
     def __init__(self, prefs: Optional[FramePreferences] = None,
                  acceleration: int = 1, min_match: int = 4,
@@ -354,6 +357,7 @@ class DeviceFrameCompressor:
         self._begun = False
         self._pending = None    # dispatched device work awaiting fetch
         self._tail_dev = None   # the window as a device tensor, when whole
+        self._owed = b""        # fetched bytes not yet returned
 
     def begin(self) -> bytes:
         self._begun = True
@@ -363,18 +367,24 @@ class DeviceFrameCompressor:
         if not self._begun:
             raise RuntimeError("call begin() first")
 
-    def _emit_pending(self) -> bytes:
-        """Fetch and assemble the previously dispatched chunk's bytes."""
+    def _emit_pending(self) -> None:
+        """Fetch the previously dispatched chunk's bytes into ``_owed``;
+        it stays pending until the fetch returns."""
         if self._pending is None:
-            return b""
+            return
         flat, total = self._pending
+        self._owed += _fetch_body(flat, total, self.prefs.block_checksum)
         self._pending = None
-        return _fetch_body(flat, total, self.prefs.block_checksum)
+
+    def _take_owed(self) -> bytes:
+        out, self._owed = self._owed, b""
+        return out
 
     def _dispatch(self, data: bytes, prefix: bytes):
         """Launch the device work for ``data`` (whole blocks, or a final
         partial) with ``prefix`` as block 0's window; returns the pending
-        record without waiting.  Raises before changing any state."""
+        record and the new window on the device (None unless ``data`` is
+        whole blocks) without waiting.  Changes no state."""
         dev = self.device
         nb = max(1, -(-len(data) // WINDOW))
         if data and len(data) % WINDOW == 0:
@@ -411,8 +421,16 @@ class DeviceFrameCompressor:
         flat, total, _stored = pack_frame_payloads(
             out.reshape(nb, -1), olen.reshape(nb), _block_view(stream, nb),
             lens_d.reshape(nb))
+        return (flat, total), tail_dev
+
+    def _advance(self, data: bytes, tail_dev) -> None:
+        """Account ``data`` as compressed: its length, the content checksum
+        and the window move on together."""
+        self._total += len(data)
+        if self.prefs.content_checksum:
+            self._xxh.update(data)
+        self._tail = (self._tail + data)[-WINDOW:]
         self._tail_dev = tail_dev
-        return flat, total
 
     def update(self, chunk: bytes) -> bytes:
         self._require_begun()
@@ -420,27 +438,23 @@ class DeviceFrameCompressor:
         whole = (len(data) // WINDOW) * WINDOW
         if not whole:
             self._buf = data
-            return b""
+            return self._take_owed()
         body = data[:whole]
-        cur = self._dispatch(body, self._tail)
+        cur, tail_dev = self._dispatch(body, self._tail)
+        self._emit_pending()                # the previous chunk
         self._buf = data[whole:]
-        self._total += len(body)
-        if self.prefs.content_checksum:
-            self._xxh.update(body)
-        self._tail = body[-WINDOW:]
-        out = self._emit_pending()          # the previous chunk
+        self._advance(body, tail_dev)
         self._pending = cur
-        return out
+        return self._take_owed()
 
-    def _encode_now(self, data: bytes) -> bytes:
-        """Compress a final or flushed partial remainder synchronously."""
-        pending = self._dispatch(data, self._tail)
-        self._total += len(data)
-        if self.prefs.content_checksum:
-            self._xxh.update(data)
-        self._tail = (self._tail + data)[-WINDOW:]
-        self._pending = pending
-        return self._emit_pending()
+    def _encode_now(self, data: bytes) -> None:
+        """Compress a final or flushed partial remainder synchronously into
+        ``_owed``; the remainder buffer is emptied with the rest."""
+        (flat, total), tail_dev = self._dispatch(data, self._tail)
+        body = _fetch_body(flat, total, self.prefs.block_checksum)
+        self._advance(data, tail_dev)
+        self._buf = b""
+        self._owed += body
 
     def flush(self) -> bytes:
         """Emit the buffered sub-block remainder now as a (possibly short)
@@ -448,23 +462,20 @@ class DeviceFrameCompressor:
         ``decompress_frame_device`` decodes a frame with such a short
         non-final block through the stream kernel (kernel E)."""
         self._require_begun()
-        drained = self._emit_pending()
-        if not self._buf:
-            return drained
-        out = self._encode_now(self._buf)
-        self._buf = b""
-        return drained + out
+        self._emit_pending()
+        if self._buf:
+            self._encode_now(self._buf)
+        return self._take_owed()
 
     def end(self) -> bytes:
         self._require_begun()
-        parts = [self._emit_pending()]
+        self._emit_pending()
         if self._buf:
-            parts.append(self._encode_now(self._buf))
-            self._buf = b""
+            self._encode_now(self._buf)
         if (self.prefs.content_size is not None
                 and self.prefs.content_size != self._total):
             raise Lz4FrameError("content_size does not match data")
-        parts.append(struct.pack("<I", 0))
+        parts = [self._take_owed(), struct.pack("<I", 0)]
         if self.prefs.content_checksum:
             parts.append(struct.pack("<I", self._xxh.digest()))
         return b"".join(parts)

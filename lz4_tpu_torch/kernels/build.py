@@ -53,7 +53,7 @@ _SIGNATURES = {
     "lz4tt_decode_linked": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I,
                             _P, _P],
     "lz4tt_decode_batch": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
-                           _P],
+                           _I, _I, _P, _P, _P, _I, _P, _P],
     "lz4tt_decode_stream": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     "lz4tt_decode_stream_spans": [_P, _P, _I, _P, _P, _I, _I, _L, _L, _P,
                                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],

@@ -22,7 +22,8 @@ for the tests, while the wrappers' plain versions stay the serial walks.
 Likewise ``decode_stream_spans_plain`` models kernel E's independent mode
 on the card (a parallel parse of every block, spans decoded into cells)
 and ``decode_blocks_sg_cells_plain`` kernel F's (every block at once into
-cells).
+cells), and ``decode_rows_spans_plain`` kernel D's batch and resumable
+modes (a token walk per row, spans of sequences into cells).
 ``decode_blocks`` decodes independent rows, each with an optional
 dictionary; ``decode_blocks_dest_size`` is its resumable (destSize) variant:
 a row that runs out of room stops at a token boundary and reports the bytes
@@ -70,6 +71,11 @@ PARSE_WINDOW = 1 << 26
 # Its spans: one warp decodes 2^SPAN_LOG sequences of a block, and the
 # walk that places the spans takes one step per span.
 SPAN_LOG = 8
+# Kernel D's batch rows are decoded in spans of 2^ROW_SPAN_LOG sequences
+# (csrc/decode.cu): on the H100, 64 rows of 64 KB took 0.83 ms at 7
+# against 0.89-0.97 at 8 and 0.78-0.79 at 6, 1,024 rows 2.30 against
+# 2.32-2.37 and 2.42-2.49 (more references for the rounds at 6; PERF.md).
+ROW_SPAN_LOG = 7
 # next(p) of the parallel parse: p's sequence ends the block, or fails
 SEQ_END, SEQ_FAIL = -1, -2
 
@@ -310,7 +316,11 @@ def _dict_args(B: int, dict_rows, dict_lens):
 def _decode_batch(name: str, comp, comp_lens, N: int, out_caps, dict_rows,
                   dict_lens, resumable: bool):
     """Kernel D in batch mode (``csrc/decode.cu``) or its plain version:
-    (out [B, N], olen [B], cons [B] or None)."""
+    (out [B, N], olen [B], cons [B] or None).  On the card each row's
+    token walk sets its status and places spans of 2^ROW_SPAN_LOG
+    sequences, which decode into int32 cells, W = CELL_WINDOW // N rows
+    at a time (4 * min(B * N, CELL_WINDOW) bytes of scratch: 256 MiB for
+    1,024 rows of 64 KB); ``decode_rows_spans_plain`` models it."""
     _check_comp(comp, comp_lens)
     B, M = comp.shape
     check(out_caps, "out_caps", torch.int32, 1)
@@ -344,11 +354,19 @@ def _decode_batch(name: str, comp, comp_lens, N: int, out_caps, dict_rows,
     olen = torch.empty((B,), dtype=torch.int32, device=dev)
     cons = torch.empty((B,), dtype=torch.int32, device=dev) if resumable \
         else None
-
+    stride = span_slots(M, ROW_SPAN_LOG)
+    W = min(B, max(CELL_WINDOW // max(N, 1), 1))
+    slots = torch.empty((2 * B * stride,), dtype=torch.int32, device=dev)
+    nspans = torch.empty((B,), dtype=torch.int32, device=dev)
+    cells = torch.empty((max(W * N, 1),), dtype=torch.int32, device=dev)
+    more = torch.zeros((-(-B // max(W, 1)) * JUMP_ROUND_FLAGS,),
+                       dtype=torch.int32, device=dev)
     err = build.kernels_lib().lz4tt_decode_batch(
         comp.data_ptr(), M, comp_lens.data_ptr(), out_caps.data_ptr(),
         _ptr(dict_rows), P, _ptr(dict_lens), out.data_ptr(), N,
-        olen.data_ptr(), _ptr(cons), B,
+        olen.data_ptr(), _ptr(cons), B, ROW_SPAN_LOG, stride,
+        slots.data_ptr(), nspans.data_ptr(), cells.data_ptr(), W,
+        more.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(name, err)
     LAUNCHES[name] += 1
@@ -770,14 +788,17 @@ def checkpoints_plain(J: np.ndarray, S: np.ndarray, cap: int,
 
 
 def decode_cells_plain(src: bytes, n: int, olim: int, plen: int,
-                       ip: int = 0, stop: Optional[int] = None):
-    """``decode_block_t<false, Out::kCells>`` of csrc/decode.cuh without a
-    window buffer: the sequences of ``src[:n]`` from the token at ``ip``
-    decoded into int32 cells, a byte or a reference -d to the cell d
-    back, for every byte a match copies from before the output's start.
-    ``plen`` bounds the offsets as the window length does.  With ``stop``
-    (a token boundary before n) the span ends there.  Returns (length or
-    -1, the cells written, the bytes of every sequence before a failing
+                       ip: int = 0, stop: Optional[int] = None,
+                       window: bytes = b"", refs: Optional[int] = None):
+    """``decode_block_t<false, Out::kCells>`` of csrc/decode.cuh: the
+    sequences of ``src[:n]`` from the token at ``ip`` decoded into int32
+    cells, a byte or a reference -d to the cell d back, for every byte a
+    match copies from before the output's start.  ``plen`` bounds the
+    offsets as the window length does.  With ``refs`` only the ``refs``
+    positions right before the output are references; before them lie the
+    final bytes of ``window`` (kernel D's dictionary rows).  With ``stop``
+    (a token boundary, n included) the span ends there.  Returns (length
+    or -1, the cells written, the bytes of every sequence before a failing
     one included)."""
     end = n if stop is None else stop
     buf = np.zeros(256, np.int64)
@@ -830,30 +851,39 @@ def decode_cells_plain(src: bytes, n: int, olim: int, plen: int,
         first = np.arange(min(offset, mlen)) + opos - offset
         head = np.where(first < 0, -offset, buf[np.maximum(first, 0)])
         head = np.where((first >= 0) & (head < 0), head - offset, head)
+        if refs is not None:
+            old = first < -refs
+            at = np.where(old, first + refs + len(window), 0)
+            head = np.where(old, np.frombuffer(window, np.uint8)[at]
+                            if window else 0, head)
         q, r = np.divmod(np.arange(mlen), offset)
         val = head[r]
         buf[opos:opos + mlen] = np.where(val < 0, val - q * offset, val)
         opos += mlen
         ip = ip_m
-    if end < n:
+    if stop is not None:
         return opos, buf[:opos]
     return ERR_MALFORMED, buf[:opos]
 
 
 def jump_cells_plain(cells: np.ndarray, rounds: int,
-                     below: Optional[np.ndarray] = None) -> np.ndarray:
+                     below: Optional[np.ndarray] = None,
+                     stats: Optional[dict] = None) -> np.ndarray:
     """``rounds`` synchronous rounds of pointer jumping over ``cells``
     (a reference -d names the cell d back; one link a round, every cell
     reading the values of the round before: the slowest schedule the
     card's rounds can take); a reference below position 0 reads
     ``below``, the final bytes before the cells.  Raises when a reference
     is left, so that a test sees the bound on the rounds fail.  Returns
-    the bytes."""
+    the bytes; ``stats['jump_rounds']`` keeps the most rounds that found a
+    reference."""
     v = cells.astype(np.int64).copy()
-    for _ in range(rounds):
+    for k in range(rounds):
         ref = np.flatnonzero(v < 0)
         if not len(ref):
             break
+        if stats is not None:
+            stats["jump_rounds"] = max(stats.get("jump_rounds", 0), k + 1)
         tgt = ref + v[ref]
         tv = v[np.maximum(tgt, 0)]
         if below is not None and (tgt < 0).any():
@@ -910,6 +940,121 @@ def decode_stream_spans_plain(flat: bytes, bstart: Sequence[int],
                 cells, min(jump_rounds(span_slots(n, span_log) + 1),
                            JUMP_ROUND_FLAGS)).tobytes()
     return bytes(out), olen
+
+
+# -- CPU model of kernel D's batch and resumable schedule (tests only) -------
+
+def walk_row_plain(src: bytes, n: int, olim: int, plen: int,
+                   resumable: bool, span_log: int):
+    """Kernel D's batch step 1, ``decode_block_t<RESUMABLE, Out::kParse>``
+    with its checkpoints: one row's token walk, every check of the serial
+    decoder in its order and no byte moved.  Returns (olen, cons, spans,
+    sequences): olen and cons as the serial decoder's (cons is n in batch
+    mode), spans the (token offset, output base) of every 2^span_log-th
+    committed sequence (none for a failed row), sequences the committed
+    sequences."""
+    ip = opos = seq = 0
+    spans: List[Tuple[int, int]] = []
+    bad = (ERR_MALFORMED, ERR_MALFORMED, [], seq)
+    while ip < n:
+        at = ip
+        token = src[ip]
+        ip += 1
+        litlen = token >> 4
+        if litlen == 15:
+            ext, ip, ok = _read_ext(src, ip, n)
+            if not ok:
+                return bad
+            litlen += ext
+        ip_after = ip + litlen
+        if ip_after > n or (not resumable and opos + litlen > olim):
+            return bad
+        ended = ip_after == n
+        mlen = 0
+        if not ended:
+            if ip_after + 2 > n:
+                return bad
+            offset = src[ip_after] | (src[ip_after + 1] << 8)
+            ip = ip_after + 2
+            mlen = (token & 15) + 4
+            if token & 15 == 15:
+                ext, ip, ok = _read_ext(src, ip, n)
+                if not ok:
+                    return bad
+                mlen += ext
+            if offset == 0 or offset > opos + litlen + plen or (
+                    not resumable and opos + litlen + mlen > olim):
+                return bad
+        if resumable and opos + litlen + mlen > olim:
+            return opos, at, spans, seq          # stop at the token
+        if seq % (1 << span_log) == 0:
+            spans.append((at, opos))
+        seq += 1
+        opos += litlen + mlen
+        if ended:
+            return opos, n, spans, seq
+    if not resumable:
+        return bad
+    return opos, ip, spans, seq
+
+
+def decode_rows_spans_plain(comp: torch.Tensor, comp_lens: torch.Tensor,
+                            out_cap: int, out_caps: torch.Tensor,
+                            dict_rows: Optional[torch.Tensor] = None,
+                            dict_lens: Optional[torch.Tensor] = None,
+                            resumable: bool = False,
+                            span_log: Optional[int] = None,
+                            stats: Optional[dict] = None):
+    """CPU model of kernel D's batch and resumable modes on the card
+    (csrc/decode.cu, batch steps 1-3): per row the walk with its
+    checkpoints (``walk_row_plain``), each span of a good row decoded into
+    cells at its base (the last one stopping at cons; a copy from before
+    the row reads the dictionary), the rounds that resolve them.  Same
+    arguments and returns as ``decode_blocks`` (``resumable=False``) or
+    ``decode_blocks_dest_size``; equals them.  ``stats`` gathers per row
+    the committed sequences (``row_sequences``) and spans
+    (``row_spans``), and the most jump rounds a row needed.  Used by the
+    tests."""
+    span_log = ROW_SPAN_LOG if span_log is None else span_log
+    B, M = comp.shape
+    N = int(out_cap)
+    P = 0 if dict_rows is None else dict_rows.shape[1]
+    stride = span_slots(M, span_log)
+    rounds = min(jump_rounds(stride + 1), JUMP_ROUND_FLAGS)
+    out = torch.zeros((B, N), dtype=torch.uint8)
+    olen = torch.zeros((B,), dtype=torch.int32)
+    cons = torch.zeros((B,), dtype=torch.int32) if resumable else None
+    plens = dict_lens.tolist() if dict_rows is not None else [0] * B
+    for b, (n, cap) in enumerate(zip(comp_lens.tolist(), out_caps.tolist())):
+        n, cap = min(max(n, 0), M), min(cap, N)
+        plen = min(max(plens[b], 0), P)
+        window = dict_rows[b, P - plen:].numpy().tobytes() if plen else b""
+        src = comp[b].numpy().tobytes()
+        r, c, spans, seqs = walk_row_plain(src, n, cap, plen, resumable,
+                                           span_log)
+        if len(spans) > stride:
+            raise AssertionError("more spans than the row's slots")
+        olen[b] = r
+        if resumable:
+            cons[b] = c
+        if stats is not None:
+            stats.setdefault("row_sequences", []).append(seqs)
+            stats.setdefault("row_spans", []).append(len(spans))
+        if r <= 0:
+            continue
+        cells = np.zeros(r, np.int64)
+        for k, (ip, base) in enumerate(spans):
+            last = k + 1 == len(spans)
+            stop = c if resumable and last else None if last \
+                else spans[k + 1][0]
+            got, cl = decode_cells_plain(src, n, cap - base, base + plen, ip,
+                                         stop, window, refs=base)
+            if base + got != (r if last else spans[k + 1][1]):
+                raise AssertionError("the walk and the spans disagree")
+            cells[base:base + got] = cl
+        out[b, :r] = torch.from_numpy(jump_cells_plain(cells, rounds,
+                                                       stats=stats))
+    return out, olen, cons
 
 
 def decode_stream(payloads: Sequence[bytes], block_size: int,

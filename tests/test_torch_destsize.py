@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import noise_bytes, slot_collisions
+from chip_smoke import lz4_seq, noise_bytes, slot_collisions
 from lz4_tpu import block as jblock
 from lz4_tpu.kernels import decode_kernel as jdec
 from lz4_tpu.kernels import destsize_kernel as jds
@@ -480,6 +480,133 @@ def test_dest_size_decode_noise_matches_jax():
     _, olen, _ = dest_size_decode_both(rows, list(map(len, rows)), caps, 512,
                                        dicts=dicts)
     assert any(n < 0 for n in olen) and any(n > 0 for n in olen)
+
+
+def spans_model_both(comps, clens, caps, out_cap_max, dicts=None,
+                     span_log=2):
+    """``dest_size_decode_both`` (lz4_tpu and the serial plain decoder),
+    then the CPU model of kernel D's resumable schedule on the card
+    (``decode_rows_spans_plain``: the walk, spans of 2^span_log sequences
+    into cells, the rounds) on the same rows: equal olen, cons and bytes.
+    Returns (pieces, olen, cons, the model's stats)."""
+    pieces, olen, cons = dest_size_decode_both(comps, clens, caps,
+                                               out_cap_max, dicts)
+    kw = {}
+    if dicts is not None:
+        P = up128(max(map(len, dicts)))
+        kw = {"dict_rows": from_jax_lanes(byte_lanes(dicts, P, right=True)),
+              "dict_lens": torch.from_numpy(i32(list(map(len, dicts))))}
+    stats = {}
+    m_out, m_olen, m_cons = tdec.decode_rows_spans_plain(
+        from_jax_lanes(byte_lanes(comps, up128(max(map(len, comps))))),
+        torch.from_numpy(i32(clens)), out_cap_max,
+        torch.from_numpy(i32(caps)), resumable=True, span_log=span_log,
+        stats=stats, **kw)
+    assert m_olen.tolist() == olen and m_cons.tolist() == cons
+    for i, piece in enumerate(pieces):
+        assert m_out[i, :len(piece)].numpy().tobytes() == piece
+    return pieces, olen, cons, stats
+
+
+def _reach_back_block(plen: int, k: int) -> bytes:
+    """``k`` sequences of two literals and a 4-byte match at offset 3, then
+    a 4-byte match reaching the first byte of a ``plen``-byte dictionary
+    (offset = output so far + plen), then five literals: the dictionary is
+    read from the span that holds sequence k."""
+    out = b"".join(lz4_seq(b"q%d" % (i % 10), 3, 4) for i in range(k))
+    return out + lz4_seq(b"", 6 * k + plen, 4) + lz4_seq(b"tail!")
+
+
+def _resumable_cases(case):
+    """(payloads, caps, out_cap_max, dictionaries or None) of one case of
+    the resumable schedule's model."""
+    text = gen_buffer(20_000, 0.7, 31)
+    comp = compress_block(text[:4096])
+    if case == "span_edges":
+        # caps inside the first span, at span boundaries and one byte
+        # either side (the spans of 2^2 sequences)
+        _, _, spans, _ = tdec.walk_row_plain(comp, len(comp), 4096, 0,
+                                             False, 2)
+        caps = [1, 5, spans[1][1] - 1]
+        for _, base in spans[1:8]:
+            caps += [base - 1, base, base + 1]
+        return [comp] * len(caps), caps, 4096, None
+    if case == "dictionary":
+        # dictionaries of 0, 1, a few KB and P bytes; matches into them from
+        # later spans, real blocks written against a prefix
+        P = 4096
+        prefix = text[6000:6000 + P]
+        comps, dicts = [], []
+        for plen in (0, 1, 3000, P):
+            comps.append(_reach_back_block(plen, 9) if plen else
+                         compress_block(text[:3000]))
+            dicts.append(prefix[P - plen:])
+        for plen in (1, 3000, P):
+            src = text[6000 + P - 500:6000 + P + 3000] + prefix[:plen]
+            comps.append(compress_block(src, dict_=prefix[P - plen:]))
+            dicts.append(prefix[P - plen:])
+        caps = [8192] * len(comps)
+        caps[-1] = caps[2] = 30         # stops in the first spans
+        return comps, caps, 8192, dicts
+    if case == "corrupt_around_stop":
+        # a stop at the token at cons; a zero offset before it fails the
+        # row, one after it is never read
+        _, cons, _, _ = tdec.walk_row_plain(comp, len(comp), 1500, 0, True,
+                                            2)
+        ends = [e for e in _token_ends(comp)]
+        before = bytearray(comp)
+        after = bytearray(comp)
+        for end, at in ends:
+            tok = comp[at]
+            lits = tok >> 4
+            if lits < 15 and at + 1 + lits + 2 <= len(comp):
+                off = at + 1 + lits
+                if at < cons and end <= cons:
+                    before[off] = before[off + 1] = 0
+                elif at > cons:
+                    after[off] = after[off + 1] = 0
+        return [comp, bytes(before), bytes(after)], [1500] * 3, 4096, None
+    if case == "truncated_empty":
+        after_match, _ = _token_ends(comp)[len(_token_ends(comp)) // 2]
+        comps = [comp[:after_match], comp[:after_match - 1], comp[:1], b"",
+                 comp[:len(comp) // 3], comp]
+        return comps, [4096, 4096, 4096, 4096, 4096, 2000], 4096, None
+    rng = np.random.default_rng(8)                      # "noise"
+    comps = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+             for n in rng.integers(0, 400, 16)]
+    dicts = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+             for n in rng.integers(0, 200, 16)]
+    return comps, rng.integers(0, 600, 16).tolist(), 512, dicts
+
+
+@pytest.mark.parametrize("span_log", [0, 2, 7])
+@pytest.mark.parametrize("case", ["span_edges", "dictionary",
+                                  "corrupt_around_stop", "truncated_empty",
+                                  "noise"])
+def test_rows_spans_model_resumable_matches_serial_and_jax(case, span_log):
+    comps, caps, out_cap_max, dicts = _resumable_cases(case)
+    pieces, olen, cons, stats = spans_model_both(
+        comps, list(map(len, comps)), caps, out_cap_max, dicts, span_log)
+    if case == "span_edges":
+        assert all(0 <= n <= c for n, c in zip(olen, caps))
+        assert len(set(cons)) > 10
+    elif case == "dictionary":
+        assert olen[:2] == [3000, 63] and olen[3] == 63
+        assert olen[4:6] == [3501, 6500] and cons[4:6] == list(
+            map(len, comps[4:6]))
+        assert 0 < olen[2] <= 30 and 0 < olen[6] <= 30
+        # the reach into the dictionary lies in the third span or later
+        assert stats["row_spans"][1] == (3 if span_log == 2 else
+                                         11 if span_log == 0 else 1)
+    elif case == "corrupt_around_stop":
+        assert comps[2] != comps[0] and comps[2][:cons[0]] == comps[0][
+            :cons[0]]
+        assert (olen[0], cons[0]) == (olen[2], cons[2]) and olen[0] > 0
+        assert (olen[1], cons[1]) == (-1, -1)
+    elif case == "truncated_empty":
+        assert cons[0] == len(comps[0]) and olen[0] > 0
+        assert (olen[1], cons[1]) == (-1, -1)
+        assert (olen[3], cons[3]) == (0, 0)
 
 
 def _dict_block(plen: int, reach: int) -> bytes:

@@ -395,6 +395,74 @@ def test_decode_blocks_batch_malformed_matches_jax(seed):
     assert (t_olen.numpy() == -1).any() and (t_olen.numpy() > 0).any()
 
 
+def _spans_cases():
+    """Kernel D batch inputs for the model of its schedule on the card:
+    (payloads, out_cap) per case."""
+    text = stdlib_text(1 << 20)
+    N = 16384
+    rng = np.random.default_rng(77)
+    period = rng.integers(0, 256, 7, dtype=np.uint8).tobytes()
+    body = compress_block(text[:N])
+    ends = [i for i in range(1, len(body)) if tdec.walk_row_plain(
+        body[:i], i, N, 0, True, 0)[1] == i]
+    return {
+        "corpus": ([compress_block(text[i * N:(i + 1) * N])
+                    for i in range(4)] + [compress_block(text[:5000])], N),
+        # offsets under 32: zeros and short periods, and text after them
+        "zeros_periods": ([compress_block(bytes(N)),
+                           compress_block((period * N)[:N]),
+                           compress_block((b"ab" * N)[:N - 3]),
+                           compress_block(bytes(3000) + text[:9000])], N),
+        "noise": ([compress_block(rng.integers(0, 256, n, dtype=np.uint8)
+                                  .tobytes()) for n in (N, 700, 15, 1)]
+                  + [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+                     for n in rng.integers(0, 3000, 12)], N),
+        "malformed": (adversarial_cases(3), 8192),
+        # truncations, a payload that ends exactly after a match (the walk
+        # rejects it), rows past their cap, empty rows
+        "truncated_capped": ([body[:k] for k in (1, 2, 3, len(body) // 2,
+                                                 len(body) - 1)]
+                             + [body[:ends[len(ends) // 2]], b"", b"",
+                                compress_block(text[:N + 1000])], N),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _spans_case_jax(case):
+    comps, cap = _spans_cases()[case]
+    arr, lens = _rows(comps)
+    j_out, j_olen = jdec.decode_blocks(jnp.asarray(arr.astype(np.int32)),
+                                       jnp.asarray(lens), cap)
+    return arr, lens, cap, np.asarray(j_out), np.asarray(j_olen)
+
+
+@pytest.mark.parametrize("span_log", [0, 2, 7])
+@pytest.mark.parametrize("case", ["corpus", "zeros_periods", "noise",
+                                  "malformed", "truncated_capped"])
+def test_rows_spans_model_matches_serial_and_jax(case, span_log):
+    """The CPU model of kernel D's batch mode on the card (the walk with its
+    checkpoints, spans of 2^span_log sequences into cells, the rounds)
+    equals the serial plain decoder and lz4_tpu, byte for byte."""
+    arr, lens, cap, j_out, j_olen = _spans_case_jax(case)
+    rows, clens = torch.from_numpy(arr), torch.from_numpy(lens)
+    caps = torch.full((len(lens),), cap, dtype=torch.int32)
+    stats = {}
+    m_out, m_olen, m_cons = tdec.decode_rows_spans_plain(
+        rows, clens, cap, caps, span_log=span_log, stats=stats)
+    assert m_cons is None
+    _assert_rows_equal(j_out, j_olen, m_out, m_olen)
+    p_out, p_olen = tdec.decode_blocks(rows, clens, cap)
+    assert torch.equal(m_olen, p_olen)
+    for i, n in enumerate(p_olen.tolist()):
+        assert torch.equal(m_out[i, :max(n, 0)], p_out[i, :max(n, 0)])
+    seqs, spans = stats["row_sequences"], stats["row_spans"]
+    for n, q, k in zip(m_olen.tolist(), seqs, spans):
+        assert k == (-(-q // (1 << span_log)) if n >= 0 else 0)
+    if case == "corpus":
+        assert max(spans) > (200 if span_log == 0 else 1)
+        assert stats.get("jump_rounds", 0) >= 1
+
+
 def test_jax_lane_conversions_round_trip():
     rng = np.random.default_rng(5)
     lanes = rng.integers(0, 256, (3, 200)).astype(np.int32)

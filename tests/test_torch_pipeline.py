@@ -223,6 +223,51 @@ def test_compressor_keeps_in_flight_chunk_when_dispatch_fails(monkeypatch):
     assert tdev.decompress_frame_device(frame, device=CPU)[0] == data
 
 
+@pytest.mark.parametrize("call,nth", [("update", 0), ("flush", 0),
+                                      ("flush", 1), ("end", 0), ("end", 1)])
+def test_compressor_retries_after_a_failed_fetch(monkeypatch, call, nth):
+    """A fetch that raises (a D2H error, kernel C's range fault) inside
+    update, flush or end moves no state: the retried call completes the
+    frame lz4_tpu writes.  ``nth`` picks the fetch of the call that fails:
+    flush and end fetch the chunk in flight, then their remainder."""
+    data = mixed_stream(7 * W + 5000, 41)
+    pieces = [("update", data[:2 * W + 700]), ("update", data[2 * W + 700:
+                                                              4 * W + 100]),
+              ("flush", None), ("update", data[4 * W + 100:]),
+              ("end", None)]
+    jp, tp = _prefs(block_size_id=4, content_checksum=True,
+                    block_checksum=True)
+    jc = jtpu.DeviceFrameCompressor(jp, min_match=8)
+    tc = tdev.DeviceFrameCompressor(tp, min_match=8, device=CPU)
+    real = tdev._fetch_body
+    state = {"armed": False, "seen": 0, "raised": 0}
+
+    def fetch(*args):
+        if state["armed"]:
+            state["seen"] += 1
+            if state["seen"] == nth + 1:
+                state["raised"] += 1
+                raise ValueError("injected fetch failure")
+        return real(*args)
+
+    monkeypatch.setattr(tdev, "_fetch_body", fetch)
+    want, got = jc.begin(), tc.begin()
+    for i, (name, arg) in enumerate(pieces):
+        args = () if arg is None else (arg,)
+        want += getattr(jc, name)(*args)
+        # the second update is the first to fetch a chunk in flight
+        if name == call and (call != "update" or i == 1):
+            state["armed"] = True
+            with pytest.raises(ValueError, match="injected"):
+                getattr(tc, name)(*args)
+            state["armed"] = False
+        got += getattr(tc, name)(*args)
+    assert state["raised"] == 1
+    assert got == want
+    assert tdev.decompress_frame_device(got, device=CPU)[0] == data
+    assert jtpu.decompress_frame_device(got)[0] == data
+
+
 @pytest.mark.parametrize("kw", [
     dict(block_size_id=4),
     dict(block_size_id=7, block_independent=True, content_checksum=True),
