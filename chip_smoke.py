@@ -6,6 +6,7 @@
     python3 chip_smoke.py --destsize-times ROOT # kernels G and H of ROOT only
     python3 chip_smoke.py --decode-times ROOT   # kernels E, F, D of ROOT
     python3 chip_smoke.py --hc-times ROOT       # kernels I and C of ROOT
+    python3 chip_smoke.py --xxh-times ROOT      # kernels J and K of ROOT
 
 1. Checks for a card and prints its name and power limit.
 2. Builds the kernels from lz4_tpu_torch/csrc (nvcc, sm_90a).
@@ -71,9 +72,15 @@
    the shape of a 64 MiB -B4 frame) and timed there.  Kernel D's plain
    versions are the serial decoders.  Kernels J and K are held against
    their plain versions on every length from 0 to 70 (aligned and
-   unaligned rows), on ragged rows up to 100,001 bytes at four seeds, J
-   also against the host XXH32, and on every row of step 9's two batches.
-   H, D resumable, J and K are timed on step 9's batches, median of three.
+   unaligned rows), on ragged rows up to 100,001 bytes at four seeds, on
+   rows at storage offsets 1, 2, 3 and 15 (widths 72, 77 and 65,536), at
+   lengths one byte either side of one and two tiles of their staging,
+   on batches of 1, 7 and 4,097 rows, on one row of 1 MiB beside 63 rows
+   of 4 KB, J also against the host XXH32, and on every row of step 9's
+   batches (and of 16 MiB of it as rows of 77 bytes).  H, D resumable, J
+   and K are timed on step 9's batches, median of three; J and K also on
+   256 of its rows resident in the card's L2 (the kernel alone, launched
+   through its C entry point: about the per-row chain).
 4. Runs the main path at full size: a 64 MiB real-text corpus (the Python
    stdlib sources, built the way bench.py builds its corpus) through
    compress_frame_device and decompress_frame_device, at min_match=8 /
@@ -142,6 +149,7 @@ the temporary directories of steps 6 and 8).
 
 import functools
 import json
+import random
 import subprocess
 import sys
 import sysconfig
@@ -1533,6 +1541,96 @@ def hc_times(root: Path) -> int:
     return 0
 
 
+def xxh_launch(build, kernel, rows, lens, reps: int = 20):
+    """(CUDA-event ms per launch of kernel J or K, ``kernel`` "xxh32" or
+    "xxh64", over ``reps`` launches in a row after a warm one; the launch)
+    through its C entry point: the kernel alone, without the wrapper's
+    fetch, and not counted as a launch of the wrapper."""
+    import torch
+    entry = getattr(build.kernels_lib(), f"lz4tt_{kernel}_rows")
+    out = torch.empty((rows.shape[0],), device=rows.device,
+                      dtype=torch.int32 if kernel == "xxh32" else torch.int64)
+
+    def launch():
+        build.check_launch(kernel, entry(
+            rows.data_ptr(), rows.stride(0), lens.data_ptr(), rows.shape[1],
+            0, out.data_ptr(), rows.shape[0],
+            torch.cuda.current_stream().cuda_stream))
+        return out
+
+    launch()
+    _, ms = event_ms(lambda: [launch() for _ in range(reps)])
+    return ms / reps, launch
+
+
+def xxh_times(root: Path) -> int:
+    """``--xxh-times ROOT``: kernels J and K of the tree at ROOT (this
+    checkout, or another one unpacked beside it) on the smoke's shapes: the
+    corpus as 1,024 rows of 64 KB, its first 16 MiB as 4,096 pages of 4 KB
+    and as rows of 77 bytes, 256 of its rows (16 MiB) kept in the card's
+    L2 (timed right after a warm launch: about the per-row chain alone),
+    and 1,023 rows of 64 KB that start one byte into a granule.  For each
+    shape and kernel, in ms: ``kernel`` (the profiler's device time per
+    launch through the C entry point, the L2 flushed before each launch
+    but for the L2 shape), ``kernel_events`` (CUDA events around 20
+    launches in a row: 16 MiB shapes stay in L2), ``call`` (CUDA events
+    around one xxh32_batch or xxh64_batch call with its fetch, median of
+    five), and whether the launch's digests equal the call's.  Prints one
+    JSON line with the card's name and power limit."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root.resolve()))
+    from lz4_tpu_torch.kernels import build
+    from lz4_tpu_torch.kernels import xxh32_kernel as x32
+    from lz4_tpu_torch.kernels import xxh64_kernel as x64
+
+    if not Path(x32.__file__).resolve().is_relative_to(root.resolve()):
+        raise SmokeFailure(f"imported {x32.__file__}, not from {root}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    build.kernels_lib()
+    cuda = torch.device("cuda")
+    rows, lens = corpus_rows(real_text_corpus(CORPUS_BYTES), cuda)
+    shapes = {"rows1024": (rows, lens), "pages4096": xxh_pages(rows),
+              "rows77": xxh_rows77(rows),
+              "l2_rows256": (rows[:256], lens[:256]),
+              # every row one byte past a granule: the funnelled reads
+              "rows1023_at1": (rows.reshape(-1)[1:1 - W].view(-1, W),
+                               lens[1:])}
+    kernels = {"xxh32": x32.xxh32_batch, "xxh64": x64.xxh64_batch}
+    flush = torch.empty((256 << 20,), dtype=torch.uint8, device=cuda)
+    res = {"power": smi}
+    for shape, (r, n) in shapes.items():
+        for kernel, batch in kernels.items():
+            ms, launch = xxh_launch(build, kernel, r, n)
+            res[f"{kernel}_{shape}_kernel_events"] = ms
+
+            def cold():
+                if shape != "l2_rows256":
+                    flush.zero_()
+                launch()
+
+            res[f"{kernel}_{shape}_kernel"] = sum(
+                ms for name, ms in device_ms(cold).items() if "xxh" in name)
+            res[f"{kernel}_{shape}_call"] = sorted(
+                event_ms(lambda: batch(r, n))[1] for _ in range(5))[2]
+            # the smoke holds the digests against the plain versions; this
+            # only shows a timing experiment that hashes nothing at random
+            res[f"{kernel}_{shape}_launch_equals_call"] = bool(
+                np.array_equal(launch().cpu().numpy().view(
+                    np.uint32 if kernel == "xxh32" else np.uint64),
+                    batch(r, n)))
+    log(json.dumps({"xxh_times": str(root), "device":
+                    torch.cuda.get_device_name(0), **res}))
+    return 0
+
+
 def event_ms(fn):
     """(fn's result, its CUDA-event ms)."""
     import torch
@@ -1637,6 +1735,15 @@ def xxh_pages(rows):
     pages = rows.reshape(-1)[:XXH_PAGE_BYTES].reshape(-1, XXH_PAGE)
     return pages, torch.full((pages.shape[0],), XXH_PAGE, dtype=torch.int32,
                              device=rows.device)
+
+
+def xxh_rows77(rows):
+    """The first 16 MiB of the corpus rows as rows of 77 bytes (most rows
+    start at an address that is not a multiple of 4), with lengths."""
+    import torch
+    n = XXH_PAGE_BYTES // 77
+    return rows.reshape(-1)[:n * 77].view(n, 77), torch.full(
+        (n,), 77, dtype=torch.int32, device=rows.device)
 
 
 def destsize_phase(corpus: bytes, dev) -> dict:
@@ -2734,22 +2841,28 @@ def main() -> int:
                       right_rows([row0[:777]] * len(lens_c), "cpu"))
 
     # J and K: every length 0..70 (rows 8-aligned, and not), ragged rows
+    from lz4_tpu_torch.kernels import xxh32_kernel
     from lz4_tpu_torch.kernels.xxh32_kernel import xxh32_batch
     from lz4_tpu_torch.kernels.xxh64_kernel import xxh64_batch
     from lz4_tpu_torch.ops.xxhash import xxh32 as host_xxh32
 
-    def cmp_xxh(what, bufs, width, seed):
+    def cmp_xxh(what, bufs, width, seed, offset=0):
         """J and K against their plain versions on ``bufs`` in rows of
-        ``width`` bytes, and J against the host XXH32 of every buffer."""
+        ``width`` bytes, on the card ``offset`` bytes into their storage,
+        and J against the host XXH32 of every buffer."""
         rows_c, lens_c = D.byte_rows(bufs, width, "cpu")
+        flat = torch.zeros((offset + rows_c.numel(),), dtype=torch.uint8,
+                           device=cuda)
+        flat[offset:] = rows_c.reshape(-1).to(cuda)
+        rows_d = flat[offset:].view(rows_c.shape)
         for kernel, fn in (("xxh32", xxh32_batch), ("xxh64", xxh64_batch)):
-            k = fn(rows_c.to(cuda), lens_c.to(cuda), seed)
+            k = fn(rows_d, lens_c.to(cuda), seed)
             p = fn(rows_c, lens_c, seed)
             err = int((k != p).sum())
             stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"],
                                                err)
-            log(f"[compare] {kernel:14s} {what}, seed {seed:#x}: rows="
-                f"{len(p)} differing digests={err}")
+            log(f"[compare] {kernel:14s} {what}, seed {seed:#x}, storage "
+                f"offset {offset}: rows={len(p)} differing digests={err}")
             if err:
                 raise SmokeFailure(f"{kernel} disagrees with its plain "
                                    f"version on {what}")
@@ -2768,6 +2881,32 @@ def main() -> int:
         cmp_xxh("ragged rows up to 100,001 bytes",
                 [corpus[i * 1000:i * 1000 + n] for i, n in enumerate(ragged)],
                 max(ragged), seed)
+    # rows at any address: the staging copies from the 16-byte granule of
+    # a row's first byte; lengths either side of the staging's tiles;
+    # batch sizes around its groups of 8 rows; one long row among short
+    for offset in (1, 2, 3, 15):
+        for width in (72, 77):
+            cmp_xxh(f"lengths 0..70 in rows of {width}",
+                    [mixed[1000 + n:1000 + 2 * n] for n in range(71)], width,
+                    0x9E3779B1, offset)
+        cmp_xxh("8 rows of 65,536 bytes",
+                [corpus[i * W + 5 * i:(i + 1) * W - 3 * i] for i in range(8)],
+                W, 0, offset)
+    tile = xxh32_kernel.TILE
+    edges = [n + d for n in (tile, 2 * tile) for d in (-1, 0, 1)]
+    for offset in (0, 5):
+        cmp_xxh(f"lengths {edges} (tiles of {tile})",
+                [corpus[i * 9000:i * 9000 + n] for i, n in enumerate(edges)],
+                max(edges), (1 << 63) + 12345, offset)
+    rng = random.Random(12)
+    for nrows in (1, 7, 4097):
+        cmp_xxh(f"{nrows} ragged rows up to 2,000 bytes",
+                [corpus[i * 500:i * 500 + rng.randint(0, 2000)]
+                 for i in range(nrows)], 2000, 1, 3)
+    cmp_xxh("one row of 1 MiB beside 63 rows of 4 KB",
+            [corpus[:1 << 20]] + [corpus[(1 << 20) + i * 4096:
+                                         (1 << 20) + (i + 1) * 4096]
+                                  for i in range(63)], 1 << 20, 0)
 
     # the corpus batches of the destsize phase: sampled rows against the
     # plain versions, and the times (median of three single launches)
@@ -2848,9 +2987,11 @@ def main() -> int:
         f"{[round(t, 3) for t in b_ms]} ms, plain {b_plain:.1f} ms on "
         f"{len(sample)} rows; every row equals the corpus")
     del ds_comp, k, p
-    # J and K on the rows and on 4 KB pages, every row against the plain
+    # J and K on the rows, on 4 KB pages and on rows of 77 bytes, every row
+    # against the plain
     for shape, (r, n) in (("rows", (ds_rows_d, ds_lens)),
-                          ("pages", xxh_pages(ds_rows_d))):
+                          ("pages", xxh_pages(ds_rows_d)),
+                          ("rows of 77", xxh_rows77(ds_rows_d))):
         r_h, n_h = r.cpu(), n.cpu()
         for kernel, fn in (("xxh32", xxh32_batch), ("xxh64", xxh64_batch)):
             p, plain_ms = time_host(lambda: fn(r_h, n_h, 0))
@@ -2863,7 +3004,8 @@ def main() -> int:
                 raise SmokeFailure(f"{kernel} disagrees with its plain "
                                    f"version on the corpus {shape}")
             rounds = time_rounds(lambda: fn(r, n, 0))
-            tag = "" if shape == "rows" else "_pages"
+            tag = {"rows": "", "pages": "_pages", "rows of 77": "_rows77"}[
+                shape]
             stats[kernel].update({"ms" + tag: sorted(rounds)[1],
                                   "ms_rounds" + tag: rounds,
                                   "plain_ms" + tag: plain_ms})
@@ -2871,6 +3013,10 @@ def main() -> int:
                 # the rows and their lengths in, one digest per row out
                 set_bound(kernel, r.numel() + 4 * nrows,
                           (4 if kernel == "xxh32" else 8) * nrows)
+                # 256 rows (16 MiB) resident in L2 after a warm launch: the
+                # kernel's time is about the per-row chain
+                stats[kernel]["chain_ms"] = xxh_launch(
+                    build, kernel, r[:256], n[:256])[0]
     mb = len(corpus) / 1e3
     log(f"[time] encode_dest_size (kernel H), {nrows} rows of 64 KB, cap "
         f"n/2: rounds {[round(t, 3) for t in h_ms]} ms "
@@ -2882,8 +3028,11 @@ def main() -> int:
         f"{len(sample)} rows; " + "; ".join(
             f"{k} {stats[k]['ms']:.3f} ms ({mb / 1e3 / stats[k]['ms']:.1f} "
             f"GB/s) on the rows, {stats[k]['ms_pages']:.3f} ms on "
-            f"{XXH_PAGE_BYTES >> 20} MiB of 4 KB pages, each with its fetch "
-            f"(plain version {stats[k]['plain_ms']:.1f} ms on the rows)"
+            f"{XXH_PAGE_BYTES >> 20} MiB of 4 KB pages, "
+            f"{stats[k]['ms_rows77']:.3f} ms as rows of 77 bytes, each with "
+            f"its fetch (plain version {stats[k]['plain_ms']:.1f} ms on the "
+            f"rows); the kernel alone on 256 rows in L2 "
+            f"{stats[k]['chain_ms']:.4f} ms"
             for k in ("xxh32", "xxh64")))
     del ds_rows_d
 
@@ -3026,4 +3175,6 @@ if __name__ == "__main__":
         sys.exit(decode_times(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--hc-times"] and len(sys.argv) == 3:
         sys.exit(hc_times(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--xxh-times"] and len(sys.argv) == 3:
+        sys.exit(xxh_times(Path(sys.argv[2])))
     sys.exit(main())

@@ -47,13 +47,16 @@ struct OutElem<Out::kCells> {
 };
 
 // Length-extension bytes at *ip (a run of 255s closed by a smaller byte);
-// false when the run reaches n.
+// false when the run reaches n.  The length saturates at EXT_MAX, past any
+// length a block can hold, so that a run longer than int32 fails its
+// checks instead of wrapping to a negative read position.
+constexpr int EXT_MAX = 1 << 30;
 __device__ __forceinline__ bool read_ext(const uint8_t* src, int n, int* ip,
                                          int* len) {
   while (true) {
     if (*ip >= n) return false;
     const int b = src[(*ip)++];
-    *len += b;
+    *len = min(*len + b, EXT_MAX);
     if (b != 255) return true;
   }
 }

@@ -1,10 +1,15 @@
 """The port's batched checksums (kernels J and K) against lz4_tpu's, on the
 CPU: ``xxh32_batch`` and ``xxh64_batch`` on CPU tensors (the numpy plain
 versions) against the JAX functions (their stripe kernels in interpret
-mode) and against the reference one-shot hashes, every digest equal.
+mode) and against the reference one-shot hashes, every digest equal; and
+the models of the card's staging (``xxh32_rows_tiled_plain``,
+``xxh64_rows_tiled_plain``: rows copied in tiles from the 16-byte granule
+of their first byte) against both, at every start offset in a granule.
 """
 
 import random
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,14 +21,29 @@ from lz4_tpu.kernels.xxh64_kernel import xxh64_batch as jax_xxh64_batch
 from lz4_tpu.ops.xxhash_np import xxh32 as xxh32_np
 from lz4_tpu.ops.xxhash_np import xxh64 as xxh64_np
 from lz4_tpu.utils.datagen import gen_buffer, incompressible
-from lz4_tpu_torch.kernels.xxh32_kernel import xxh32_batch
-from lz4_tpu_torch.kernels.xxh64_kernel import xxh64_batch
+from lz4_tpu_torch.kernels.xxh32_kernel import (NARROW, NSTAGE, ROOM, TILE,
+                                                narrow_rows, xxh32_batch,
+                                                xxh32_rows_narrow_plain,
+                                                xxh32_rows_plain,
+                                                xxh32_rows_tiled_plain)
+from lz4_tpu_torch.kernels.xxh64_kernel import (xxh64_batch,
+                                                xxh64_rows_narrow_plain,
+                                                xxh64_rows_plain,
+                                                xxh64_rows_tiled_plain)
 from lz4_tpu_torch.ops.xxhash import xxh32 as port_host_xxh32
 
 LENGTHS = [0, 1, 3, 4, 5, 15, 16, 17, 31, 32, 63, 64, 100, 1000, 4096,
            65536, 65537, 100001]
 SEEDS32 = [0, 1, 0x9E3779B1, (1 << 63) + 12345]
 SEEDS64 = [0, 1, 0xDEADBEEF, 0x9E3779B1, (1 << 63) + 12345]
+REPO = Path(__file__).resolve().parent.parent
+TILES = (64, TILE)          # a small tile, and the kernels' own
+# kernel -> (its staging model, its plain version, lz4_tpu's batch, seed
+# mask, the model of its narrow path)
+MODELS = {"xxh32": (xxh32_rows_tiled_plain, xxh32_rows_plain,
+                    jax_xxh32_batch, 0xFFFFFFFF, xxh32_rows_narrow_plain),
+          "xxh64": (xxh64_rows_tiled_plain, xxh64_rows_plain,
+                    jax_xxh64_batch, (1 << 64) - 1, xxh64_rows_narrow_plain)}
 
 
 def rows_of(bufs, pad=0):
@@ -143,3 +163,102 @@ def test_lengths_are_clamped_and_arguments_checked():
             fn(rows, lens[:2])
         with pytest.raises(ValueError):
             fn(rows[:, ::2], lens)
+
+
+def check_tiled(kernel, bufs, seed, tile, starts_list):
+    """The staging model at each ``starts`` (the rows' first bytes in their
+    granules) equals the plain version and lz4_tpu on ``bufs``."""
+    tiled, plain, jax_fn, mask, _ = MODELS[kernel]
+    rows, lens = rows_of(bufs)
+    rows, lens = rows.numpy(), lens.numpy()
+    want = jax_digests(jax_fn, bufs, seed & mask)
+    np.testing.assert_array_equal(plain(rows, lens, seed), want)
+    for starts in starts_list:
+        np.testing.assert_array_equal(
+            tiled(rows, lens, seed, starts, tile), want,
+            err_msg=f"starts {list(starts)}")
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("kernel", sorted(MODELS))
+def test_tiled_model_every_length_and_start(kernel, tile):
+    base = gen_buffer(100, 0.5, 3)
+    bufs = [base[:n] for n in range(71)]
+    check_tiled(kernel, bufs, 0x9E3779B1, tile,
+                [np.full(len(bufs), s) for s in range(16)])
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("kernel", sorted(MODELS))
+def test_tiled_model_at_tile_edges(kernel, tile):
+    bufs = [gen_buffer(n, 0.6, n) for n in
+            (tile - 1, tile, tile + 1, 2 * tile - 1, 2 * tile, 2 * tile + 1)]
+    check_tiled(kernel, bufs, (1 << 63) + 12345, tile,
+                [np.full(len(bufs), s) for s in range(16)])
+
+
+@pytest.mark.parametrize("seed", [0, (1 << 63) + 12345])
+@pytest.mark.parametrize("kernel", sorted(MODELS))
+def test_tiled_model_ragged(kernel, seed):
+    rng = random.Random(11)
+    bufs = [gen_buffer(rng.choice([0, rng.randint(1, 100),
+                                   rng.randint(100, 9000)]),
+                       rng.uniform(0.3, 0.9), i) for i in range(24)]
+    for tile in TILES:
+        check_tiled(kernel, bufs, seed, tile,
+                    [np.array([rng.randrange(16) for _ in bufs])
+                     for _ in range(3)])
+
+
+@pytest.mark.parametrize("width", [1, 16, 77, NARROW])
+@pytest.mark.parametrize("kernel", sorted(MODELS))
+def test_narrow_model_matches_jax(kernel, width):
+    """Rows of at most NARROW bytes: groups of narrow_rows(width) rows
+    staged as one range, at every start of the storage in a granule."""
+    _, plain, jax_fn, mask, narrow = MODELS[kernel]
+    rng = random.Random(width)
+    nrows = 2 * narrow_rows(width) + 9        # two whole groups and a part
+    bufs = [gen_buffer(width, 0.6, 0)] + [
+        gen_buffer(rng.randint(0, width), 0.6, i) for i in range(1, nrows)]
+    rows, lens = rows_of(bufs)
+    rows, lens = rows.numpy(), lens.numpy()
+    seed = (1 << 63) + 12345
+    want = jax_digests(jax_fn, bufs, seed & mask)
+    np.testing.assert_array_equal(plain(rows, lens, seed), want)
+    for start in (0, 3, 15):
+        np.testing.assert_array_equal(narrow(rows, lens, seed, start), want,
+                                      err_msg=f"start {start}")
+
+
+@pytest.mark.parametrize("width", [72, 77, 4096])
+@pytest.mark.parametrize("offset", [1, 2, 3, 15])
+def test_views_at_storage_offsets_match_jax(offset, width):
+    """Contiguous rows that start ``offset`` bytes into their storage."""
+    rng = random.Random(offset * width)
+    bufs = [gen_buffer(rng.randint(0, width), 0.6, i) for i in range(9)]
+    rows, lens = rows_of(bufs, width - max(len(b) for b in bufs))
+    flat = torch.zeros((offset + rows.numel(),), dtype=torch.uint8)
+    flat[offset:] = rows.reshape(-1)
+    view = flat[offset:offset + rows.numel()].view(len(bufs), width)
+    assert view.storage_offset() == offset and view.is_contiguous()
+    for seed in (0, 0x9E3779B1):
+        np.testing.assert_array_equal(
+            xxh32_batch(view, lens, seed),
+            jax_digests(jax_xxh32_batch, bufs, seed))
+        np.testing.assert_array_equal(
+            xxh64_batch(view, lens, seed),
+            jax_digests(jax_xxh64_batch, bufs, seed))
+
+
+def test_models_use_the_kernels_tile():
+    """The staging models take csrc/xxh.cu's tile, room and narrow path."""
+    src = (REPO / "lz4_tpu_torch" / "csrc" / "xxh.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("TILE") == TILE and const("NARROW") == NARROW
+    assert const("NSTAGE") == NSTAGE
+    assert re.search(r"constexpr int PITCH = TILE \+ (\d+);", src).group(1) \
+        == str(ROOM)
+    assert narrow_rows(NARROW) == 8 and narrow_rows(77) == 48 \
+        and narrow_rows(1) == const("RMAX")
