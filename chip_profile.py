@@ -26,7 +26,12 @@ destsize phase, on the corpus as rows of 64 KB) it runs kernel H at cap =
 max(n // 2, 64), the first round of kernel D's resumable decode of kernel
 B's payloads at out_caps = 32,768, xxh32_batch and xxh64_batch over the
 rows, and the SG walk of 128 KB iovecs into 32 KB buffers with kernel H as
-its destSize compressor.  Each step runs twice: once untraced (wall time
+its destSize compressor; for the legacy cells it compresses the corpus
+through compress_legacy_device at -1 (kernel A) and -9 (kernel I); for
+the envelope cells (chip_smoke.py's envelope phase) it decodes a -B7
+independent and a -B7 linked frame of just over 2 GiB through
+decompress_frame_device (kernel E in runs) and runs the SG walk of a
+partial source over kernel H.  Each step runs twice: once untraced (wall time
 only) and once under torch.profiler with CUDA activity.  From the traced
 pass's Chrome trace it reports:
 
@@ -111,10 +116,12 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (DS_DECODE_CAP, FILE_SETTINGS, b4_frame,
-                            corpus_rows, filled, kernel_b_payloads,
-                            kernel_h_dest_size, real_text_corpus,
-                            sg_h_layout, sg_layouts, stream_files)
+    from chip_smoke import (DS_DECODE_CAP, FILE_SETTINGS, LEGACY_SETTINGS,
+                            SG_PARTIAL, b4_frame, corpus_rows,
+                            envelope_frame, envelope_inputs, filled,
+                            frame_payloads, kernel_b_payloads,
+                            real_text_corpus, sg_h_layout, sg_layouts,
+                            stream_files)
     from lz4_tpu_torch import device as D
     from lz4_tpu_torch import io as tio
     from lz4_tpu_torch import sg
@@ -206,7 +213,25 @@ def main() -> int:
                   else D.decompress_frame_device)
         measure(f"stream_{name}/decompress", lambda: decode(files[name])[0],
                 corpus)
+    b7_blocks = [p for p, _ in frame_payloads(files["b7"], 7)]
     del files
+    for flags, level in LEGACY_SETTINGS:
+        key = f"legacy{level}/compress"
+        frame = measure(key, lambda: D.compress_legacy_device(corpus, level))
+        results[key]["ratio"] = len(frame) / len(corpus)
+    del frame
+    # frames of just over 2 GiB (chip_smoke.envelope_frame)
+    linked_blocks, texts, noise = envelope_inputs(corpus, "cuda")
+    for key, blocks, linked in (("env_b7", b7_blocks, False),
+                                ("env_b7_linked", linked_blocks, True)):
+        frame, content, _ = envelope_frame(list(zip(blocks, texts)), linked,
+                                           noise)
+        measure(f"{key}/decompress",
+                lambda: D.decompress_frame_device(frame)[0], content,
+                content=len(content))
+        results[f"{key}/decompress"]["frame_bytes"] = len(frame)
+        del frame, content
+    del noise
     frame = b4_frame(corpus, "cuda")
     measure("b4/decompress", lambda: D.decompress_frame_device(frame)[0],
             corpus)
@@ -255,9 +280,12 @@ def main() -> int:
     del rows
     ins, caps = sg_h_layout(corpus)
     total, _, _ = measure("sg_h/compress", lambda: sg.sg_compress(
-        ins, caps, dest_size_compress=kernel_h_dest_size("cuda", {})),
+        ins, caps, dest_size_compress=sg.dest_size_over_h("cuda")),
         content=sum(map(len, ins)))
     results["sg_h/compress"]["ratio"] = total / sum(map(len, ins))
+    total, _, _ = measure("sg_partial_h/compress", lambda: sg.sg_compress(
+        ins, caps, source_size=SG_PARTIAL), content=SG_PARTIAL)
+    results["sg_partial_h/compress"]["ratio"] = total / SG_PARTIAL
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "corpus_bytes": len(corpus), "cells": results}))
     return 0

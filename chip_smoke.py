@@ -80,7 +80,12 @@
    batches (and of 16 MiB of it as rows of 77 bytes).  H, D resumable, J
    and K are timed on step 9's batches, median of three; J and K also on
    256 of its rows resident in the card's L2 (the kernel alone, launched
-   through its C entry point: about the per-row chain).
+   through its C entry point: about the per-row chain).  Kernels A and I
+   with their ``tails`` on (legacy compress's join) are held against their
+   plain versions (payloads and tails) and against themselves with tails
+   off, A on two 9-block chains, the main-path chunk and 4 MB of noise, I
+   on the small rows at levels 1 and 9 and (tails on against off) on the
+   1,024 corpus rows; both are timed with tails on.
 4. Runs the main path at full size: a 64 MiB real-text corpus (the Python
    stdlib sources, built the way bench.py builds its corpus) through
    compress_frame_device and decompress_frame_device, at min_match=8 /
@@ -137,12 +142,30 @@
    compressor, and back through sg.sg_decompress (kernel E); and
    examples/torch_port/dest_size_resume_torch.py.  Kernels H, B, D in both
    batch variants, J, K and E must launch, and no plain version run.
-10. Decodes a 1 MB frame written by the kernels with the plain versions.
+10. Legacy compress, with its own counter reset and read: the corpus
+   through io.compress_stream at -l -1 (kernel A, 8 MB slices as linked
+   chains, payloads joined from their tails) and -l -9 (kernel I), each
+   decoded by decompress_legacy_device (kernel E) byte-exact, with ratio
+   and walls.  Kernels A, I and E must launch, and no plain version run.
+11. The single-card envelope, with its own counter reset and read: a -B7
+   independent frame and a -B7 linked frame of just over 2 GiB of raw
+   bytes (500 stored 4 MB noise blocks, the corpus's 4 MB blocks four
+   times, 20 more noise blocks; the linked frame's text blocks from the
+   main path's chain, so that the block after kernel E's cut reaches into
+   the block before it) through decompress_frame_device, against the
+   content rebuilt on the host; an SG walk of a partial source (3 MiB of
+   4 MiB) over kernel H, round-tripped; the 4 MiB walk with MAX_TOTAL
+   patched to 1 MiB (over H), equal to the explicit H callback's frame;
+   the '4k' chain decoded with MAX_DEVICE_CONTENT and STREAM_MAX_INPUT
+   patched down (kernel E in runs), equal to kernel F's answer.  Kernels
+   E, H, G and F must launch, and no plain version run.
+12. Decodes a 1 MB frame written by the kernels with the plain versions.
 
 Prints a JSON line of the kernels (each with the launch count of the phase
 that drives it, every phase's counts, its time on the card, its plain
 version's, and its bound: the bytes the timed call must read and write at
-3.35 TB/s), then, as its last line, {"ok": true, "device": {...}}.  Exits non-zero on any failure, and when no
+3.35 TB/s; the legacy and envelope phases' ratios and walls beside), then,
+as its last line, {"ok": true, "device": {...}}.  Exits non-zero on any failure, and when no
 card is present.  Writes nothing outside build/ (the kernel library and
 the temporary directories of steps 6 and 8).
 """
@@ -287,12 +310,12 @@ def slot_collisions(n: int, seed: int) -> bytes:
 
 # -- building 4 MB and 8 MB blocks from independent 256 KB payloads ----------
 # Kernel B encodes rows of at most 256 KB, and the card host has no LZ4
-# compressor that writes larger blocks.  An independent block's offsets
-# never leave the block, so consecutive independent payloads become one
-# block when each payload's terminal literal-only sequence is folded into
-# the first sequence of the next: the new token takes the sum of both
-# literal runs, with the second token's match nibble, offset and extension.
-# Only the merged block's end keeps the end-of-block rules, as it must.
+# compressor that writes larger blocks of independent payloads:
+# lz4_tpu_torch.legacy.merged_blocks joins consecutive payloads into one
+# block (each terminal literal run folded into the next payload's first
+# sequence).  It is imported where it is called, so that the --*-times
+# modes load the package of the tree they time.
+
 
 def frame_payloads(frame: bytes, pos: int):
     """(payload, stored) of each block record of an LZ4F frame without
@@ -308,29 +331,10 @@ def frame_payloads(frame: bytes, pos: int):
         pos += size
 
 
-def _ext(payload: bytes, ip: int, run: int):
-    """Add a length extension at ``ip`` to ``run``: (run, next ip)."""
-    while True:
-        b = payload[ip]
-        ip += 1
-        run += b
-        if b != 255:
-            return run, ip
-
-
-def literal_head(n: int, match_nibble: int = 0) -> bytes:
-    """Token and literal-length extension of a sequence with ``n``
-    literals."""
-    head = bytearray([min(n, 15) << 4 | match_nibble])
-    if n >= 15:
-        rest = n - 15
-        head += b"\xff" * (rest // 255) + bytes([rest % 255])
-    return bytes(head)
-
-
 def lz4_seq(lits: bytes, offset: int = 0, mlen: int = 0) -> bytes:
     """One LZ4 sequence: ``lits``, then a match of ``mlen`` bytes at
     ``offset`` (none when ``mlen`` is 0: a block's last sequence)."""
+    from lz4_tpu_torch.legacy import literal_head
     out = literal_head(len(lits), min(max(mlen - 4, 0), 15)) + lits
     if mlen:
         out += offset.to_bytes(2, "little")
@@ -386,55 +390,6 @@ def sg_adversarial(P: int, text: bytes):
     ]
 
 
-def terminal_literals(payload: bytes) -> int:
-    """Offset of the token of a block's last (literal-only) sequence."""
-    ip, n = 0, len(payload)
-    while True:
-        at = ip
-        token = payload[ip]
-        run, ip = token >> 4, ip + 1
-        if run == 15:
-            run, ip = _ext(payload, ip, run)
-        ip += run
-        if ip >= n:
-            return at
-        ip += 2
-        if token & 15 == 15:
-            _, ip = _ext(payload, ip, 0)
-
-
-def merge_payloads(payloads) -> bytes:
-    """One LZ4 block decoding to the concatenation of the contents of
-    independent blocks ``payloads`` (compressed, in order)."""
-    out = bytearray()
-    carry = b""                 # literals of the previous terminal sequence
-    for p in payloads:
-        token = p[0]
-        run, ip = token >> 4, 1
-        if run == 15:
-            run, ip = _ext(p, ip, run)
-        lits = carry + p[ip:ip + run]
-        if ip + run == len(p):                  # one literal-only sequence
-            carry = lits
-            continue
-        t = terminal_literals(p)
-        out += literal_head(len(lits), token & 15) + lits + p[ip + run:t]
-        run, ip = p[t] >> 4, t + 1
-        if run == 15:
-            run, ip = _ext(p, ip, run)
-        carry = p[ip:ip + run]
-    out += literal_head(len(carry)) + carry
-    return bytes(out)
-
-
-def merged_blocks(records, group: int):
-    """Merge every ``group`` consecutive 256 KB records (payload, stored)
-    into one block; a stored record takes part as a literal-only block."""
-    payloads = [literal_head(len(p)) + p if st else p for p, st in records]
-    return [merge_payloads(payloads[i:i + group])
-            for i in range(0, len(payloads), group)]
-
-
 def block_records(payloads) -> bytes:
     """LE32 size + payload for each compressed block (no checksums)."""
     return b"".join(len(p).to_bytes(4, "little") + p for p in payloads)
@@ -461,6 +416,7 @@ def stream_files(corpus: bytes, dev) -> dict:
     from lz4_tpu_torch import device as D
     from lz4_tpu_torch import spec
     from lz4_tpu_torch.frame import FramePreferences, encode_frame_header
+    from lz4_tpu_torch.legacy import merged_blocks
     from lz4_tpu_torch.ops.xxhash import xxh32
 
     torch.cuda.synchronize()
@@ -799,7 +755,7 @@ def sg_phase(layouts: dict, dev, log_times: dict) -> None:
         walk_c = None
         if codec is None:
             t0 = time.perf_counter()
-            scripted = sg._sg_device_scripted(ins, caps, None, None, 1, dev)
+            scripted = sg._sg_device_compressor(ins, caps, None, None, 1, dev)
             t1 = time.perf_counter()
             if sg.sg_compress(ins, caps, dest_size_compress=scripted) != \
                     (total, consumed, outs):
@@ -1246,9 +1202,14 @@ def encode_times(root: Path) -> int:
     CUDA-event ms (mean of 10 calls after one warm-up), and ``A_corpus``:
     ms of A over every 4 MB chunk of the 64 MiB corpus, each behind its
     64 KB window, as compress_frame_device launches it at min_match 8 (the
-    main path's A time per 64 MiB; mean of 3 passes); and ``peak_MiB``:
-    the peak device memory of compress_frame_device on the corpus as
-    independent 256 KB blocks (kernel B over 256 rows, with its tables)."""
+    main path's A time per 64 MiB; mean of 3 passes), and, where the
+    tree's kernel A has them, the same with its ``tails`` on
+    (``A_text_tails``, ``A_corpus_tails``: what legacy compress launches);
+    and ``peak_MiB``: the peak device memory of compress_frame_device on
+    the corpus as independent 256 KB blocks (kernel B over 256 rows, with
+    its tables)."""
+    import inspect
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1269,11 +1230,15 @@ def encode_times(root: Path) -> int:
                        corpus[(4 << 20) - W:4 << 20]),
               **edge_chunks(corpus)}
     res = {}
+    tails = "tails" in inspect.signature(enc.scan_linked).parameters
     for what, (data, window) in chunks.items():
         card, _ = make_linked_case(enc, cuda, data, window, 8, zero=True)
         enc.scan_linked(*card)
         res[f"A_{what}"] = event_ms(
             lambda: [enc.scan_linked(*card) for _ in range(10)])[1] / 10
+        if tails and what == "text":
+            res["A_text_tails"] = event_ms(lambda: [enc.scan_linked(
+                *card, tails=True) for _ in range(10)])[1] / 10
     main = [make_linked_case(enc, cuda, corpus[i:i + MB4],
                              corpus[max(i - W, 0):i], 8, zero=True)[0]
             for i in range(0, len(corpus), MB4)]
@@ -1281,6 +1246,10 @@ def encode_times(root: Path) -> int:
         enc.scan_linked(*card)
     res["A_corpus"] = event_ms(lambda: [enc.scan_linked(*card) for _ in
                                         range(3) for card in main])[1] / 3
+    if tails:
+        res["A_corpus_tails"] = event_ms(lambda: [
+            enc.scan_linked(*card, tails=True) for _ in range(3)
+            for card in main])[1] / 3
     del main
     rows, lens = kernel_b_rows(corpus)
     rows, lens = rows.to(cuda), lens.to(cuda)
@@ -1363,7 +1332,7 @@ def destsize_times(root: Path) -> int:
     ins, caps = sg_h_layout(corpus)
     res["sg_over_H_wall"] = median_ms(
         lambda: sg.sg_compress(ins, caps, dest_size_compress=(
-            kernel_h_dest_size(cuda, {})), device=cuda), wall=True)
+            sg.dest_size_over_h(cuda, {})), device=cuda), wall=True)
     log(json.dumps({"destsize_times": str(root), "device":
                     torch.cuda.get_device_name(0), **res}))
     return 0
@@ -1696,32 +1665,6 @@ def resume_decode(comp, clen, cap: int, width: int, timer=None):
             cap = min(2 * cap, width)
 
 
-def kernel_h_dest_size(dev, tally: dict):
-    """A destSize compressor over kernel H for sg.sg_compress: [window |
-    piece] in one row, the window as the row's prefix.  Counts its blocks
-    and its capacity stops (blocks that cover less than their piece) in
-    ``tally``."""
-    import numpy as np
-
-    from lz4_tpu_torch.kernels import destsize_kernel as dsk
-    from lz4_tpu_torch.kernels.common import to_device, to_host
-    ns = W + SG_H_IOVEC
-
-    def compress(src, capacity, dict_, acceleration):
-        row = np.zeros((ns,), np.uint8)
-        row[:len(dict_) + len(src)] = np.frombuffer(dict_ + src, np.uint8)
-        out, olen, consumed = dsk.encode_blocks_dest_size(
-            to_device(row, dev).reshape(1, ns), i32_tensor([len(src)], dev),
-            i32_tensor([capacity], dev), acceleration,
-            window_lens=i32_tensor([len(dict_)], dev))
-        used = int(consumed[0])
-        tally["blocks"] = tally.get("blocks", 0) + 1
-        tally["stops"] = tally.get("stops", 0) + (used < len(src))
-        return used, to_host(out[0, :int(olen[0])]).tobytes()
-
-    return compress
-
-
 def sg_h_layout(corpus: bytes):
     """(input iovecs, output caps) of the SG walk over kernel H."""
     data = corpus[:SG_H_BYTES]
@@ -1857,7 +1800,7 @@ def destsize_phase(corpus: bytes, dev) -> dict:
     tally = {}
     t0 = time.perf_counter()
     total, used, outs = sg.sg_compress(
-        ins, caps, dest_size_compress=kernel_h_dest_size(dev, tally),
+        ins, caps, dest_size_compress=sg.dest_size_over_h(dev, tally),
         device=dev)
     t_c = time.perf_counter() - t0
     content = sum(map(len, ins))
@@ -1893,6 +1836,250 @@ def destsize_phase(corpus: bytes, dev) -> dict:
         raise SmokeFailure("examples/torch_port/dest_size_resume_torch.py "
                            "failed")
     return out
+
+
+# -- legacy compress (kernels A and I, their tails) ---------------------------
+LEGACY_SETTINGS = (("-l -1", 1), ("-l -9", 9))
+
+
+def legacy_phase(corpus: bytes, dev) -> dict:
+    """Legacy compress at full size, through the entry point a user calls:
+    the corpus through io.compress_stream with -l -1 (kernel A, 8 MB slices
+    as linked chains) and -l -9 (kernel I), each decoded by
+    decompress_legacy_device (kernel E) to the corpus.  Returns the ratio
+    and walls of each."""
+    import io
+
+    import torch
+
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import io as tio
+    res = {}
+    mb = len(corpus) / 1e6
+    for flags, level in LEGACY_SETTINGS:
+        dst = io.BytesIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, w = tio.compress_stream(io.BytesIO(corpus), dst, tio.IoPrefs(
+            legacy=True, level=level, verbosity=0), len(corpus), device=dev)
+        t1 = time.perf_counter()
+        out, used = D.decompress_legacy_device(dst.getvalue(), device=dev)
+        t2 = time.perf_counter()
+        if (r, w) != (len(corpus), len(dst.getvalue())) or out != corpus \
+                or used != w:
+            raise SmokeFailure(f"legacy phase: {flags} does not round-trip")
+        res[flags] = {"ratio": w / len(corpus), "bytes": w,
+                      "compress_s": t1 - t0, "decompress_s": t2 - t1}
+        log(f"[legacy] {len(corpus) >> 20} MiB corpus, io.compress_stream "
+            f"{flags}: ratio {w / len(corpus):.6f} ({w} bytes), compress "
+            f"{mb / (t1 - t0):.1f} MB/s ({t1 - t0:.3f} s), "
+            f"decompress_legacy_device {mb / (t2 - t1):.1f} MB/s "
+            f"({t2 - t1:.3f} s), byte-exact")
+        del out
+    return res
+
+
+# -- the single-card envelope: frames past 2 GiB, SG layouts outside G and F --
+ENV_BLOCK = 4 << 20                # the frames' block size (-B7)
+ENV_LEAD_BLOCKS = 500              # stored noise blocks before the text
+ENV_TAIL_BLOCKS = 20               # and after it
+ENV_TEXT_COPIES = 4                # the corpus's 16 blocks, this many times
+SG_PARTIAL = 3 * (1 << 20) + 12345  # the partial walk's source_size
+
+
+def envelope_frame(text_blocks, linked: bool, noise: bytes):
+    """A -B7 frame of just over 2 GiB of raw bytes: ENV_LEAD_BLOCKS stored
+    blocks of noise, ENV_TEXT_COPIES copies of ``text_blocks`` ((payload,
+    content) of the corpus's 4 MB blocks, compressed), ENV_TAIL_BLOCKS more
+    of noise; independent or linked.  Kernel E's int32 input puts a cut
+    among the text blocks; in a linked frame the block after the cut is
+    one whose matches reach into the block before (not the first of a
+    copy), moving the lead by a block where needed.  Returns (frame,
+    content, the index of the first block after each cut)."""
+    import numpy as np
+
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import spec
+    from lz4_tpu_torch.frame import FramePreferences, encode_frame_header
+    header = encode_frame_header(FramePreferences(
+        block_size_id=7, block_independent=not linked))
+    n_text = len(text_blocks)
+    for lead in range(ENV_LEAD_BLOCKS, ENV_LEAD_BLOCKS + 4):
+        kinds = ([None] * lead + list(range(n_text)) * ENV_TEXT_COPIES
+                 + [None] * ENV_TAIL_BLOCKS)
+        sizes = [ENV_BLOCK if k is None else len(text_blocks[k][0])
+                 for k in kinds]
+        starts = (len(header) + 4
+                  + np.cumsum([0] + [4 + n for n in sizes[:-1]])).tolist()
+        bounds = D._runs(starts, sizes, [ENV_BLOCK] * len(sizes),
+                         W if linked else 0)
+        cuts = bounds[1:-1]
+        if cuts and all(kinds[c] is not None and kinds[c - 1] is not None
+                        and (not linked or kinds[c] != 0) for c in cuts):
+            break
+    else:
+        raise SmokeFailure("no layout puts every cut among the text blocks")
+    records, content = [header], []
+    at = 0
+    for k in kinds:
+        if k is None:
+            piece = noise[at:at + ENV_BLOCK]
+            at += ENV_BLOCK
+            records += [(ENV_BLOCK | spec.UNCOMPRESSED_BIT).to_bytes(
+                4, "little"), piece]
+            content.append(piece)
+        else:
+            payload, text = text_blocks[k]
+            records += [len(payload).to_bytes(4, "little"), payload]
+            content.append(text)
+    records.append(bytes(4))
+    return b"".join(records), b"".join(content), cuts
+
+
+def envelope_inputs(corpus: bytes, dev):
+    """The text blocks of the envelope frames: the main path's linked 64 KB
+    chain of the corpus merged per 4 MB (each block's first matches reach
+    into the block before), the corpus's 4 MB slices, and the noise of the
+    stored blocks."""
+    import numpy as np
+
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch.frame import FramePreferences
+    from lz4_tpu_torch.legacy import merged_blocks
+    linked_frame = D.compress_frame_device(
+        corpus, FramePreferences(block_size_id=4), device=dev)
+    linked_blocks = merged_blocks(frame_payloads(linked_frame, 7),
+                                  ENV_BLOCK // W)
+    texts = [corpus[i:i + ENV_BLOCK] for i in range(0, len(corpus),
+                                                     ENV_BLOCK)]
+    noise = np.random.default_rng(2024).bytes(
+        (ENV_LEAD_BLOCKS + 3 + ENV_TAIL_BLOCKS) * ENV_BLOCK)
+    return linked_blocks, texts, noise
+
+
+def envelope_phase(corpus: bytes, b7_blocks, dev, sg_layout) -> dict:
+    """The layouts lz4_tpu hands to its host codec, on the card through the
+    entry points a user calls: an independent -B7 frame and a linked 4 MB
+    frame of just over 2 GiB through decompress_frame_device (kernel E in
+    runs, matches of the linked frame reaching across each cut), compared
+    with the content rebuilt on the host; an SG walk of a partial source
+    over kernel H; a walk with dsk.MAX_TOTAL patched to 1 MiB (over H,
+    equal to the explicit H callback's frame); the '4k' chain decoded with
+    MAX_DEVICE_CONTENT and STREAM_MAX_INPUT patched down (kernel E in
+    several runs),
+    equal to kernel F's answer.  Returns the walls."""
+    import torch
+
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import sg
+    from lz4_tpu_torch.kernels import decode_kernel as dec
+    from lz4_tpu_torch.kernels import destsize_kernel as dsk
+    from lz4_tpu_torch.kernels.common import LAUNCHES
+    from lz4_tpu_torch.kernels.decode_kernel import decode_block_plain
+    res = {}
+    # the text blocks: kernel B's 256 KB payloads merged per 4 MB
+    # (independent), and the linked chain's
+    linked_blocks, texts, noise = envelope_inputs(corpus, dev)
+    for name, blocks, linked in (("-B7 independent", b7_blocks, False),
+                                 ("-B7 -BD linked", linked_blocks, True)):
+        frame, content, cuts = envelope_frame(list(zip(blocks, texts)),
+                                              linked, noise)
+        if linked:
+            # the block after each cut does not decode without its window
+            for c in cuts:
+                k = (c - ENV_LEAD_BLOCKS) % len(texts)
+                if decode_block_plain(blocks[k], len(blocks[k]),
+                                      ENV_BLOCK)[0] >= 0:
+                    raise SmokeFailure(f"envelope: block {c} after a cut "
+                                       "needs no window")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, used = D.decompress_frame_device(frame, device=dev)
+        wall = time.perf_counter() - t0
+        if used != len(frame) or out != content:
+            raise SmokeFailure(f"envelope: the {len(frame)}-byte {name} "
+                               "frame does not decode to its content")
+        key = "b7_linked" if linked else "b7"
+        res[key] = {"frame_bytes": len(frame), "content_bytes": len(content),
+                    "runs": len(cuts) + 1, "cuts": cuts, "wall_s": wall}
+        log(f"[envelope] {name} frame of {len(frame)} bytes "
+            f"({len(frame) / 2**30:.3f} GiB), {len(content)} bytes of "
+            f"content, kernel E in {len(cuts) + 1} runs (cut before block "
+            f"{cuts}): decompress_frame_device {len(content) / 1e6 / wall:.1f}"
+            f" MB/s ({wall:.3f} s), byte-exact")
+        del frame, content, out
+    del noise
+    # SG: a partial-source walk over H, and a walk past dsk.MAX_TOTAL
+    ins, caps = sg_h_layout(corpus)
+    data = b"".join(ins)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total, consumed, outs = sg.sg_compress(ins, caps, source_size=SG_PARTIAL,
+                                           device=dev)
+    t1 = time.perf_counter()
+    n, dec_outs = sg.sg_decompress(filled(outs, caps, total), [consumed],
+                                   device=dev)
+    t2 = time.perf_counter()
+    if consumed != SG_PARTIAL or total <= 0 or \
+            (n, dec_outs) != (consumed, [data[:consumed]]):
+        raise SmokeFailure("envelope: the partial SG walk over H does not "
+                           "round-trip")
+    res["sg_partial_h"] = {"total_out": total, "consumed": consumed,
+                           "compress_s": t1 - t0, "decompress_s": t2 - t1}
+    log(f"[envelope] SG partial walk over H: {consumed} of {len(data)} "
+        f"bytes as 128 KB iovecs into 32 KB buffers, {total} bytes (ratio "
+        f"{total / consumed:.6f}), sg_compress {consumed / 1e6 / (t1 - t0):.1f}"
+        f" MB/s ({t1 - t0:.3f} s), sg_decompress ({t2 - t1:.3f} s), "
+        f"byte-exact")
+    want = sg.sg_compress(ins, caps,
+                          dest_size_compress=sg.dest_size_over_h(dev))
+    saved = dsk.MAX_TOTAL
+    dsk.MAX_TOTAL = min(1 << 20, len(data) - 1)
+    try:
+        t0 = time.perf_counter()
+        got = sg.sg_compress(ins, caps, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        dsk.MAX_TOTAL = saved
+    if got != want or got[1] != len(data):
+        raise SmokeFailure("envelope: the SG walk past MAX_TOTAL differs "
+                           "from the walk over the H callback")
+    res["sg_past_max_total"] = {"total_out": got[0], "compress_s": wall}
+    log(f"[envelope] SG walk of {len(data)} bytes with MAX_TOTAL at 1 MiB: "
+        f"over H, equal to the explicit H callback's frame ({got[0]} bytes,"
+        f" {wall:.3f} s)")
+    # SG decode past kernel F: the '4k' chain in runs of kernel E
+    what, ins, caps = sg_layout
+    total, consumed, outs = sg.sg_compress(ins, caps, device=dev)
+    comp = filled(outs, caps, total)
+    sizes = [len(b) for b in ins]
+    t0 = time.perf_counter()
+    want = sg.sg_decompress(comp, sizes, device=dev)
+    t1 = time.perf_counter()
+    saved = sg.MAX_DEVICE_CONTENT, dec.STREAM_MAX_INPUT
+    sg.MAX_DEVICE_CONTENT = min(1 << 20, consumed - 1)
+    dec.STREAM_MAX_INPUT = max(total // 3, 2 * W)
+    before = (LAUNCHES["decode_stream"], LAUNCHES["decode_sg"])
+    try:
+        got = sg.sg_decompress(comp, sizes, device=dev)
+        t2 = time.perf_counter()
+    finally:
+        sg.MAX_DEVICE_CONTENT, dec.STREAM_MAX_INPUT = saved
+    runs = LAUNCHES["decode_stream"] - before[0]
+    if runs < 2 or LAUNCHES["decode_sg"] != before[1]:
+        raise SmokeFailure(f"envelope: {what} took {runs} runs of kernel E "
+                           "and launched kernel F")
+    if got != want or got != (consumed, ins):
+        raise SmokeFailure(f"envelope: {what} decoded in runs of kernel E "
+                           "differs from kernel F's answer")
+    res["sg_decode_in_runs"] = {"f_s": t1 - t0, "e_runs_s": t2 - t1,
+                                "runs": runs}
+    log(f"[envelope] {what}: {consumed} bytes decoded with "
+        f"MAX_DEVICE_CONTENT at 1 MiB and STREAM_MAX_INPUT at "
+        f"{max(total // 3, 2 * W)} "
+        f"(kernel E in {runs} runs, {t2 - t1:.3f} s) equal kernel F's answer "
+        f"({t1 - t0:.3f} s)")
+    return res
 
 
 def compare_pack(cmp_rows, pack_kernel, what, k, p):
@@ -1962,6 +2149,7 @@ def main() -> int:
     from lz4_tpu_torch.kernels import hc_kernel as hck
     from lz4_tpu_torch.kernels import pack_kernel
     from lz4_tpu_torch.kernels.pack_kernel import pack_frame_payloads
+    from lz4_tpu_torch.legacy import _ext, literal_head, terminal_literals
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3036,6 +3224,68 @@ def main() -> int:
             for k in ("xxh32", "xxh64")))
     del ds_rows_d
 
+    # -- 3j. the tails of kernels A and I (legacy compress's join) ----------
+    def cmp_tails(kernel, what, k_off, k_on, p_on):
+        """With tails on, the card's payloads equal its payloads with tails
+        off, and payloads and tails equal the plain version's (tolerance
+        0)."""
+        cmp_rows(kernel, f"{what}, tails on against off", *k_on[:2], *k_off)
+        cmp_rows(kernel, f"{what}, tails on", *k_on[:2], *p_on[:2])
+        err = int((k_on[2].cpu().long() - p_on[2].long()).abs().max())
+        stats[kernel]["max_abs_err"] = max(stats[kernel]["max_abs_err"], err)
+        log(f"[compare] {kernel:14s} {what}: tails of {p_on[2].numel()} "
+            f"blocks max_abs_err={err}")
+        if err:
+            raise SmokeFailure(f"{kernel}'s tails disagree with its plain "
+                               f"version on {what}")
+
+    tail_cases = [(f"9 blocks mm={mm}, no prefix",
+                   linked_case(corpus[3 * W:12 * W + 20_011], b"", mm))
+                  for mm in (4, 8)]
+    tail_cases.append(("64 blocks mm=8 (main-path chunk)", linked_case(
+        corpus[4 << 20:8 << 20], corpus[(4 << 20) - W:4 << 20], 8,
+        zero=True)))
+    tail_cases.append(("4 MB of noise, mm=4", linked_case(
+        noise_bytes(MB4, 17), b"", 4)))
+    for what, (card, cpu) in tail_cases:
+        cmp_tails("encode_linked", what, enc.scan_linked(*card),
+                  enc.scan_linked(*card, tails=True),
+                  enc.scan_linked(*cpu, tails=True))
+    card = tail_cases[2][1][0]
+    stats["encode_linked"]["ms_tails"] = time_card(
+        lambda: enc.scan_linked(*card, tails=True))
+    log(f"[time] encode_linked (kernel A), main-path chunk: "
+        f"{stats['encode_linked']['ms']:.3f} ms with tails off, "
+        f"{stats['encode_linked']['ms_tails']:.3f} ms with tails on")
+    del tail_cases, card
+    for what, blocks, width in hc_small_cases(corpus, mixed):
+        rows_h, lens_h = D.byte_rows(blocks, width, "cpu")
+        tabs = hck.hc_sorted_tables(rows_h.to(cuda))
+        tabs_h = [t.cpu() for t in tabs]
+        for level in (1, 9) if width == HC_SMALL_NS else (9,):
+            args = (rows_h.to(cuda), lens_h.to(cuda), tabs, level)
+            cmp_tails("encode_hc", f"{what}, level {level}",
+                      hck.hc_scan(*args), hck.hc_scan(*args, tails=True),
+                      hck.hc_scan(rows_h, lens_h, tabs_h, level, tails=True))
+    hc_rows = torch.frombuffer(bytearray(corpus), dtype=torch.uint8) \
+        .reshape(-1, W).to(cuda)
+    hc_lens = torch.full((hc_rows.shape[0],), W, dtype=torch.int32,
+                         device=cuda)
+    hc_tabs = hck.hc_sorted_tables(hc_rows)
+    k_off = hck.hc_scan(hc_rows, hc_lens, hc_tabs, 9)
+    k_on = hck.hc_scan(hc_rows, hc_lens, hc_tabs, 9, tails=True)
+    cmp_rows("encode_hc", f"{hc_rows.shape[0]} corpus rows, level 9, tails "
+             "on against off", *k_on[:2], *k_off)
+    stats["encode_hc"]["ms_tails_rounds"] = time_rounds(
+        lambda: hck.hc_scan(hc_rows, hc_lens, hc_tabs, 9, tails=True))
+    stats["encode_hc"]["ms_tails"] = sorted(
+        stats["encode_hc"]["ms_tails_rounds"])[1]
+    log(f"[time] encode_hc (kernel I), {hc_rows.shape[0]} rows, level 9: "
+        f"{stats['encode_hc']['ms']:.3f} ms with tails off, rounds with "
+        f"tails on {[round(t, 3) for t in stats['encode_hc']['ms_tails_rounds']]}"
+        " ms")
+    del hc_rows, hc_lens, hc_tabs, k_off, k_on
+
     def phase_counts(phase, need):
         """Read the counters after a phase: every kernel in ``need`` must
         have launched and no plain version may have run."""
@@ -3116,6 +3366,7 @@ def main() -> int:
                  REPO / "build")
     counts["stream"] = phase_counts("stream path",
                                     ["decode_stream", "decode_linked"])
+    b7_blocks = [p for p, _ in frame_payloads(files["b7"], 7)]
     del files
 
     # -- 7. the scatter-gather path at full size ----------------------------
@@ -3124,6 +3375,7 @@ def main() -> int:
     sg_phase(layouts, cuda, sg_times)
     counts["sg"] = phase_counts("sg path", ["sg_encode_chain", "decode_sg",
                                             "decode_stream"])
+    sg_4k = layouts["4k"]
     del layouts
 
     # -- 8. the HC and file-compress path at full size -----------------------
@@ -3140,7 +3392,20 @@ def main() -> int:
         "encode_dest_size", "decode_dest_size", "decode_batch", "encode",
         "xxh32", "xxh64", "decode_stream"])
 
-    # -- 10. the plain decoder reads a frame the kernels wrote ----------------
+    # -- 10. legacy compress at full size ------------------------------------
+    common.reset_counts()
+    legacy_times = legacy_phase(corpus, cuda)
+    counts["legacy"] = phase_counts("legacy compress", [
+        "encode_linked", "encode_hc", "decode_stream"])
+
+    # -- 11. the single-card envelope ------------------------------------------
+    common.reset_counts()
+    envelope_times = envelope_phase(corpus, b7_blocks, cuda, sg_4k)
+    counts["envelope"] = phase_counts("envelope", [
+        "decode_stream", "encode_dest_size", "sg_encode_chain", "decode_sg"])
+    del b7_blocks, sg_4k
+
+    # -- 12. the plain decoder reads a frame the kernels wrote ----------------
     data = corpus[8 << 20:9 << 20]
     frame = D.compress_frame_device(data, FramePreferences(block_size_id=4),
                                     min_match=8)
@@ -3158,7 +3423,8 @@ def main() -> int:
          **stats[k]}
         for k, (route, src, rep, phase) in KERNELS.items()],
         "sg_phase": sg_times, "hc_phase": hc_times,
-        "destsize_phase": ds_times}
+        "destsize_phase": ds_times, "legacy_phase": legacy_times,
+        "envelope_phase": envelope_times}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

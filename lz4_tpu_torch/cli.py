@@ -6,8 +6,8 @@ knobs ``-B4..-B7 -BD -BX``, ``--content-size``, ``--[no-]frame-crc``,
 ``--[no-]sparse``, ``--rm``, ``-b`` benchmark mode (programs/bench.c),
 stdin/stdout via ``-``, console-safety refusals (lz4cli.c:493-497), output
 name derivation (lz4cli.c:508-540), and the ``lz4cat``/``unlz4`` argv[0]
-personalities (lz4cli.c:301-302).  Legacy compress (``-l``) is not ported
-and fails with a message.
+personalities (lz4cli.c:301-302), and legacy frames (``-l``: 8 MB blocks,
+compressed on the card at every level).
 
 Every operation runs on the card.  ``LZ4TPU_FORCE_CPU=1`` asks for the CPU
 instead (the kernels' plain versions); without a card and without that
@@ -48,7 +48,7 @@ Arguments:
  -m           : compress multiple input files (output: file.lz4)
  -k           : keep source files (default)
  --rm         : remove source files after success
- -l           : legacy frame format (decode only; compress not yet ported)
+ -l           : use legacy frame format (0x184C2102, 8 MB blocks)
  -B4..-B7     : block size 64KB / 256KB / 1MB / 4MB (default: -B7)
  -BD          : block dependency (improves small-block ratio)
  -BX          : add block checksums

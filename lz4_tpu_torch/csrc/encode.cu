@@ -325,13 +325,14 @@ __device__ int lane_backward_start(const uint8_t* buf, int mp, int d,
 //
 // Writes the block's records (mp, end, d, op), op being the sequence's
 // output offset, then the final literal run, their count and the block's
-// output length.  `lrec` holds each lane's matches ([lcap][WALKERS] per block)
+// output length, and, when `tail` is set, the offset of the final literal
+// run's token.  `lrec` holds each lane's matches ([lcap][WALKERS] per block)
 // as (mp, end, d, bytes of the lane's sequences through this one).
 template <bool LINKED>
 __device__ void walk(const Block& b, const int32_t* words, const int32_t* jump,
                      int ns, int acceleration, int min_match,
                      int reject_step, int4* lrec, int4* rec,
-                     int32_t* nrec, int32_t* olen) {
+                     int32_t* nrec, int32_t* olen, int32_t* tail) {
   __shared__ __align__(16) int32_t sw[STAGE];
   __shared__ int32_t sj[LINKED ? STAGE / 4 : 1];
   __shared__ int count_of[WALKERS], sync_at[WALKERS], sync_next[WALKERS];
@@ -626,6 +627,7 @@ __device__ void walk(const Block& b, const int32_t* words, const int32_t* jump,
     rec[nseq] = make_int4(n_end, n_end, 0, op);
     *nrec = nseq + 1;
     *olen = op + lz4tt::final_run_size(n_end - anchor);
+    if (tail) *tail = op;
   }
 }
 
@@ -636,17 +638,21 @@ __global__ void walk_linked_kernel(const uint8_t* stream, long long L,
                                    int min_match, int reject_step,
                                    int4* lrec, int lcap, int4* rec,
                                    int rec_cap, int32_t* nrec,
-                                   int32_t* olen) {
+                                   int32_t* olen, int32_t* tails) {
   const int g = blockIdx.x, row = row0 + g;
   const Block b = linked_block(stream, L, slen, prefix, NB, row);
   if (b.n == 0) {                      // a padding row: no block at all
-    if (threadIdx.x == 0) nrec[g] = olen[row] = 0;
+    if (threadIdx.x == 0) {
+      nrec[g] = olen[row] = 0;
+      if (tails) tails[row] = 0;
+    }
     return;
   }
   walk<true>(b, words + (long long)g * WINDOW,
              jump + (long long)row * (WINDOW / 4), WINDOW, acceleration,
              min_match, reject_step, lrec + (long long)g * lcap * WALKERS,
-             rec + (long long)g * rec_cap, nrec + g, olen + row);
+             rec + (long long)g * rec_cap, nrec + g, olen + row,
+             tails ? tails + row : nullptr);
 }
 
 __global__ void walk_rows_kernel(const uint8_t* src, int NS,
@@ -660,7 +666,7 @@ __global__ void walk_rows_kernel(const uint8_t* src, int NS,
   walk<false>(row_block(src, NS, slen, row), words + (long long)g * stride,
               nullptr, stride, acceleration, min_match, reject_step,
               lrec + (long long)g * lcap * WALKERS,
-              rec + (long long)g * rec_cap, nrec + g, olen + row);
+              rec + (long long)g * rec_cap, nrec + g, olen + row, nullptr);
 }
 
 // Phase 3: a warp per record; record i's literals start at record i-1's
@@ -706,15 +712,18 @@ __global__ void emit_rows_kernel(const uint8_t* src, int NS,
 // Scratch from the caller, for one group: words [group, 65536] int32; lrec
 // [group, lcap, 128] int4 with lcap >= (65536 / 128 + OVERLAP) / 4 + 2;
 // rec [group, rec_cap] int4 with rec_cap >= 16385; nrec [group] int32.
+// `tails` ([S * NB] int32, or null) takes each block's offset of its final
+// literal run's token.
 extern "C" int lz4tt_encode_linked(const uint8_t* stream, long long L,
                                    const int32_t* delta, const int32_t* jump,
                                    const int32_t* slen, const int32_t* prefix,
                                    int32_t* words, int32_t* lrec, int lcap,
                                    int32_t* rec, int rec_cap,
                                    int32_t* nrec, int group, uint8_t* out,
-                                   int M, int32_t* olen, int S, int NB,
-                                   int acceleration, int min_match,
-                                   int reject_step, void* cuda_stream) {
+                                   int M, int32_t* olen, int32_t* tails,
+                                   int S, int NB, int acceleration,
+                                   int min_match, int reject_step,
+                                   void* cuda_stream) {
   const int rows = S * NB;
   cudaStream_t cs = (cudaStream_t)cuda_stream;
   int4* r4 = reinterpret_cast<int4*>(rec);
@@ -727,7 +736,7 @@ extern "C" int lz4tt_encode_linked(const uint8_t* stream, long long L,
     if (err != cudaSuccess) return (int)err;
     walk_linked_kernel<<<g, WALKERS, 0, cs>>>(
         stream, L, words, jump, slen, prefix, NB, row0, acceleration,
-        min_match, reject_step, l4, lcap, r4, rec_cap, nrec, olen);
+        min_match, reject_step, l4, lcap, r4, rec_cap, nrec, olen, tails);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     emit_linked_kernel<<<dim3(g, EMIT_CTAS), 256, 0, cs>>>(

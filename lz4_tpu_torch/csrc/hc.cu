@@ -193,11 +193,12 @@ __device__ Hit search(Row w, const uint16_t* perm, int s0, int p,
   return {bs, bf, bpos};
 }
 
-// Kernel I: one CTA of P warps per independent row.
+// Kernel I: one CTA of P warps per independent row; `tails` ([B] int32, or
+// null) takes each row's offset of its final literal run's token.
 __global__ void __launch_bounds__(P* WARP)
     encode_hc_kernel(const uint8_t* src, int NS, const uint16_t* perm,
                      const uint16_t* slot, const int32_t* slen, uint8_t* out,
-                     int M, int32_t* olen, int max_attempts) {
+                     int M, int32_t* olen, int32_t* tails, int max_attempts) {
   __shared__ Hit res[2][P];
   const int row = blockIdx.x, warp = threadIdx.x / WARP,
             lane = threadIdx.x % WARP;
@@ -259,7 +260,10 @@ __global__ void __launch_bounds__(P* WARP)
   }
   if (warp == 0) {
     lz4tt::warp_emit_final(o, op, buf + anchor, n - anchor, lane);
-    if (lane == 0) olen[row] = op + lz4tt::final_run_size(n - anchor);
+    if (lane == 0) {
+      olen[row] = op + lz4tt::final_run_size(n - anchor);
+      if (tails) tails[row] = op;
+    }
   }
 }
 
@@ -268,10 +272,10 @@ __global__ void __launch_bounds__(P* WARP)
 extern "C" int lz4tt_encode_hc(const uint8_t* src, int NS,
                                const uint16_t* perm, const uint16_t* slot,
                                const int32_t* slen, uint8_t* out, int M,
-                               int32_t* olen, int B, int max_attempts,
-                               void* cuda_stream) {
+                               int32_t* olen, int32_t* tails, int B,
+                               int max_attempts, void* cuda_stream) {
   if (B > 0)
     encode_hc_kernel<<<B, P * WARP, 0, (cudaStream_t)cuda_stream>>>(
-        src, NS, perm, slot, slen, out, M, olen, max_attempts);
+        src, NS, perm, slot, slen, out, M, olen, tails, max_attempts);
   return (int)cudaGetLastError();
 }

@@ -17,17 +17,24 @@ container (a few bytes per 64 KB block); the kernels do the block work:
   window handed from group to group on the device; independent frames of
   64 KB blocks take ``decode_blocks`` (kernel D, batch mode).  Frames of
   larger blocks (the ``lz4`` CLI writes 4 MB blocks by default) take
-  ``decode_stream_raw`` (kernel E) over the raw frame, uploaded once, and so
-  do legacy files (``decompress_legacy_device``, 8 MB blocks).  A linked
-  chain with a short non-final block (``DeviceFrameCompressor.flush``
-  writes those) is legal LZ4F but outside kernel D's one-block window: when
-  kernel D finds one, the whole chain is decoded again by kernel E, whose
-  window is everything decoded so far.
+  ``decode_stream_raw`` (kernel E) over the raw frame, and so do legacy
+  files (``decompress_legacy_device``, 8 MB blocks).  A linked chain with a
+  short non-final block (``DeviceFrameCompressor.flush`` writes those) is
+  legal LZ4F but outside kernel D's one-block window: when kernel D finds
+  one, the whole chain is decoded again by kernel E, whose window is
+  everything decoded so far.  Kernel E holds its input offsets as int32,
+  so ``decode_stream_runs`` uploads and decodes the blocks in runs of at
+  most ``STREAM_MAX_INPUT`` bytes (and ``RUN_MAX_OUTPUT`` of output), the
+  last 64 KB decoded carried into the next run of a linked chain: frames
+  and legacy files of any size decode.
+* legacy compress: ``compress_legacy_device`` -> 8 MB slices, each one
+  linked stream through kernel A (levels below 3) or 64 KB rows through
+  kernel I (HC levels), the payloads of a slice joined into one block
+  (``legacy.merge_payloads``, from the kernels' ``tails``).
 
 There is no host codec to fall back to.  A block the kernels reject raises
-``Lz4FrameError`` with its index; frames outside every kernel's envelope
-(linked blocks under 64 KB, frames past the int32 byte offsets of kernel E)
-raise ``DeviceLayoutUnsupported``.
+``Lz4FrameError`` with its index; linked blocks under 64 KB, the one
+layout outside every kernel's envelope, raise ``DeviceLayoutUnsupported``.
 
 Every function takes a ``device``; the default ``"cuda"`` raises on a
 machine without a card.  The tests pass ``device="cpu"``, which runs the
@@ -39,7 +46,7 @@ from __future__ import annotations
 import dataclasses
 import struct
 import warnings
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,12 +54,14 @@ import torch
 from . import spec
 from .frame import (FramePreferences, Lz4FrameError, decode_frame_header,
                     encode_frame_header)
+from .kernels import decode_kernel
 from .kernels.common import resolve_device, to_device, to_host
-from .kernels.decode_kernel import (StreamEnvelopeError, decode_blocks,
-                                    decode_blocks_linked, decode_stream_raw)
+from .kernels.decode_kernel import (decode_blocks, decode_blocks_linked,
+                                    decode_stream_raw)
 from .kernels.encode_kernel import encode_blocks, encode_blocks_linked
 from .kernels.hc_kernel import encode_blocks_hc
 from .kernels.pack_kernel import body_length, pack_frame_payloads
+from .legacy import merge_payloads
 from .ops.xxhash import XXH32State, xxh32
 
 BLOCK = 65536  # device-path block granularity
@@ -67,12 +76,19 @@ CHUNKED_ABOVE = 8 << 20  # inputs larger than this are compressed in chunks
 HC_GROUP_ROWS = 1024     # 64 MiB of blocks per launch of kernel I (rows,
                          # 16-bit tables and output: about 0.4 GB; the
                          # tables' sort peaks at 0.63 GiB per group)
+# legacy compress: the slice each block holds (8 MB; tests shrink it, to a
+# multiple of 64 KB), and the input per launch of kernel A (its candidate
+# tables take about 82 bytes of device memory per input byte)
+LEGACY_SLICE = spec.LEGACY_BLOCK_SIZE
+LEGACY_GROUP_BYTES = 64 << 20
+# kernel E's runs: the most output one run decodes (its input is bounded
+# by decode_kernel.STREAM_MAX_INPUT)
+RUN_MAX_OUTPUT = 1 << 31
 
 
 class DeviceLayoutUnsupported(Lz4FrameError):
     """The frame is valid as far as parsed, but its layout is outside the
-    device kernels' envelope (linked blocks under 64 KB, frames past the
-    stream kernel's int32 byte offsets)."""
+    device kernels' envelope (linked blocks under 64 KB)."""
 
 
 def _split_blocks(data: bytes, block_size: int) -> List[bytes]:
@@ -325,6 +341,112 @@ def compress_frame_device_hc(data: bytes,
     return _frame(prefs, data, b"".join(bodies))
 
 
+def _fetch_payloads(out: torch.Tensor, olen: torch.Tensor,
+                    tails: torch.Tensor):
+    """The payloads ``out[r, :olen[r]]`` of [R, M] rows, gathered on the
+    device and fetched in one copy: (payload bytes back to back as a
+    memoryview, olen and tails as int64 numpy [R])."""
+    olen_h = to_host(olen).astype(np.int64)
+    mx = int(olen_h.max(initial=0))
+    cols = torch.arange(mx, dtype=torch.int32, device=out.device)
+    flat = out[:, :mx][cols[None, :] < olen[:, None]]
+    return (memoryview(to_host(flat)), olen_h,
+            to_host(tails).astype(np.int64))
+
+
+def _joined_blocks(out, olen, tails, per_block: int) -> List[bytes]:
+    """Join every ``per_block`` consecutive rows' payloads into one block;
+    rows of length 0 (padding) take no part."""
+    flat, olen_h, tails_h = _fetch_payloads(out, olen, tails)
+    ends = np.cumsum(olen_h)
+    blocks = []
+    for r0 in range(0, len(olen_h), per_block):
+        rows = [r for r in range(r0, min(r0 + per_block, len(olen_h)))
+                if olen_h[r] > 0]
+        if rows:
+            blocks.append(merge_payloads(
+                [flat[ends[r] - olen_h[r]:ends[r]] for r in rows],
+                [tails_h[r] for r in rows]))
+    return blocks
+
+
+def _legacy_fast_blocks(data: bytes, acceleration: int, min_match: int,
+                        dev: torch.device) -> List[bytes]:
+    """Each LEGACY_SLICE of ``data`` as one linked stream of 64 KB blocks
+    without a prefix through kernel A, S slices a launch, each slice's
+    payloads joined into one block: a match of the chain reaches at most
+    65,535 bytes back and never before the slice, so it stays valid in the
+    joined block."""
+    slices = [data[i:i + LEGACY_SLICE]
+              for i in range(0, len(data), LEGACY_SLICE)]
+    per_launch = max(1, LEGACY_GROUP_BYTES // LEGACY_SLICE)
+    blocks = []
+    for g in range(0, len(slices), per_launch):
+        group = slices[g:g + per_launch]
+        nb = -(-max(map(len, group)) // WINDOW)
+        host = np.zeros((len(group), (nb + 1) * WINDOW), np.uint8)
+        lens = np.zeros((len(group), nb), np.int32)
+        for s, piece in enumerate(group):
+            host[s, WINDOW:WINDOW + len(piece)] = np.frombuffer(piece,
+                                                                np.uint8)
+            lens[s] = np.clip(len(piece) - WINDOW * np.arange(nb), 0, WINDOW)
+        stream = to_device(host, dev).reshape(host.shape)
+        out, olen, tails = encode_blocks_linked(
+            stream, torch.from_numpy(lens).to(dev), acceleration,
+            min_match=min_match, tails=True)
+        blocks += _joined_blocks(out.reshape(len(group) * nb, -1),
+                                 olen.reshape(-1), tails.reshape(-1), nb)
+    return blocks
+
+
+def _legacy_hc_blocks(data: bytes, level: int,
+                      dev: torch.device) -> List[bytes]:
+    """Each LEGACY_SLICE of ``data`` as independent 64 KB rows through
+    kernel I at ``level``, whole slices in groups of about HC_GROUP_ROWS
+    rows, each slice's payloads joined into one block."""
+    per_slice = LEGACY_SLICE // BLOCK
+    group = max(1, HC_GROUP_ROWS // per_slice) * per_slice
+    rows_all = _split_blocks(data, BLOCK)
+    blocks = []
+    for g in range(0, len(rows_all), group):
+        rows, lens = byte_rows(rows_all[g:g + group], BLOCK, dev)
+        out, olen, tails = encode_blocks_hc(rows, lens, level, tails=True)
+        blocks += _joined_blocks(out, olen, tails, per_slice)
+    return blocks
+
+
+def compress_legacy_device(data: bytes, level: int = 1,
+                           acceleration: int = 1, min_match: int = 4,
+                           device="cuda") -> bytes:
+    """Legacy frame (magic 0x184C2102, then for each 8 MB slice of the
+    input an LE32 size and one always-compressed block) with the block work
+    on the device.  Parity: ``lz4_tpu.frame.compress_legacy`` (the same
+    container; empty input writes the same bytes).
+
+    Levels below 3 parse each slice as one linked chain of 64 KB blocks
+    through kernel A; levels 3 and up parse its 64 KB rows independently
+    through kernel I.  The payloads of a slice are joined into its block on
+    the host, from the kernels' ``tails`` and one fetch, without a walk
+    over their tokens.  A block that does not shrink stays compressed: a
+    legacy block is never stored."""
+    dev = resolve_device(device)
+    data = bytes(data)
+    if LEGACY_SLICE % BLOCK or not 0 < LEGACY_SLICE <= spec.LEGACY_BLOCK_SIZE:
+        raise ValueError("LEGACY_SLICE must be a multiple of 64 KB, at most "
+                         "8 MB")
+    if not data:
+        blocks = [b"\x00"]                   # one empty block, as lz4 writes
+    elif level >= 3:
+        blocks = _legacy_hc_blocks(data, level, dev)
+    else:
+        blocks = _legacy_fast_blocks(data, max(1, int(acceleration)),
+                                     min_match, dev)
+    parts = [struct.pack("<I", spec.LEGACY_MAGIC)]
+    for blk in blocks:
+        parts += [struct.pack("<I", len(blk)), blk]
+    return b"".join(parts)
+
+
 class DeviceFrameCompressor:
     """Streaming LZ4F compression on the device: feed chunks, get frame
     bytes.  Writes ONE linked 64 KB-block frame; the 64 KB window carries
@@ -536,25 +658,88 @@ def _read_blocks(frame: bytes, pos: int, info):
             pos += 4
 
 
-def _decode_stream_blocks(buf: bytes, starts: List[int], sizes: List[int],
+def _runs(starts, sizes, caps, lead: int):
+    """Bounds of the runs of blocks that kernel E decodes one call each: a
+    run's payload bytes (from its first block's start to its last block's
+    end) and the window carried into it fit STREAM_MAX_INPUT, its caps
+    RUN_MAX_OUTPUT, and every run holds at least one block."""
+    max_in = decode_kernel.STREAM_MAX_INPUT - lead
+    max_out = RUN_MAX_OUTPUT - lead
+    bounds, i, n = [0], 0, len(starts)
+    while i < n:
+        j, out = i + 1, caps[i]
+        while j < n and starts[j] + sizes[j] - starts[i] <= max_in \
+                and out + caps[j] <= max_out:
+            out += caps[j]
+            j += 1
+        bounds.append(j)
+        i = j
+    return bounds
+
+
+def decode_stream_runs(buf, starts: Sequence[int], sizes: Sequence[int],
+                       stored: Sequence, caps: Sequence[int],
+                       block_size: int, linked: bool, dev: torch.device,
+                       window: bytes = b"") -> Tuple[bytes, np.ndarray]:
+    """Kernel E over the blocks at ``starts`` of ``buf`` (bytes-like), with
+    the result of one ``decode_stream_raw`` call over them all: (the good
+    blocks' bytes in order, olen per block, -1 for a block the kernel
+    rejects).  ``window`` is the history before the first block (linked
+    mode).
+
+    Kernel E holds input offsets as int32, so the blocks go in runs
+    (``_runs``), each uploaded and decoded alone.  In linked mode a run
+    starts with the last 64 KB decoded so far as a stored block whose
+    output is dropped, so its blocks reference across the cut as in one
+    call (a failed block moves nothing there either).  A block whose
+    payload alone passes the bound fails without a launch, as it fails in
+    one call: a block decodes to about its payload's length or more, and
+    its cap is at most 8 MB.  Device memory holds one run's input and
+    output, not the whole frame's."""
+    B = len(starts)
+    buf = memoryview(buf)
+    stored = [bool(x) for x in stored]
+    parts: List[bytes] = []
+    olen = np.zeros((B,), np.int64)
+    tail = bytes(window[-WINDOW:]) if linked else b""
+    bounds = _runs(starts, sizes, caps, WINDOW if linked else 0)
+    for i, j in zip(bounds[:-1], bounds[1:]):
+        lead = len(tail)             # a stored block: the window, dropped
+        if sizes[i] + lead > decode_kernel.STREAM_MAX_INPUT:
+            olen[i] = -1                 # j == i + 1: the block alone
+            continue
+        base = starts[i] - lead
+        run = buf[starts[i]:starts[j - 1] + sizes[j - 1]]
+        flat = b"".join((tail, run)) if lead else run
+        head = [lead] if lead else []
+        out, ol = decode_stream_raw(
+            to_device(flat, dev),
+            [0] * len(head) + [s - base for s in starts[i:j]],
+            head + list(sizes[i:j]), [True] * len(head) + stored[i:j],
+            block_size, 0, linked, out_caps=head + list(caps[i:j]))
+        ol = to_host(ol).astype(np.int64)[len(head):]
+        olen[i:j] = ol
+        got = int(ol[ol > 0].sum())
+        if got:
+            parts.append(to_host(out[lead:lead + got]).tobytes())
+            if linked:
+                tail = (tail + parts[-1][-WINDOW:])[-WINDOW:]
+    return b"".join(parts), olen
+
+
+def _decode_stream_blocks(buf, starts: List[int], sizes: List[int],
                           stored: List[bool], caps: List[int],
                           block_size: int, linked: bool,
                           dev: torch.device) -> bytes:
-    """Decode the blocks at ``starts`` of ``buf`` through kernel E, with
-    ``buf`` uploaded as it is; raises Lz4FrameError naming the first block
-    the kernel rejects, and DeviceLayoutUnsupported for a ``buf`` past the
-    kernel's int32 byte offsets."""
-    try:
-        out, olen = decode_stream_raw(to_device(buf, dev), starts, sizes,
-                                      stored, block_size, sum(caps), linked,
-                                      out_caps=caps)
-    except StreamEnvelopeError as exc:
-        raise DeviceLayoutUnsupported(str(exc)) from exc
-    olen_h = to_host(olen)
-    if (olen_h < 0).any():
-        bad = int(np.nonzero(olen_h < 0)[0][0])
+    """Decode the blocks at ``starts`` of ``buf`` through kernel E
+    (``decode_stream_runs``); raises Lz4FrameError naming the first block
+    the kernel rejects."""
+    content, olen = decode_stream_runs(buf, starts, sizes, stored, caps,
+                                       block_size, linked, dev)
+    if (olen < 0).any():
+        bad = int(np.nonzero(olen < 0)[0][0])
         raise Lz4FrameError(f"device decode failed on block {bad}")
-    return to_host(out[:int(olen_h.sum())]).tobytes()
+    return content
 
 
 def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
@@ -603,9 +788,8 @@ def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
     while full and pending:
         full = drain()
     if not full:
-        return _decode_stream_blocks(frame[:starts[-1] + sizes[-1]], starts,
-                                     sizes, stored, [bs] * nblocks, bs, True,
-                                     dev)
+        return _decode_stream_blocks(frame, starts, sizes, stored,
+                                     [bs] * nblocks, bs, True, dev)
     return b"".join(chunks)
 
 
@@ -614,7 +798,8 @@ def decompress_frame_device(frame: bytes, device="cuda") -> Tuple[bytes, int]:
 
     Handles every block size: 64 KB blocks through kernel D (linked chains,
     or independent batches), larger ones through kernel E over the raw
-    frame.  Returns (content, bytes_consumed)."""
+    frame, in runs (``decode_stream_runs``), so a frame of any length
+    decodes.  Returns (content, bytes_consumed)."""
     dev = resolve_device(device)
     frame = bytes(frame)
     info = decode_frame_header(frame)
@@ -625,9 +810,8 @@ def decompress_frame_device(frame: bytes, device="cuda") -> Tuple[bytes, int]:
     elif bs > BLOCK:
         # stored blocks may fill their own length, compressed ones a block
         caps = [n if st else bs for n, st in zip(sizes, stored)]
-        content = _decode_stream_blocks(frame[:starts[-1] + sizes[-1]],
-                                        starts, sizes, stored, caps, bs,
-                                        not info.block_independent, dev)
+        content = _decode_stream_blocks(frame, starts, sizes, stored, caps,
+                                        bs, not info.block_independent, dev)
     elif info.block_independent:
         todo = [frame[s:s + n] for s, n, st in zip(starts, sizes, stored)
                 if not st]
@@ -653,8 +837,9 @@ def decompress_frame_device(frame: bytes, device="cuda") -> Tuple[bytes, int]:
 
 def decompress_legacy_device(data: bytes, device="cuda") -> Tuple[bytes, int]:
     """Decode a legacy frame (magic 0x184C2102, independent 8 MB blocks,
-    always compressed) through kernel E over the raw bytes.  Stops at the
-    end of the input or at the next frame's magic.  Returns (content,
+    always compressed) through kernel E over the raw bytes, in runs
+    (``decode_stream_runs``).  Stops at the end of the input or at the next
+    frame's magic.  Returns (content,
     bytes_consumed)."""
     dev = resolve_device(device)
     data = bytes(data)
@@ -679,5 +864,5 @@ def decompress_legacy_device(data: bytes, device="cuda") -> Tuple[bytes, int]:
         return b"", pos
     n = len(starts)
     bs = spec.LEGACY_BLOCK_SIZE
-    return _decode_stream_blocks(data[:pos], starts, sizes, [False] * n,
+    return _decode_stream_blocks(data, starts, sizes, [False] * n,
                                  [bs] * n, bs, False, dev), pos

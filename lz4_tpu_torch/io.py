@@ -8,12 +8,14 @@ Counterpart of ``lz4_tpu/io.py`` (parity with the reference I/O layer,
   ``DeviceFrameCompressor`` (kernels A and C) in 4 MB reads; everything
   else reads 4 MB at a time and compresses its 64 KB blocks through
   ``encode_batch`` (kernel B), with block records and checksums written on
-  the host.  Legacy compress (``-l``) is not ported and raises.
+  the host.  Legacy compress (``-l``) reads the whole input and goes
+  through ``compress_legacy_device`` (kernel A, or kernel I at HC levels).
 * Decompress: concatenated LZ4F frames, legacy frames, skippable frames,
   pass-through of non-LZ4 input, sparse writing that seeks over zero runs.
-  Every frame is decoded by ``lz4_tpu_torch.device`` (kernels D and E);
-  there is no host codec, so a frame outside the kernels' envelope raises
-  ``DeviceLayoutUnsupported`` where ``lz4_tpu`` would decode it on the host.
+  Every frame is decoded by ``lz4_tpu_torch.device`` (kernels D and E), at
+  any size; there is no host codec, so the one layout outside the kernels'
+  envelope (linked blocks under 64 KB, which no block size id gives)
+  raises ``DeviceLayoutUnsupported``.
 
 Every function takes a ``device``; the default ``"cuda"`` raises on a
 machine without a card, and ``"cpu"`` runs the kernels' plain versions.
@@ -31,8 +33,8 @@ import time
 from typing import BinaryIO, Optional, Tuple
 
 from . import spec
-from .device import (BLOCK, DeviceFrameCompressor, DeviceLayoutUnsupported,
-                     compress_frame_device_hc, decompress_frame_device,
+from .device import (BLOCK, DeviceFrameCompressor, compress_frame_device_hc,
+                     compress_legacy_device, decompress_frame_device,
                      decompress_legacy_device, encode_batch)
 from .frame import FramePreferences, Lz4FrameError, encode_frame_header
 from .kernels.common import resolve_device
@@ -56,7 +58,7 @@ class IoPrefs:
     sparse: bool = True             # --no-sparse clears (auto off for stdout)
     overwrite: bool = False         # -f
     test_mode: bool = False         # -t
-    legacy: bool = False            # -l (compress: not ported, raises)
+    legacy: bool = False            # -l (8 MB legacy blocks)
     pass_through: bool = False      # -d -f on non-lz4 input
     remove_src: bool = False        # --rm
     min_match: int = 4              # --min-match
@@ -120,13 +122,6 @@ class ProgressMeter:
 # compression
 # ---------------------------------------------------------------------------
 
-def _refuse_legacy(prefs: IoPrefs) -> None:
-    if prefs.legacy:
-        raise DeviceLayoutUnsupported(
-            "legacy compress (-l) is not yet ported: the port has no "
-            "encoder of 8 MB legacy blocks")
-
-
 def _independent_records(chunk: bytes, fp: FramePreferences, prefs: IoPrefs,
                          dev) -> bytes:
     """The block records of one read: 64 KB blocks through kernel B (the
@@ -154,9 +149,16 @@ def compress_stream(src: BinaryIO, dst: BinaryIO, prefs: IoPrefs,
     """Compress a stream to one .lz4 frame; returns (read, written).
 
     Every HC level goes to kernel I: unlike lz4_tpu, no input is sent to a
-    host HC codec for being small (the port has none)."""
-    _refuse_legacy(prefs)
+    host HC codec for being small (the port has none).  ``prefs.legacy``
+    writes a legacy frame, as lz4_tpu does with its host codec, here with
+    the block work on the device."""
     dev = resolve_device(device)
+    if prefs.legacy:
+        data = src.read()
+        out = compress_legacy_device(data, level=prefs.level,
+                                     min_match=prefs.min_match, device=dev)
+        dst.write(out)
+        return len(data), len(out)
     if prefs.level >= 3:
         data = src.read()
         fp = _prefs_to_frame(prefs, len(data) if prefs.content_size else None)
@@ -280,6 +282,7 @@ def decompress_stream(src: BinaryIO, dst, prefs: IoPrefs,
         if magic == spec.FRAME_MAGIC:
             # lz4_tpu's _decode_one_frame hands DeviceLayoutUnsupported to
             # its host codec; the port has none, so the error propagates
+            # (only linked blocks under 64 KB raise it)
             content, used = decompress_frame_device(buf[pos:], device=device)
             dst.write(content)
             total_out += len(content)
@@ -324,7 +327,6 @@ def compress_filename(src_path: str, dst_path: str, prefs: IoPrefs,
                       device="cuda") -> Tuple[int, int]:
     """Compress ``src_path`` ("-" = stdin) to ``dst_path`` ("-" = stdout);
     returns (read, written)."""
-    _refuse_legacy(prefs)          # before the output file is created
     src = sys.stdin.buffer if src_path == "-" else open(src_path, "rb")
     try:
         size = None if src_path == "-" else os.path.getsize(src_path)

@@ -227,9 +227,11 @@ def _common_run(data: bytes, a: int, b: int, room: int) -> int:
 
 def _scan_plain(buf: bytes, start: int, n: int, low: int, ip: int,
                 delta, jump, linked: bool, acceleration: int,
-                min_match: int, reject_step: int) -> bytearray:
+                min_match: int, reject_step: int,
+                tails: Optional[list] = None) -> bytearray:
     """One block's greedy parse; positions index ``buf`` directly.  Same
-    decisions as the kernels' scan (csrc/encode.cu) and the JAX package's."""
+    decisions as the kernels' scan (csrc/encode.cu) and the JAX package's.
+    Appends the offset of the final literal run's token to ``tails``."""
     out = bytearray()
     n_end = start + n
     mflimit, matchlimit = n_end - 12, n_end - 5
@@ -266,6 +268,8 @@ def _scan_plain(buf: bytes, start: int, n: int, low: int, ip: int,
             else:
                 ip += max(step, jump[ip - start])
             scnt += 1
+    if tails is not None:
+        tails.append(len(out))
     _emit_final(out, buf, anchor, n_end)
     return out
 
@@ -629,7 +633,8 @@ def encode_blocks_linked(stream: torch.Tensor, src_lens: torch.Tensor,
                          acceleration: int = 1,
                          prefix_lens: Optional[torch.Tensor] = None,
                          min_match: int = 4, reject_step: int = 1,
-                         zero_window_lanes: bool = False):
+                         zero_window_lanes: bool = False,
+                         tails: bool = False):
     """Compress streams of linked 64 KB blocks.
 
     Args:
@@ -642,9 +647,13 @@ def encode_blocks_linked(stream: torch.Tensor, src_lens: torch.Tensor,
       zero_window_lanes: zero the candidate table's window lanes below the
         prefix, as the JAX package's chunked compressor does (its one-shot
         path does not).
+      tails: also return each block's offset of the token of its final
+        literal-only sequence ([S, NB] int32; 0 for a padding row), which
+        lets consecutive payloads be joined into one block without a walk
+        over their tokens (``lz4_tpu_torch.legacy.merge_payloads``).
 
-    Returns (out [S, NB, M] uint8, olen [S, NB] int32); only
-    ``out[s, k, :olen[s, k]]`` is meaningful.
+    Returns (out [S, NB, M] uint8, olen [S, NB] int32), and the tails when
+    asked; only ``out[s, k, :olen[s, k]]`` is meaningful.
     """
     if prefix_lens is None:
         prefix_lens = torch.zeros((src_lens.shape[0],), dtype=torch.int32,
@@ -653,7 +662,7 @@ def encode_blocks_linked(stream: torch.Tensor, src_lens: torch.Tensor,
     delta, jump = linked_tables(stream, src_lens.shape[1], min_match,
                                 prefix_lens if zero_window_lanes else None)
     return scan_linked(stream, src_lens, prefix_lens, delta, jump,
-                       acceleration, min_match, reject_step)
+                       acceleration, min_match, reject_step, tails)
 
 
 def _check_linked(stream, src_lens, prefix_lens) -> None:
@@ -673,10 +682,12 @@ def _check_linked(stream, src_lens, prefix_lens) -> None:
 def scan_linked(stream: torch.Tensor, src_lens: torch.Tensor,
                 prefix_lens: torch.Tensor, delta: torch.Tensor,
                 jump: torch.Tensor, acceleration: int = 1,
-                min_match: int = 4, reject_step: int = 1):
+                min_match: int = 4, reject_step: int = 1,
+                tails: bool = False):
     """Kernel A proper: the scan of ``encode_blocks_linked`` over tables
     from ``linked_tables``.  Launches csrc/encode.cu for tensors on the
-    card, runs the plain scan for tensors on the CPU."""
+    card, runs the plain scan for tensors on the CPU.  With ``tails``,
+    returns (out, olen, tails) as ``encode_blocks_linked`` does."""
     _check_linked(stream, src_lens, prefix_lens)
     S, NB = src_lens.shape
     check(delta, "delta", torch.int32, 2)
@@ -688,32 +699,36 @@ def scan_linked(stream: torch.Tensor, src_lens: torch.Tensor,
     if not use_kernel(stream, src_lens, prefix_lens, delta, jump):
         return _encode_linked_plain(stream, src_lens, prefix_lens, delta,
                                     jump, M, acceleration, min_match,
-                                    reject_step)
+                                    reject_step, tails)
     dev = stream.device
     out = torch.empty((S, NB, M), dtype=torch.uint8, device=dev)
     olen = torch.empty((S, NB), dtype=torch.int32, device=dev)
+    tail = torch.empty((S, NB), dtype=torch.int32, device=dev) if tails \
+        else None
     words, lrec, rec, nrec, group = _scan_scratch(S * NB, WINDOW, dev)
     err = build.kernels_lib().lz4tt_encode_linked(
         stream.data_ptr(), stream.stride(0), delta.data_ptr(),
         jump.data_ptr(), src_lens.data_ptr(), prefix_lens.data_ptr(),
         words.data_ptr(), lrec.data_ptr(), lrec.shape[1], rec.data_ptr(),
         rec.shape[1], nrec.data_ptr(), group,
-        out.data_ptr(), M, olen.data_ptr(), S, NB, int(acceleration),
+        out.data_ptr(), M, olen.data_ptr(),
+        tail.data_ptr() if tails else None, S, NB, int(acceleration),
         int(min_match), int(reject_step),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("encode_linked", err)
     LAUNCHES["encode_linked"] += 1
-    return out, olen
+    return (out, olen, tail) if tails else (out, olen)
 
 
 def _encode_linked_plain(stream, src_lens, prefix_lens, delta, jump, M,
-                         acceleration, min_match, reject_step):
+                         acceleration, min_match, reject_step, tails):
     PLAIN_CALLS["encode_linked"] += 1
     S, NB = src_lens.shape
     lens = src_lens.tolist()
     prefix = prefix_lens.tolist()
     out = torch.zeros((S, NB, M), dtype=torch.uint8)
     olen = torch.zeros((S, NB), dtype=torch.int32)
+    tail = []
     for s in range(S):
         buf = stream[s].numpy().tobytes()
         rows = []
@@ -721,6 +736,7 @@ def _encode_linked_plain(stream, src_lens, prefix_lens, delta, jump, M,
             n = min(lens[s][k], WINDOW)          # clamped as in the kernel
             if n <= 0:
                 rows.append(b"")
+                tail.append(0)
                 continue
             start = (k + 1) * WINDOW
             pre = min(max(prefix[s], 0), WINDOW) if k == 0 else WINDOW
@@ -728,8 +744,10 @@ def _encode_linked_plain(stream, src_lens, prefix_lens, delta, jump, M,
             rows.append(_scan_plain(
                 buf, start, n, start - pre, start + (0 if pre > 0 else 1),
                 delta[r].tolist(), jump[r].tolist(), True, acceleration,
-                min_match, reject_step))
+                min_match, reject_step, tail))
         _fill_rows(out[s], olen[s], rows)
+    if tails:
+        return out, olen, torch.tensor(tail, dtype=torch.int32).view(S, NB)
     return out, olen
 
 

@@ -121,7 +121,7 @@ def hc_sorted_tables(rows: torch.Tensor):
 
 
 def encode_blocks_hc(rows: torch.Tensor, src_lens: torch.Tensor,
-                     level: int = DEFAULT_LEVEL):
+                     level: int = DEFAULT_LEVEL, tails: bool = False):
     """HC-compress a batch of independent blocks.
 
     Args:
@@ -129,13 +129,16 @@ def encode_blocks_hc(rows: torch.Tensor, src_lens: torch.Tensor,
       src_lens: [B] int32 source lengths (each <= NS).
       level: clamped to 1..16; a walk tries at most 1 << (level - 1)
         candidates.
+      tails: also return each row's offset of the token of its final
+        literal-only sequence ([B] int32), as ``encode_blocks_linked``
+        does.
 
     Returns (out [B, M] uint8, olen [B] int32), M = 128-aligned
-    compress_bound(NS); only ``out[b, :olen[b]]`` is meaningful.  A row of
-    length 0 still gets its one-byte block.
+    compress_bound(NS), and the tails when asked; only ``out[b, :olen[b]]``
+    is meaningful.  A row of length 0 still gets its one-byte block.
     """
     _check_rows(rows, src_lens)
-    return _scan(rows, src_lens, hc_sorted_tables(rows), level)
+    return _scan(rows, src_lens, hc_sorted_tables(rows), level, tails)
 
 
 def _check_rows(rows, src_lens) -> None:
@@ -151,21 +154,21 @@ def _check_rows(rows, src_lens) -> None:
 
 
 def hc_scan(rows: torch.Tensor, src_lens: torch.Tensor, tables,
-            level: int = DEFAULT_LEVEL):
+            level: int = DEFAULT_LEVEL, tails: bool = False):
     """Kernel I proper: the parse of ``encode_blocks_hc`` over the
     ``(perm, slot)`` tables of ``hc_sorted_tables``.  Launches csrc/hc.cu
     for tensors on the card, runs ``hc_row_rounds_plain`` for tensors on the
-    CPU."""
+    CPU.  Returns as ``encode_blocks_hc`` does."""
     _check_rows(rows, src_lens)
     perm, slot = tables
     check(perm, "perm", torch.int16, 2)
     check(slot, "slot", torch.int16, 2)
     if perm.shape != rows.shape or slot.shape != rows.shape:
         raise ValueError("perm and slot must be [B, NS]")
-    return _scan(rows, src_lens, (perm, slot), level)
+    return _scan(rows, src_lens, (perm, slot), level, tails)
 
 
-def _scan(rows, src_lens, tables, level):
+def _scan(rows, src_lens, tables, level, tails=False):
     """hc_scan on checked arguments."""
     perm, slot = tables
     B, NS = rows.shape
@@ -176,21 +179,27 @@ def _scan(rows, src_lens, tables, level):
         out = torch.zeros((B, M), dtype=torch.uint8)
         olen = torch.zeros((B,), dtype=torch.int32)
         lens = src_lens.tolist()
+        tail = []
         _fill_rows(out, olen, [
             hc_row_rounds_plain(rows[b].numpy().tobytes(),
                                 min(max(lens[b], 0), NS), perm[b].numpy(),
-                                slot[b].numpy(), max_attempts)
+                                slot[b].numpy(), max_attempts, tails=tail)
             for b in range(B)])
+        if tails:
+            return out, olen, torch.tensor(tail, dtype=torch.int32)
         return out, olen
     out = torch.empty((B, M), dtype=torch.uint8, device=rows.device)
     olen = torch.empty((B,), dtype=torch.int32, device=rows.device)
+    tail = torch.empty((B,), dtype=torch.int32, device=rows.device) \
+        if tails else None
     err = build.kernels_lib().lz4tt_encode_hc(
         rows.data_ptr(), NS, perm.data_ptr(), slot.data_ptr(),
-        src_lens.data_ptr(), out.data_ptr(), M, olen.data_ptr(), B,
-        max_attempts, torch.cuda.current_stream(rows.device).cuda_stream)
+        src_lens.data_ptr(), out.data_ptr(), M, olen.data_ptr(),
+        tail.data_ptr() if tails else None, B, max_attempts,
+        torch.cuda.current_stream(rows.device).cuda_stream)
     build.check_launch("encode_hc", err)
     LAUNCHES["encode_hc"] += 1
-    return out, olen
+    return (out, olen, tail) if tails else (out, olen)
 
 
 # ---------------------------------------------------------------------------
@@ -291,8 +300,8 @@ def hc_scan_serial(rows: torch.Tensor, src_lens: torch.Tensor,
 def hc_row_rounds_plain(buf: bytes, n: int, perm: np.ndarray,
                         slot: np.ndarray, max_attempts: int,
                         lanes: int = LANES, positions: int = POSITIONS,
-                        stats: Optional[collections.Counter] = None
-                        ) -> bytearray:
+                        stats: Optional[collections.Counter] = None,
+                        tails: Optional[list] = None) -> bytearray:
     """One row's HC parse as csrc/hc.cu decomposes it; the same bytes as
     ``_hc_row_plain``.  ``perm`` and ``slot`` are the row's tables from
     ``hc_sorted_tables``.
@@ -322,9 +331,12 @@ def hc_row_rounds_plain(buf: bytes, n: int, perm: np.ndarray,
     rounds of its longest search: the row's critical path), the rounds
     that the budget stops before their last lane (``budget_mid_round``)
     and those that switch to the 8-byte chain at a lane that is neither
-    their first nor their last (``switch_mid_round``)."""
+    their first nor their last (``switch_mid_round``).  ``tails``, when
+    given, gets the offset of the final literal run's token."""
     out = bytearray()
     if n < 13:
+        if tails is not None:
+            tails.append(0)
         _emit_final(out, buf, 0, n)
         return out
     u = np.frombuffer(buf, np.uint8).astype(np.int64)
@@ -418,5 +430,7 @@ def hc_row_rounds_plain(buf: bytes, n: int, perm: np.ndarray,
             _emit_seq(out, buf, anchor, mp - anchor, cur - pos, sc - 4)
             ip = anchor = mp + sc
             pending = None
+    if tails is not None:
+        tails.append(len(out))
     _emit_final(out, buf, anchor, n)
     return out

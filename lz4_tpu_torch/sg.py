@@ -18,15 +18,24 @@ conventions, as in the JAX package:
 Every frame made here is an ordinary LZ4F frame.
 
 The walks of ``sg_compress`` and ``sg_decompress`` run on the host over a
-block codec.  With none given, they run on ``device``: compression as one
-pass of the chain encoder (kernel G, ``kernels/destsize_kernel.py``) whose
-per-step records the walk replays, decompression by collecting the chain's
-blocks in one walk and decoding them all at once with kernel F
-(``kernels/decode_kernel.decode_blocks_sg_raw``), or with kernel E in
-linked mode when a block is over 64 KB.  ``device="cpu"`` runs the kernels'
-plain versions.  The port has no host codec: where ``lz4_tpu`` hands a
-layout outside its kernels' envelope to its host path, the port raises
-``SgDeviceUnsupported``, and a chain that does not decode to the sizes its
+block codec.  With none given, they run on ``device``:
+
+* compression as one pass of the chain encoder (kernel G,
+  ``kernels/destsize_kernel.py``) whose per-step records the walk replays;
+  a partial-source walk, content over ``dsk.MAX_TOTAL``, or a walk longer
+  than G's steps calls a destSize compressor over kernel H instead, one
+  block at a time (``dest_size_over_h``), from its first step or from the
+  step the records end;
+* decompression by collecting the chain's blocks in one walk and decoding
+  them all at once with kernel F (``kernels/decode_kernel.
+  decode_blocks_sg_raw``); a chain with a block over 64 KB or content over
+  ``MAX_DEVICE_CONTENT`` goes through kernel E in linked mode, in runs
+  (``device.decode_stream_runs``), and a block over 8 MB alone through
+  kernel D's batch mode with the 64 KB before it as its dictionary row.
+
+``device="cpu"`` runs the kernels' plain versions.  The port has no host
+codec, and needs none: every layout ``lz4_tpu`` hands to its host path
+runs over these kernels.  A chain that does not decode to the sizes its
 walk collected raises ``SgChainError``.
 """
 
@@ -39,33 +48,28 @@ import numpy as np
 import torch
 
 from . import spec
+from .device import decode_stream_runs
 from .kernels import destsize_kernel as dsk
-from .kernels.common import resolve_device, to_host
-from .kernels.decode_kernel import (decode_blocks_sg_raw, decode_stream,
+from .kernels.common import resolve_device, to_device, to_host
+from .kernels.decode_kernel import (STREAM_BLOCK_CAP, STREAM_UNIT,
+                                    decode_blocks, decode_blocks_sg_raw,
                                     join_payloads)
 from .ops.xxhash import xxh32
 
 BH = spec.BLOCK_HEADER_SIZE  # 4
 ZERO_PAD = struct.pack("<I", 1) + b"\x00"  # 5-byte zero-pad block
-# the device decode takes at most this much content (int32 offsets, with
-# headroom), as lz4_tpu's device route does
+# kernel F decodes at most this much content (int32 offsets, with
+# headroom), as lz4_tpu's device route does; longer chains go to kernel E
 MAX_DEVICE_CONTENT = 1 << 30
+# the most source bytes the walk over kernel H hands to one block: H's
+# widest row less the 64 KB window before the piece
+H_PIECE = dsk.MAX_BLOCK - spec.WINDOW_SIZE
 
 
 class SgError(ValueError):
     def __init__(self, code: int, msg: str):
         super().__init__(f"SG error {code}: {msg}")
         self.code = code
-
-
-class SgDeviceUnsupported(SgError):
-    """The layout is outside the device path's envelope (where lz4_tpu
-    takes its host codec): a partial-source walk, content outside
-    (0, 2^28] bytes for the encoder or over 1 GB for the decoder, a walk
-    longer than the chain encoder's steps, or a block over 4 MB."""
-
-    def __init__(self, msg: str):
-        super().__init__(0, msg)
 
 
 class SgChainError(SgError):
@@ -163,8 +167,8 @@ def sg_compress(in_bufs: Sequence[bytes], out_caps: Sequence[int],
     Without, the whole walk runs in one pass of the chain encoder on
     ``device`` (kernel G on the card, its plain version for ``"cpu"``), and
     this function replays its per-step records to place headers, zero-pads
-    and the endmark; layouts outside its envelope raise
-    SgDeviceUnsupported.
+    and the endmark; layouts outside G's envelope call kernel H one block
+    at a time (``dest_size_over_h``).
     """
     in_bufs = [bytes(b) for b in in_bufs]
     n_in, n_out = len(in_bufs), len(out_caps)
@@ -180,7 +184,7 @@ def sg_compress(in_bufs: Sequence[bytes], out_caps: Sequence[int],
             raise SgError(-4, f"output buffer length {c} unsupported")
     if dest_size_compress is None:
         # validated first: lz4_tpu runs its device route before these checks
-        dest_size_compress = _sg_device_scripted(
+        dest_size_compress = _sg_device_compressor(
             in_bufs, out_caps, source_size, max_output, acceleration, device)
     content_size = sum(len(b) for b in in_bufs) if source_size is None \
         else source_size
@@ -314,10 +318,10 @@ def sg_decompress(in_bufs: Sequence[bytes], out_caps: Sequence[int],
     is produced.
 
     With ``block_decompress`` given, the walk calls it for every block.
-    Without, the whole chain decodes on ``device`` (kernel F, or kernel E
-    for blocks over 64 KB; their plain versions for ``"cpu"``); layouts
-    outside its envelope raise SgDeviceUnsupported, and a chain that does
-    not decode to the walk's sizes raises SgChainError.
+    Without, the whole chain decodes on ``device`` (kernel F; kernel E for
+    blocks over 64 KB or content over MAX_DEVICE_CONTENT, kernel D for a
+    block over 8 MB; their plain versions for ``"cpu"``), and a chain that
+    does not decode to the walk's sizes raises SgChainError.
     """
     if block_decompress is None:
         return _sg_decompress_device(in_bufs, out_caps, compressed_size,
@@ -430,40 +434,74 @@ def sg_decompress(in_bufs: Sequence[bytes], out_caps: Sequence[int],
 # the device routes
 # ---------------------------------------------------------------------------
 
+def dest_size_over_h(device, tally: Optional[dict] = None
+                     ) -> DestSizeCompressor:
+    """A destSize compressor over kernel H on ``device``: ``[window |
+    piece]`` in one row, the window as the row's prefix, at most H_PIECE
+    source bytes a block (the walk takes the rest in later blocks).  Counts
+    its blocks and its capacity stops (blocks that cover less than the
+    piece they were given) in ``tally``, when given."""
+    dev = resolve_device(device)
+
+    def compress(src, capacity, dict_, acceleration):
+        src = src[:H_PIECE]
+        used = len(dict_) + len(src)
+        ns = max(-(-used // 128) * 128, 128)
+        row = np.zeros((ns,), np.uint8)
+        row[:used] = np.frombuffer(dict_ + src, np.uint8)
+
+        def i32(v):
+            return torch.tensor([v], dtype=torch.int32, device=dev)
+
+        out, olen, consumed = dsk.encode_blocks_dest_size(
+            to_device(row, dev).reshape(1, ns), i32(len(src)),
+            i32(min(capacity, (1 << 31) - 1)), acceleration,
+            window_lens=i32(len(dict_)))
+        olen, took = to_host(torch.cat([olen, consumed])).tolist()
+        if tally is not None:
+            tally["blocks"] = tally.get("blocks", 0) + 1
+            tally["stops"] = tally.get("stops", 0) + (took < len(src))
+        return took, to_host(out[0, :olen]).tobytes()
+
+    return compress
+
+
 def sg_scripted_replay(blocks: bytes, boff, blen, consumed, isz, osz,
-                       live: int) -> DestSizeCompressor:
+                       live: int, rest: DestSizeCompressor
+                       ) -> DestSizeCompressor:
     """DestSizeCompressor that replays the chain encoder's per-step records
-    into the walk.  Checks, call by call, that the walk presents exactly
-    the source piece and capacity the encoder assumed; any divergence
-    raises SgDeviceUnsupported."""
+    into the walk, while the walk presents exactly the source piece and
+    capacity the encoder assumed; from the first step where it does not,
+    or past the encoder's ``live`` steps, every call goes to ``rest``."""
     steps = iter(range(live))
+    replaying = True
 
     def scripted(src_piece, o_size, window, accel):
-        t = next(steps, None)
-        if t is None:
-            raise SgDeviceUnsupported("the walk is longer than the chain "
-                                      f"encoder's {live} steps")
-        if len(src_piece) != int(isz[t]) or o_size != int(osz[t]):
-            raise SgDeviceUnsupported(f"the walk left the chain encoder's "
-                                      f"step {t}")
-        b = int(boff[t])
-        return int(consumed[t]), blocks[b:b + int(blen[t])]
+        nonlocal replaying
+        if replaying:
+            t = next(steps, None)
+            if t is not None and len(src_piece) == int(isz[t]) \
+                    and o_size == int(osz[t]):
+                b = int(boff[t])
+                return int(consumed[t]), blocks[b:b + int(blen[t])]
+            replaying = False            # the records end here
+        return rest(src_piece, o_size, window, accel)
 
     return scripted
 
 
-def _sg_device_scripted(in_bufs, out_caps, source_size, max_output,
-                        acceleration, device) -> DestSizeCompressor:
-    """Run the whole SG compression walk in one pass of the chain encoder
-    on ``device`` and return a scripted DestSizeCompressor replaying its
-    per-step results into the walk."""
+def _sg_device_compressor(in_bufs, out_caps, source_size, max_output,
+                          acceleration, device) -> DestSizeCompressor:
+    """The device's DestSizeCompressor for one walk: the whole walk in one
+    pass of the chain encoder on ``device``, replayed step by step; a
+    partial-source walk or content over ``dsk.MAX_TOTAL`` (outside the
+    chain encoder's envelope) goes over kernel H from its first block, a
+    walk longer than the encoder's steps from its first step past them."""
+    over_h = dest_size_over_h(device)
     total = sum(len(b) for b in in_bufs)
-    if not 0 < total <= dsk.MAX_TOTAL:
-        raise SgDeviceUnsupported(f"the chain encoder takes 1..{dsk.MAX_TOTAL}"
-                                  f" bytes, not {total}")
-    if source_size is not None and source_size != total:
-        raise SgDeviceUnsupported("a partial-source walk (source_size "
-                                  f"{source_size} of {total})")
+    if total > dsk.MAX_TOTAL or (source_size is not None
+                                 and source_size != total):
+        return over_h
     max_dest = sum(out_caps) if max_output is None else max_output
     flat, in_ends = dsk.sg_chain_input(in_bufs, resolve_device(device))
     blocks, boff, blen, consumed, isz, osz = dsk.sg_encode_chain(
@@ -476,7 +514,7 @@ def _sg_device_scripted(in_bufs, out_caps, source_size, max_output,
     # one fetch of every live step's block bytes
     end = int(boff[live - 1] + blen[live - 1]) if live else 0
     return sg_scripted_replay(to_host(blocks[:end]).tobytes(), boff, blen,
-                              consumed, isz, osz, live)
+                              consumed, isz, osz, live, over_h)
 
 
 def decoded_length(comp: bytes) -> int:
@@ -535,9 +573,6 @@ def collect_chain(in_bufs, out_caps, compressed_size=None, max_output=None):
         if len(comp) == 1 and comp == b"\x00":
             return b""           # empty block: contributes nothing
         size = decoded_length(comp)
-        if size > spec.SG_MAX_BLOCK_SIZE:
-            raise SgDeviceUnsupported(f"a block of {size} bytes (the device "
-                                      "path takes at most 4 MB)")
         if not 0 <= size <= out_cap:
             raise SgChainError(f"block {len(payloads)} of the chain is "
                                f"malformed or decodes past its {out_cap} "
@@ -551,6 +586,54 @@ def collect_chain(in_bufs, out_caps, compressed_size=None, max_output=None):
     return total, payloads, sizes
 
 
+def decode_chain_linked(payloads: Sequence[bytes], sizes: Sequence[int],
+                        dev: torch.device) -> Tuple[bytes, np.ndarray]:
+    """Decode a linked chain of compressed blocks, block k to at most
+    ``sizes[k]`` bytes with everything decoded before it as its window:
+    runs of blocks of at most 8 MB through kernel E (``decode_stream_runs``),
+    a block over 8 MB alone through kernel D's batch mode with the 64 KB
+    before it as its dictionary row.  Returns (the good blocks' bytes in
+    order, olen per block, -1 for a block that failed), as one call of
+    kernel E in linked mode over the chain would."""
+    olen = np.zeros((len(payloads),), np.int64)
+    parts: List[bytes] = []
+    window = b""
+    k = 0
+    while k < len(payloads):
+        j = k
+        while j < len(payloads) and sizes[j] <= STREAM_BLOCK_CAP:
+            j += 1
+        if j > k:                        # blocks k..j-1 through kernel E
+            flat = b"".join(payloads[k:j])
+            starts = np.cumsum([0] + [len(p) for p in payloads[k:j]])
+            caps = list(sizes[k:j])
+            bs = -(-max(max(caps), 1) // STREAM_UNIT) * STREAM_UNIT
+            got, olen[k:j] = decode_stream_runs(
+                flat, starts[:-1].tolist(), np.diff(starts).tolist(),
+                [0] * (j - k), caps, bs, True, dev, window=window)
+        else:                            # block k, over 8 MB, through D
+            comp = torch.from_numpy(np.frombuffer(payloads[k], np.uint8)
+                                    .copy()).reshape(1, -1).to(dev)
+            dict_row = torch.zeros((1, spec.WINDOW_SIZE), dtype=torch.uint8)
+            if window:
+                dict_row[0, spec.WINDOW_SIZE - len(window):] = \
+                    torch.frombuffer(bytearray(window), dtype=torch.uint8)
+            out, ol = decode_blocks(
+                comp, torch.tensor([comp.shape[1]], dtype=torch.int32,
+                                   device=dev), sizes[k],
+                dict_rows=dict_row.to(dev),
+                dict_lens=torch.tensor([len(window)], dtype=torch.int32,
+                                       device=dev))
+            olen[k] = int(to_host(ol)[0])
+            got = to_host(out[0, :max(olen[k], 0)]).tobytes()
+            j = k + 1
+        if got:
+            parts.append(got)
+            window = (window + got[-spec.WINDOW_SIZE:])[-spec.WINDOW_SIZE:]
+        k = j
+    return b"".join(parts), olen
+
+
 def _sg_decompress_device(in_bufs, out_caps, compressed_size, max_output,
                           device):
     """Device scatter-gather decode: collect the chain in one host walk,
@@ -561,25 +644,22 @@ def _sg_decompress_device(in_bufs, out_caps, compressed_size, max_output,
                                            compressed_size, max_output)
     if not payloads:
         return total, [bytes(bytearray(c)) for c in out_caps]
-    if total > MAX_DEVICE_CONTENT:
-        raise SgDeviceUnsupported(f"{total} bytes of content (the device "
-                                  f"path takes at most {MAX_DEVICE_CONTENT})")
-    if max(sizes) > spec.WINDOW_SIZE:
-        # blocks over 64 KB (the fork allows up to 4 MB): the whole chain
-        # through the stream decoder in linked mode, each block capped at
-        # its collected size
-        bs = -(-max(sizes) // spec.WINDOW_SIZE) * spec.WINDOW_SIZE
-        out, olen = decode_stream(payloads, bs, total, linked=True,
-                                  out_caps=sizes, device=dev)
+    if total > MAX_DEVICE_CONTENT or max(sizes) > spec.WINDOW_SIZE:
+        # blocks over 64 KB (the fork allows any size within the output
+        # buffers) or content past kernel F: a linked chain through E (and
+        # D), each block capped at its collected size
+        content, olen = decode_chain_linked(payloads, sizes, dev)
     else:
         flat, bstart, clen = join_payloads(payloads, dev)
         out, olen = decode_blocks_sg_raw(flat, bstart, clen, sizes)
-    olen = to_host(olen)
+        olen = to_host(olen)
+        content = None
     if (olen != np.asarray(sizes, olen.dtype)).any():
         bad = int(np.nonzero(olen != np.asarray(sizes, olen.dtype))[0][0])
         raise SgChainError(f"block {bad} of the chain decoded to "
                            f"{int(olen[bad])} bytes, not {sizes[bad]}")
-    content = to_host(out[:total]).tobytes()
+    if content is None:
+        content = to_host(out[:total]).tobytes()
 
     outs = []
     pos = 0

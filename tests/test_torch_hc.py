@@ -401,18 +401,6 @@ def test_compress_filename_and_multiple(tmp_path):
     assert (tmp_path / "b.bin.lz4").exists()
 
 
-def test_legacy_compress_raises_before_writing(tmp_path):
-    src = tmp_path / "a.bin"
-    src.write_bytes(b"abc" * 1000)
-    with pytest.raises(tdev.DeviceLayoutUnsupported, match="legacy"):
-        tio.compress_filename(str(src), str(tmp_path / "a.lz4"),
-                              tio.IoPrefs(legacy=True), device=CPU)
-    assert not (tmp_path / "a.lz4").exists()
-    with pytest.raises(tdev.DeviceLayoutUnsupported, match="legacy"):
-        tio.compress_stream(io.BytesIO(b"abc"), io.BytesIO(),
-                            tio.IoPrefs(legacy=True), device=CPU)
-
-
 def _cli(args, cwd, stdin=b"", force_cpu=True, **env_kw):
     env = {k: v for k, v in os.environ.items()
            if k not in ("JAX_PLATFORMS", "LZ4TPU_FORCE_CPU")}
@@ -460,9 +448,6 @@ def test_cli_stdin_stdout_and_multiple(tmp_path):
 
 def test_cli_refusals_and_version(tmp_path):
     (tmp_path / "f").write_bytes(b"abc" * 100)
-    res = _cli(["-l", "f"], tmp_path)
-    assert res.returncode == 1 and b"legacy" in res.stderr
-    assert not (tmp_path / "f.lz4").exists()
     res = _cli(["--version"], tmp_path)
     assert res.returncode == 0 and b"lz4_tpu_torch v" in res.stdout
     # no card and no request for the CPU: a clear failure, never the CPU

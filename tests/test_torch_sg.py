@@ -639,50 +639,137 @@ def _corrupt_chain_frame():
     return [bytes(b) for b in comp], [4096] * 16
 
 
-DEVICE_FALLBACKS = {
-    # name: (call on the port, call on lz4_tpu, error the port raises)
-    "partial_source": (
-        lambda: tsg.sg_compress(split(DATA64K, [4096] * 16), [4096] * 17,
-                                source_size=30_000, device=CPU),
-        lambda: jsg.sg_compress(split(DATA64K, [4096] * 16), [4096] * 17,
-                                source_size=30_000, use_device=True),
-        tsg.SgDeviceUnsupported),
-    "content_outside_envelope": (
-        lambda: tsg.sg_compress([DATA64K[:3000]], [4096], device=CPU),
-        None, tsg.SgDeviceUnsupported),
-    "walk_longer_than_the_steps": (
-        lambda: tsg.sg_compress(split(DATA64K, [4096] * 16), [4096] * 17,
-                                device=CPU),
-        None, tsg.SgDeviceUnsupported),
-    "block_over_4mb": (
-        lambda: tsg.sg_decompress(*_frame_with_big_block(), device=CPU),
-        lambda: jsg.sg_decompress(*_frame_with_big_block(), use_device=True),
-        tsg.SgDeviceUnsupported),
-    "chain_does_not_decode": (
-        lambda: tsg.sg_decompress(*_corrupt_chain_frame(), device=CPU),
-        None, tsg.SgChainError),
+def _frame_over_8mb():
+    """An SG frame of two blocks: 64 KB of text as literals, then a block
+    decoding to about 9 MB whose matches (offset 65,535, as long as their
+    offset) copy the 64 KB before it, the first one from the previous
+    block: kernel D's route, with that block as its dictionary row."""
+    head = DATA64K
+    reps = (9 << 20) // 65535
+    body = chip_smoke.lz4_seq(b"", 65535, 65535) * reps
+    tail_lits = b"0123456789"
+    second = body + chip_smoke.lz4_seq(tail_lits)
+    n = len(head) + reps * 65535 + len(tail_lits)
+    blocks = [chip_smoke.lz4_seq(head), second]
+    frame = (tsg._encode_sg_header(n, n)
+             + b"".join(struct.pack("<I", len(b)) + b for b in blocks)
+             + bytes(4))
+    return [frame], [n]
+
+
+def _chain_of_4k(monkeypatch=None):
+    """The '16x4k_to_17x4k' frame as its filled buffers, with the list it
+    came from."""
+    in_bufs, caps = SG_COMPRESS_CASES["16x4k_to_17x4k"]()
+    total, _, outs = tsg.sg_compress(in_bufs, caps, device=CPU)
+    return trim_to_filled(outs, caps, total), [len(b) for b in in_bufs]
+
+
+SG_COMPRESS_ROUTES = {
+    # name: (input list, out caps, source_size); the walk runs over kernel
+    # H from its first block (outside kernel G's envelope), or from the
+    # step past G's records
+    "partial_source": (split(DATA64K, [4096] * 16), [4096] * 17, 30_000),
+    "content_over_max_total": ([DATA64K[:3000]], [4096], None),
+    "walk_longer_than_the_steps": (split(DATA64K, [4096] * 16), [4096] * 17,
+                                   None),
 }
 
 
-@pytest.mark.parametrize("case", sorted(DEVICE_FALLBACKS))
-def test_port_raises_where_jax_takes_its_host_path(case, monkeypatch):
-    port, jax_call, err = DEVICE_FALLBACKS[case]
-    if case == "content_outside_envelope":
+@pytest.mark.parametrize("case", sorted(SG_COMPRESS_ROUTES))
+def test_port_answers_where_jax_takes_its_host_path_compress(case,
+                                                             monkeypatch):
+    """lz4_tpu hands these walks to its host codec; the port runs them
+    over kernel H (its plain version here).  The port consumes what
+    lz4_tpu consumes, both packages decode its frame to that content, and
+    its size is within 5 % of lz4_tpu's host walk: kernel H parses as
+    lz4_tpu's destSize kernels do, and lz4_tpu's own chain kernel is 5.1 %
+    above its host walk on the whole of this list (32,614 against 31,017
+    bytes); the port's walk over H is 3.8 % above on the partial walk."""
+    in_bufs, caps, source_size = SG_COMPRESS_ROUTES[case]
+    if case == "content_over_max_total":
         monkeypatch.setattr(tdsk, "MAX_TOTAL", 2000)
     if case == "walk_longer_than_the_steps":
         real = tdsk.sg_chain_statics
         monkeypatch.setattr(tdsk, "sg_chain_statics",
                             lambda *a: (3, real(*a)[1]))
-    with pytest.raises(err) as exc:
-        port()
-    assert isinstance(exc.value, tsg.SgError)
-    if jax_call is not None:
-        res = jax_call()                # lz4_tpu's host path answers
-        assert res[0] > 0
-    if case == "chain_does_not_decode":
-        comp, sizes = _corrupt_chain_frame()
-        with pytest.raises(Exception):
-            jsg.sg_decompress(comp, sizes, use_device=True)
+    common.reset_counts()
+    total, consumed, outs = tsg.sg_compress(in_bufs, caps,
+                                            source_size=source_size,
+                                            device=CPU)
+    h_calls = common.PLAIN_CALLS["encode_dest_size"]
+    g_calls = common.PLAIN_CALLS["sg_encode_chain"]
+    assert h_calls > 0
+    assert g_calls == (case == "walk_longer_than_the_steps")
+    j_total, j_consumed, _ = jsg.sg_compress(in_bufs, caps,
+                                             source_size=source_size)
+    assert consumed == j_consumed > 0
+    assert abs(total - j_total) <= 0.05 * j_total, (total, j_total)
+    content = b"".join(in_bufs)[:consumed]
+    comp = trim_to_filled(outs, caps, total)
+    assert tsg.sg_decompress(comp, [consumed], device=CPU) == \
+        jsg.sg_decompress(comp, [consumed]) == (consumed, [content])
+
+
+SG_DECOMPRESS_ROUTES = {
+    # name: (frame buffers and out caps, the kernel that decodes)
+    "block_over_4mb": (_frame_with_big_block, "decode_stream"),
+    "block_over_8mb": (_frame_over_8mb, "decode_batch"),
+    "content_over_max_device_content": (_chain_of_4k, "decode_stream"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SG_DECOMPRESS_ROUTES))
+def test_port_answers_where_jax_takes_its_host_path_decompress(case,
+                                                               monkeypatch):
+    """Chains past kernel F go through kernel E in linked mode (blocks
+    over 64 KB, content over MAX_DEVICE_CONTENT), a block over 8 MB
+    through kernel D with its dictionary row; the port decodes them as
+    lz4_tpu's host walk does."""
+    make, kernel = SG_DECOMPRESS_ROUTES[case]
+    comp, caps = make()
+    if case == "content_over_max_device_content":
+        monkeypatch.setattr(tsg, "MAX_DEVICE_CONTENT", 10_000)
+    common.reset_counts()
+    got = tsg.sg_decompress(comp, caps, device=CPU)
+    assert common.PLAIN_CALLS[kernel] > 0
+    assert common.PLAIN_CALLS["decode_sg"] == 0
+    assert got == jsg.sg_decompress(comp, caps, use_device=True)
+    assert got[0] == sum(caps)
+
+
+def test_chain_that_does_not_decode_raises_like_jax():
+    """A chain block that does not decode: lz4_tpu's host walk raises, and
+    the port raises SgChainError."""
+    comp, sizes = _corrupt_chain_frame()
+    with pytest.raises(tsg.SgChainError):
+        tsg.sg_decompress(comp, sizes, device=CPU)
+    with pytest.raises(Exception):
+        jsg.sg_decompress(comp, sizes, use_device=True)
+
+
+@pytest.mark.parametrize("split_at", [1, 2, 5])
+def test_decode_chain_linked_equals_one_stream_call(split_at, monkeypatch):
+    """The E and D route of the SG decoder equals one call of kernel E's
+    plain version over the whole chain (the same olen and bytes), with
+    STREAM_MAX_INPUT cut so that the chain takes several runs, and with a
+    corrupt block among them."""
+    payloads = [chip_smoke.lz4_seq(DATA64K[:20_000])]
+    for k in range(1, 7):
+        payloads.append(chip_smoke.lz4_seq(DATA64K[k:k + 300], 15_000, 5000)
+                        + chip_smoke.lz4_seq(b"tail!"))
+    sizes = [20_000] + [5305] * 6
+    payloads[4] = chip_smoke.lz4_seq(b"x", 60_000, 10) + \
+        chip_smoke.lz4_seq(b"end..")
+    want = tdec.decode_stream(payloads, 65536, 0, linked=True,
+                              out_caps=sizes, device=CPU)
+    limit = sum(map(len, payloads[:split_at])) + 65536
+    monkeypatch.setattr(tdec, "STREAM_MAX_INPUT", limit)
+    content, olen = tsg.decode_chain_linked(payloads, sizes,
+                                            torch.device(CPU))
+    assert olen.tolist() == want[1].tolist()
+    assert content == want[0][:int(want[1][want[1] > 0].sum())].numpy() \
+        .tobytes()
 
 
 def round_counts() -> None:

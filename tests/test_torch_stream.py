@@ -31,6 +31,7 @@ from lz4_tpu.ops.block_np import compress_block, decompress_block
 from lz4_tpu.utils.datagen import gen_buffer, incompressible
 from lz4_tpu_torch import device as tdev
 from lz4_tpu_torch import io as tio
+from lz4_tpu_torch import legacy as tlegacy
 from lz4_tpu_torch import spec as tspec
 from lz4_tpu_torch.frame import (FramePreferences, Lz4FrameError,
                                  encode_frame_header)
@@ -145,7 +146,7 @@ def _raw_layout():
         (compress_block(a), False, 256 * KB),
         (b, True, 256 * KB),
         (b"", False, 256 * KB),
-        (chip_smoke.literal_head(len(lit)) + lit, False, 256 * KB),
+        (tlegacy.literal_head(len(lit)) + lit, False, 256 * KB),
         (c, True, 500),
         (compress_block(d, dict_=a + b + lit), False, 256 * KB),
         (compress_block(a)[:-7], False, 256 * KB),
@@ -254,6 +255,26 @@ def test_decode_stream_checks_its_arguments(monkeypatch):
     monkeypatch.setattr(tdec, "STREAM_MAX_INPUT", 99)
     with pytest.raises(tdec.StreamEnvelopeError, match="int32"):
         tdec.decode_stream_raw(flat, [0], [1], [0], 64 * KB, 0)
+
+
+def test_a_block_past_the_run_bound_fails_as_in_one_call(monkeypatch):
+    """A block whose payload alone passes STREAM_MAX_INPUT fails without a
+    launch, as one call fails it (no such payload fits a block's cap)."""
+    big = incompressible(200_000, 71)
+    small = compress_block(sparse_data(30_000, 72))
+    flat = small + big + small
+    starts = [0, len(small), len(small) + len(big)]
+    sizes = [len(small), len(big), len(small)]
+    monkeypatch.setattr(tdec, "STREAM_BLOCK_CAP", 150_000)
+    out, olen = tdec.decode_stream_raw(
+        torch.frombuffer(bytearray(flat), dtype=torch.uint8), starts, sizes,
+        [0, 1, 0], 256 * KB, 0, False)
+    monkeypatch.setattr(tdec, "STREAM_MAX_INPUT", 150_000)
+    got, g_olen = tdev.decode_stream_runs(flat, starts, sizes, [0, 1, 0],
+                                          [256 * KB] * 3, 256 * KB, False,
+                                          torch.device(CPU))
+    assert g_olen.tolist() == olen.tolist() == [30_000, -1, 30_000]
+    assert got == out[:60_000].numpy().tobytes()
 
 
 def _lz4_bd_caps(rng):
@@ -450,14 +471,135 @@ def test_decompress_stream_rejects_unknown_first_stream(data):
                               jio.IoPrefs(use_device=False))
 
 
-def test_frame_past_the_stream_envelope_propagates(monkeypatch):
-    """lz4_tpu's io hands DeviceLayoutUnsupported to its host codec; the
-    port has none, so the error reaches the caller."""
-    frame = _host_frame(b"abc" * 1000, block_size_id=5)
-    monkeypatch.setattr(tdec, "STREAM_MAX_INPUT", len(frame) - 10)
-    with pytest.raises(tdev.DeviceLayoutUnsupported, match="int32"):
-        tio.decompress_stream(io.BytesIO(frame), io.BytesIO(), tio.IoPrefs(),
-                              device=CPU)
+def _envelope_frames():
+    """Frames of kernel E's routes, each of several blocks: (the frame,
+    the decoder of both packages, whether its blocks are linked)."""
+    data = (sparse_data(300_000, 61) + incompressible(120_000, 62)
+            + sparse_data(300_000, 63))
+    # segments repeated across block bounds: a block's first matches reach
+    # into the block before
+    linked = sparse_data(800_000, 64)
+    legacy = (struct.pack("<I", jspec.LEGACY_MAGIC) + chip_smoke.block_records(
+        [compress_block(data[i:i + 200_000])
+         for i in range(0, len(data), 200_000)]))
+    comp = tdev.DeviceFrameCompressor(FramePreferences(block_size_id=4),
+                                      device=CPU)
+    flushed = comp.begin() + b"".join(
+        comp.update(c) + comp.flush()
+        for c in (linked[:150_000], linked[150_000:151_000],
+                  linked[151_000:300_000])) + comp.end()
+    return {
+        "b5_independent": (_host_frame(data, block_size_id=5,
+                                       block_independent=True,
+                                       content_checksum=True), "frame",
+                           False),
+        "b5_linked": (_host_frame(linked, block_size_id=5), "frame", True),
+        "legacy": (legacy, "legacy", False),
+        "flushed_64k_chain": (flushed, "frame", True),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_envelope_frames()))
+def test_frames_past_the_stream_envelope_decode_in_runs(case, monkeypatch):
+    """lz4_tpu hands a frame past kernel E's int32 input to its host codec;
+    the port decodes it in runs of at most STREAM_MAX_INPUT bytes (patched
+    down so that each frame takes 2 to 4), the last 64 KB decoded carried
+    into the next run of a linked chain, to lz4_tpu's answer."""
+    frame, kind, linked = _envelope_frames()[case]
+    port = tdev.decompress_legacy_device if kind == "legacy" \
+        else tdev.decompress_frame_device
+    jax = decompress_legacy if kind == "legacy" \
+        else jtpu.decompress_frame_device
+    recs = (chip_smoke.frame_payloads(frame, 7) if kind == "frame" else
+            [(p, False) for p in _legacy_payloads(frame)])
+    limit = max(len(frame) // 3, max(len(p) for p, _ in recs) + 10) \
+        + (64 * KB if linked else 0)
+    monkeypatch.setattr(tdec, "STREAM_MAX_INPUT", limit)
+    calls = []
+    real = tdec.decode_stream_raw
+    monkeypatch.setattr(tdev, "decode_stream_raw",
+                        lambda *a, **k: calls.append(a[0].numel())
+                        or real(*a, **k))
+    want = jax(frame)
+    assert port(frame, device=CPU) == want
+    assert 2 <= len(calls) <= 4 and max(calls) <= limit, calls
+    if case == "b5_linked":
+        # some run's first block decodes only with the run before it
+        st, sz, _ = chip_smoke._records(frame, 7)
+        firsts = tdev._runs(st, sz, [256 * KB] * len(st), 64 * KB)[1:-1]
+
+        def needs_window(payload):
+            try:
+                decompress_block(payload, 256 * KB)
+            except Exception:
+                return True
+            return False
+
+        assert any(needs_window(recs[j][0]) for j in firsts)
+    out = io.BytesIO()
+    tio.decompress_stream(io.BytesIO(frame), out, tio.IoPrefs(), device=CPU)
+    assert out.getvalue() == want[0]
+
+
+def _legacy_payloads(frame):
+    """The blocks of a legacy file with no frame after it."""
+    out, pos = [], 4
+    while pos < len(frame):
+        n = struct.unpack_from("<I", frame, pos)[0]
+        out.append(frame[pos + 4:pos + 4 + n])
+        pos += 4 + n
+    return out
+
+
+def test_corrupt_block_across_a_run_cut_is_named_by_frame_index(monkeypatch):
+    """A corrupt block in the second run of a frame is named by its index
+    in the frame, as lz4_tpu names it."""
+    data = sparse_data(1_200_000, 65)
+    frame = bytearray(_host_frame(data, block_size_id=5,
+                                  block_independent=True))
+    recs = chip_smoke.frame_payloads(bytes(frame), 7)
+    pos = 7 + sum(4 + len(p) for p, _ in recs[:3])
+    frame[pos + 4:pos + 8] = b"\x00\x00\x00\x00"    # block 3: offset 0
+    monkeypatch.setattr(tdec, "STREAM_MAX_INPUT",
+                        sum(4 + len(p) for p, _ in recs[:2]))
+    with pytest.raises(Lz4FrameError, match="block 3") as exc:
+        tdev.decompress_frame_device(bytes(frame), device=CPU)
+    assert not isinstance(exc.value, tdev.DeviceLayoutUnsupported)
+    with pytest.raises(jtpu.DeviceLayoutUnsupported, match="block 3"):
+        jtpu.decompress_frame_device(bytes(frame))
+
+
+@pytest.mark.parametrize("linked", [False, True])
+@pytest.mark.parametrize("per_run", [1, 2, 3])
+def test_decode_stream_runs_equal_one_call(linked, per_run, monkeypatch):
+    """decode_stream_runs gives the bytes and olen of one decode_stream_raw
+    call over all the blocks, with runs of ``per_run`` blocks, a rejected
+    block and stored blocks among them."""
+    chunks = [sparse_data(100_000, 70 + k) for k in range(6)]
+    payloads = _payloads(chunks, linked)
+    payloads[3] = payloads[3][:-7]                  # rejected
+    stored = [0, 0, 1, 0, 0, 0]
+    payloads[2] = chunks[2]
+    flat = b"\x09" + b"".join(p + b"\x55" for p in payloads)
+    starts = np.cumsum([1] + [len(p) + 1 for p in payloads])[:-1].tolist()
+    sizes = [len(p) for p in payloads]
+    caps = [256 * KB] * 6
+    out, olen = tdec.decode_stream_raw(
+        torch.frombuffer(bytearray(flat), dtype=torch.uint8), starts, sizes,
+        stored, 256 * KB, 0, linked, out_caps=caps)
+    want = out[:int(olen[olen > 0].sum())].numpy().tobytes()
+    monkeypatch.setattr(tdec, "STREAM_MAX_INPUT", max(
+        starts[k + per_run - 1] + sizes[k + per_run - 1] - starts[k]
+        for k in range(len(starts) - per_run + 1))
+        + (64 * KB if linked else 0))
+    got, g_olen = tdev.decode_stream_runs(flat, starts, sizes, stored, caps,
+                                          256 * KB, linked,
+                                          torch.device(CPU))
+    assert g_olen.tolist() == olen.tolist()
+    assert got == want
+    assert -1 in g_olen.tolist()
+    assert len(tdev._runs(starts, sizes, caps, 64 * KB if linked else 0)) \
+        - 1 >= 2
 
 
 @pytest.mark.parametrize("sparse", [True, False])
@@ -529,7 +671,7 @@ def test_merged_blocks_decode_to_their_content(group):
     frame = _host_frame(data, **dataclasses.asdict(prefs))
     recs = chip_smoke.frame_payloads(frame, 7)
     assert any(st for _, st in recs)
-    merged = chip_smoke.merged_blocks(recs, group)
+    merged = tlegacy.merged_blocks(recs, group)
     assert len(merged) == -(-len(recs) // group)
     for i, blk in enumerate(merged):
         want = data[i * group * bs:(i + 1) * group * bs]
