@@ -7,6 +7,7 @@
     python3 chip_smoke.py --decode-times ROOT   # kernels E, F, D of ROOT
     python3 chip_smoke.py --hc-times ROOT       # kernels I and C of ROOT
     python3 chip_smoke.py --xxh-times ROOT      # kernels J and K of ROOT
+    python3 chip_smoke.py --parallel-only       # steps 13 and 14 alone
 
 1. Checks for a card and prints its name and power limit.
 2. Builds the kernels from lz4_tpu_torch/csrc (nvcc, sm_90a).
@@ -160,6 +161,30 @@
    patched down (kernel E in runs), equal to kernel F's answer.  Kernels
    E, H, G and F must launch, and no plain version run.
 12. Decodes a 1 MB frame written by the kernels with the plain versions.
+13. The mesh (lz4_tpu_torch.parallel.mesh), with its own counter reset and
+   read, over the default mesh (every visible card) and over four
+   positions on card 0: compress_frame_mesh of the corpus at min_match 4
+   (kernels A and C per 4 MB chunk), decoded by decompress_frame_device,
+   the two meshes' frames byte-identical; the corpus as 1,024 rows of 64
+   KB through encode_blocks_sharded and decode_blocks_sharded (B, batch
+   D; every row back, the payloads one unsharded encode_blocks call's) and
+   roundtrip_step; 64 SG lists of 256 KB (4 KB iovecs into 4 KB buffers)
+   and six ragged lists of three layouts through sg_compress_mesh (kernel
+   G with its list axis, one launch per bucket and card) and
+   sg_decompress_mesh (kernel F), byte-exact, equal on both meshes.  Step
+   3k holds sg_encode_chain_batch on the 64 lists against its plain
+   version and against one sg_encode_chain launch per list, and times it.
+   Kernels A, C, B, batch D, F and G's list axis must launch, and no plain
+   version run.
+14. Multihost (lz4_tpu_torch.parallel.multihost): one worker process per
+   visible card (this script with --multihost-worker), NCCL through a
+   file:// store under build/, each with a time limit; each compresses
+   its slice of the corpus's 1,024 rows with the lengths all-gathered (B)
+   and decodes it (batch D); rank 0 splices the segments into one
+   block-independent frame, which decompress_frame_device must decode to
+   the corpus.  B and batch D must launch in the workers, and no plain
+   version run.  --parallel-only runs steps 1, 2, 13 and 14 alone (the
+   check on four cards).
 
 Prints a JSON line of the kernels (each with the launch count of the phase
 that drives it, every phase's counts, its time on the card, its plain
@@ -172,6 +197,7 @@ the temporary directories of steps 6 and 8).
 
 import functools
 import json
+import os
 import random
 import subprocess
 import sys
@@ -187,7 +213,8 @@ MAIN_POINTS = ((8, 1, False), (4, 1, False), (8, 1, True))
 
 # name -> (route, source, the Pallas launch it replaces, the phase whose
 # launch count it reports: "main" = step 4, "entry" = step 5, "stream" =
-# step 6, "sg" = step 7, "hc" = step 8, "destsize" = step 9)
+# step 6, "sg" = step 7, "hc" = step 8, "destsize" = step 9, "mesh" = step
+# 13)
 KERNELS = {
     "encode_linked": ("cuda", "lz4_tpu_torch/csrc/encode.cu",
                       "lz4_tpu/kernels/encode_kernel.py:744", "main"),
@@ -216,6 +243,9 @@ KERNELS = {
               "lz4_tpu/kernels/xxh32_kernel.py:85", "destsize"),
     "xxh64": ("cuda", "lz4_tpu_torch/csrc/xxh.cu",
               "lz4_tpu/kernels/xxh64_kernel.py:129", "destsize"),
+    "sg_encode_chain_batch": ("cuda", "lz4_tpu_torch/csrc/sg_chain.cu",
+                              "lz4_tpu/kernels/destsize_kernel.py:594",
+                              "mesh"),
 }
 
 
@@ -2082,6 +2112,424 @@ def envelope_phase(corpus: bytes, b7_blocks, dev, sg_layout) -> dict:
     return res
 
 
+# -- the mesh and multihost paths (lz4_tpu_torch.parallel) ---------------------
+MESH_SG_LISTS = 64                 # the big bucket: lists of 256 KB, each
+MESH_SG_LIST = 256 << 10           # 64 x 4 KB iovecs into 68 x 4 KB buffers
+# the six ragged lists: three layouts (test_sg.py's, 16 times over), each
+# with its output caps
+MESH_RAGGED = (((32768, 32768), (36864,) * 3),
+               ((16384, 49152), (53248,) * 2),
+               ((65536,), (69632, 8192)))
+MULTIHOST_TIMEOUT = 300            # seconds a multihost worker may take
+
+
+def mesh_sg_lists(corpus: bytes):
+    """The mesh phase's SG lists: (lists, caps per list, sizes per list).
+    The first MESH_SG_LISTS lists are the corpus's first 16 MiB as lists of
+    256 KB (one bucket); six ragged lists of three layouts follow, 64 KB
+    each, from the bytes after them."""
+    lists, caps, sizes = [], [], []
+    n = MESH_SG_LIST // SG_IOVEC
+    for i in range(MESH_SG_LISTS):
+        head = corpus[i * MESH_SG_LIST:(i + 1) * MESH_SG_LIST]
+        lists.append([head[j:j + SG_IOVEC]
+                      for j in range(0, len(head), SG_IOVEC)])
+        caps.append([SG_IOVEC] * (n * 17 // 16))
+        sizes.append([SG_IOVEC] * n)
+    pos = MESH_SG_LISTS * MESH_SG_LIST
+    for i in range(6):
+        layout, cap = MESH_RAGGED[i % 3]
+        bufs = []
+        for s in layout:
+            bufs.append(corpus[pos:pos + s])
+            pos += s
+        lists.append(bufs)
+        caps.append(list(cap))
+        sizes.append(list(layout))
+    return lists, caps, sizes
+
+
+def peak_bytes(devices) -> int:
+    """The largest peak of device memory on ``devices`` since their last
+    reset."""
+    import torch
+    return max(torch.cuda.max_memory_allocated(d) for d in set(devices))
+
+
+def mesh_phase(corpus: bytes, meshes: dict, ref, card: str) -> dict:
+    """lz4_tpu_torch.parallel.mesh at full size, through the entry points a
+    user calls, on each mesh of ``meshes``: compress_frame_mesh on the
+    corpus (default min_match 4; kernels A and C), decoded by
+    decompress_frame_device; the corpus as 1,024 rows of 64 KB through
+    encode_blocks_sharded and decode_blocks_sharded (kernel B, batch D),
+    every row back and the payloads ``ref``'s (one unsharded encode_blocks
+    call), and roundtrip_step; the SG lists of ``mesh_sg_lists`` through
+    sg_compress_mesh (kernel G with its list axis) and sg_decompress_mesh
+    (kernel F), byte-exact.  Every mesh's frame and SG frames must equal
+    the first mesh's.  Returns walls, MB/s and peak device memory."""
+    import torch
+
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch.parallel import mesh as M
+    ref_comp, ref_clen = ref
+    dev0 = ref_comp.device
+    rows, lens = corpus_rows(corpus, dev0)
+    lists, caps, sizes = mesh_sg_lists(corpus)
+    sg_bytes = sum(len(b) for lst in lists for b in lst)
+    mb, sg_mb = len(corpus) / 1e6, sg_bytes / 1e6
+    res = {"card": card, "corpus_bytes": len(corpus), "sg_lists": len(lists),
+           "sg_bytes": sg_bytes}
+    first = None
+
+    def timed(devices, fn):
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+        t0 = time.perf_counter()
+        out = fn()
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        return out, time.perf_counter() - t0, peak_bytes(devices)
+
+    for name, mesh in meshes.items():
+        devs = mesh.devices
+        r = res[name] = {"devices": [str(d) for d in devs]}
+        # the first call pays each card's first use in this process (the
+        # second is timed too)
+        frame, t_c, peak_c = timed(
+            devs, lambda: M.compress_frame_mesh(mesh, corpus))
+        again, t_c2, _ = timed(
+            devs, lambda: M.compress_frame_mesh(mesh, corpus))
+        (out, used), t_d, _ = timed(
+            devs, lambda: D.decompress_frame_device(frame, device=devs[0]))
+        if out != corpus or used != len(frame) or again != frame:
+            raise SmokeFailure(f"mesh phase ({name}): the frame does not "
+                               "decode to the corpus, or differs on a "
+                               "second call")
+        del out, again
+        r["frame"] = {"bytes": len(frame), "ratio": len(frame) / len(corpus),
+                      "compress_s": t_c, "compress_again_s": t_c2,
+                      "decompress_s": t_d, "compress_mbs": mb / t_c,
+                      "compress_again_mbs": mb / t_c2,
+                      "decompress_mbs": mb / t_d, "peak_bytes": peak_c}
+        log(f"[mesh] {name} ({len(devs)} positions on "
+            f"{sorted(set(map(str, devs)))}): compress_frame_mesh of "
+            f"{len(corpus) >> 20} MiB at mm=4: ratio "
+            f"{len(frame) / len(corpus):.6f} ({len(frame)} bytes), "
+            f"{mb / t_c:.1f} MB/s ({t_c:.3f} s, peak {peak_c >> 20} MiB), "
+            f"again {mb / t_c2:.1f} MB/s ({t_c2:.3f} s); "
+            f"decompress_frame_device {mb / t_d:.1f} MB/s ({t_d:.3f} s), "
+            "byte-exact")
+
+        def rows_round_trip():
+            comp, clen = M.encode_blocks_sharded(mesh, rows, lens)
+            out, olen = M.decode_blocks_sharded(mesh, comp, clen, W)
+            return comp, clen, out, olen
+
+        (comp, clen, out, olen), t_r, peak_r = timed(devs, rows_round_trip)
+        comp, clen = M.gather_rows(comp).to(dev0), M.gather_rows(clen).to(dev0)
+        out, olen = M.gather_rows(out).to(dev0), M.gather_rows(olen).to(dev0)
+        cols = torch.arange(comp.shape[1], device=dev0)[None, :]
+        live = cols < ref_clen[:, None]
+        if not (torch.equal(out, rows) and bool((olen == W).all())):
+            raise SmokeFailure(f"mesh phase ({name}): a row does not come "
+                               "back through the sharded encode and decode")
+        if not torch.equal(clen, ref_clen) or bool(
+                ((comp != ref_comp) & live).any()):
+            raise SmokeFailure(f"mesh phase ({name}): the sharded payloads "
+                               "differ from one encode_blocks call")
+        (s_clen, _, bad), t_s, _ = timed(
+            devs, lambda: M.roundtrip_step(mesh, rows, lens, W))
+        if bad or not torch.equal(M.gather_rows(s_clen).to(dev0), ref_clen):
+            raise SmokeFailure(f"mesh phase ({name}): roundtrip_step counts "
+                               f"{bad} bad rows")
+        del comp, clen, out, olen
+        r["rows"] = {"encode_decode_s": t_r, "encode_decode_mbs": mb / t_r,
+                     "peak_bytes": peak_r, "roundtrip_step_s": t_s}
+        log(f"[mesh] {name}: {rows.shape[0]} rows of 64 KB through "
+            f"encode_blocks_sharded + decode_blocks_sharded {mb / t_r:.1f} "
+            f"MB/s ({t_r:.3f} s, peak {peak_r >> 20} MiB), payloads equal "
+            f"one encode_blocks call; roundtrip_step {t_s:.3f} s, bad 0")
+
+        results, t_sc, peak_sc = timed(
+            devs, lambda: M.sg_compress_mesh(mesh, lists, caps))
+        comp_lists = []
+        for (total, consumed, outs), lst, c in zip(results, lists, caps):
+            if consumed != sum(map(len, lst)) or total <= 0:
+                raise SmokeFailure(f"mesh phase ({name}): an SG list "
+                                   "compressed short")
+            comp_lists.append(filled(outs, c, total))
+        dec, t_sd, _ = timed(
+            devs, lambda: M.sg_decompress_mesh(mesh, comp_lists, sizes))
+        if dec != [(sum(map(len, lst)), lst) for lst in lists]:
+            raise SmokeFailure(f"mesh phase ({name}): an SG list does not "
+                               "round-trip")
+        r["sg"] = {"compress_s": t_sc, "decompress_s": t_sd,
+                   "compress_mbs": sg_mb / t_sc,
+                   "decompress_mbs": sg_mb / t_sd, "peak_bytes": peak_sc,
+                   "frame_bytes": sum(t for t, _, _ in results)}
+        log(f"[mesh] {name}: {len(lists)} SG lists ({MESH_SG_LISTS} of 256 "
+            f"KB as 4 KB iovecs, 6 ragged), {sg_mb:.1f} MB: "
+            f"sg_compress_mesh {sg_mb / t_sc:.1f} MB/s ({t_sc:.3f} s), "
+            f"sg_decompress_mesh {sg_mb / t_sd:.1f} MB/s ({t_sd:.3f} s), "
+            "byte-exact")
+        if first is None:
+            first = (name, frame, results)
+        elif (frame, results) != first[1:]:
+            raise SmokeFailure(f"mesh phase: {name}'s frames differ from "
+                               f"{first[0]}'s")
+    return res
+
+
+def multihost_worker(rank: int, world: int, store: str, outdir: str,
+                     device: str) -> int:
+    """One process of the multihost phase: joins the group (NCCL on cards,
+    gloo for ``device="cpu"``) through the ``file://`` store, compresses
+    its slice of ``outdir/plain.bin``'s 64 KB rows with the lengths
+    all-gathered (kernel B), decodes them again (batch D), and writes its
+    frame segment and its decoded segment.  Rank 0 then splices the
+    segments behind a header into one block-independent frame with a
+    content checksum, which decompress_frame_device must decode to the
+    content, and checks that the decoded segments join into it.  Each rank
+    writes its launch counts and walls."""
+    import struct
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch.frame import FramePreferences, encode_frame_header
+    from lz4_tpu_torch.kernels import common
+    from lz4_tpu_torch.ops.xxhash import xxh32
+    from lz4_tpu_torch.parallel import multihost as mh
+
+    dev = mh.initialize(f"file://{store}", world, rank, device=device)
+    mesh = mh.global_mesh()
+    data = (Path(outdir) / "plain.bin").read_bytes()
+    B = len(data) // W
+    lo, hi = mh.process_block_range(B)
+    local = np.frombuffer(data, np.uint8)[lo * W:hi * W].reshape(-1, W)
+    rows, first = mh.global_blocks(mesh, local)
+    if first != lo:
+        raise SmokeFailure(f"rank {rank}: rows start at {first}, not {lo}")
+    lens = torch.full((hi - lo,), W, dtype=torch.int32, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    common.reset_counts()
+    # the first call pays this process's first launches; the second is the
+    # one timed as "encode_s"
+    sync()
+    t0 = time.perf_counter()
+    mh.encode_blocks_multihost(mesh, rows, lens)
+    first_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    comp, all_len = mh.encode_blocks_multihost(mesh, rows, lens)
+    t1 = time.perf_counter()
+    seg = mh.frame_segment(comp, all_len, [W] * B, lo, hi)
+    clens = torch.from_numpy(all_len[lo:hi].astype(np.int32)).to(dev)
+    sync()
+    t2 = time.perf_counter()
+    out, all_olen = mh.decode_blocks_multihost(mesh, comp, clens, W)
+    t3 = time.perf_counter()
+    dec = mh.decoded_segment(out, all_olen, lo, hi)
+    if all_olen.tolist() != [W] * B:
+        raise SmokeFailure(f"rank {rank}: decoded lengths differ")
+    out_dir = Path(outdir)
+    (out_dir / f"seg{rank}.bin").write_bytes(seg)
+    (out_dir / f"dec{rank}.bin").write_bytes(dec)
+    del comp, out
+    dist.barrier()
+    rec = {"rank": rank, "device": str(dev), "blocks": [lo, hi],
+           "encode_first_s": first_s, "encode_s": t1 - t0,
+           "decode_s": t3 - t2}
+    if rank == 0:
+        prefs = FramePreferences(block_size_id=4, block_independent=True,
+                                 content_checksum=True)
+        frame = (encode_frame_header(prefs)
+                 + b"".join((out_dir / f"seg{r}.bin").read_bytes()
+                            for r in range(world))
+                 + struct.pack("<I", 0) + struct.pack("<I", xxh32(data, 0)))
+        sync()
+        t4 = time.perf_counter()
+        got, used = D.decompress_frame_device(frame, device=dev)
+        rec["frame_decode_s"] = time.perf_counter() - t4
+        joined = b"".join((out_dir / f"dec{r}.bin").read_bytes()
+                          for r in range(world))
+        if got != data or used != len(frame) or joined != data:
+            raise SmokeFailure("rank 0: the spliced frame or the decoded "
+                               "segments differ from the content")
+        rec["frame_bytes"] = len(frame)
+    rec.update(launches=dict(common.LAUNCHES),
+               plain=dict(common.PLAIN_CALLS),
+               peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None))
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def multihost_phase(corpus: bytes, world: int, root: Path,
+                    device: str = "cuda") -> dict:
+    """lz4_tpu_torch.parallel.multihost at full size: ``world`` worker
+    processes (this script with --multihost-worker), one per card, on a
+    ``file://`` store under ``root``, all within MULTIHOST_TIMEOUT seconds;
+    a worker that fails or hangs fails the phase.  A header, the ranks'
+    frame segments in order, the endmark and the content checksum must be
+    one frame that decompress_frame_device decodes to the corpus,
+    and the decoded segments must join into it (rank 0 checks both).
+    Returns the workers' records (launch counts, walls, peak memory) and
+    the wall."""
+    import shutil
+
+    work = root / "multihost"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    (work / "plain.bin").write_bytes(corpus)
+    env = dict(os.environ)
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")   # one host: loopback only
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--multihost-worker",
+         str(rank), str(world), str(work / "store"), str(work), device],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(world)]
+    outs, failed = [], []
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(
+                    timeout=max(MULTIHOST_TIMEOUT - (time.perf_counter()
+                                                     - t0), 1))[0])
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {rank} timed out")
+                outs.append("")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            failed.append(f"rank {rank} exited {p.returncode}: "
+                          f"{out[-3000:]}")
+    if failed:
+        raise SmokeFailure("multihost phase: " + "; ".join(failed))
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(world)]
+    shutil.rmtree(work, ignore_errors=True)
+    mb = len(corpus) / 1e6
+    enc_s = max(r["encode_s"] for r in ranks)
+    first_s = max(r["encode_first_s"] for r in ranks)
+    dec_s = max(r["decode_s"] for r in ranks)
+    frame_bytes = ranks[0]["frame_bytes"]
+    log(f"[multihost] {world} process(es) on "
+        f"{[r['device'] for r in ranks]}: encode_blocks_multihost of "
+        f"{len(corpus) // W} rows {mb / enc_s:.1f} MB/s (slowest rank "
+        f"{enc_s:.3f} s; its first call {first_s:.3f} s), "
+        f"decode_blocks_multihost {mb / dec_s:.1f} MB/s "
+        f"({dec_s:.3f} s), wall with start-up {wall:.1f} s; rank 0's "
+        f"spliced frame ({frame_bytes} bytes, ratio "
+        f"{frame_bytes / len(corpus):.6f}, decoded in "
+        f"{ranks[0]['frame_decode_s']:.3f} s) and the decoded segments "
+        "equal the corpus")
+    return {"world": world, "ranks": ranks, "wall_s": wall,
+            "frame_bytes": frame_bytes, "encode_s": enc_s, "decode_s": dec_s,
+            "encode_mbs": mb / enc_s, "decode_mbs": mb / dec_s}
+
+
+def parallel_phases(corpus: bytes, mesh_ref, card_line: str,
+                    device: str = "cuda"):
+    """Steps 13 and 14, each with its own counts: the mesh phase over the
+    default mesh (every visible card) and four positions on card 0, the
+    counters reset just before and read just after (kernels A, C, B, batch
+    D, F and G's list axis must launch, no plain version may run); then
+    the multihost phase, one worker per visible card (B and batch D must
+    launch in the workers, no plain version may run there).  Returns
+    ({"mesh": counts, "multihost": counts}, the mesh_phase record)."""
+    import torch
+
+    from lz4_tpu_torch.kernels import common
+    from lz4_tpu_torch.parallel import mesh as M
+
+    def check_counts(phase, launches, plain, need):
+        log(f"[counts] {phase}: kernel launches {launches}; plain-version "
+            f"calls {plain}")
+        missing = [k for k in need if launches[k] <= 0]
+        if missing or plain:
+            raise SmokeFailure(f"{phase} skipped kernels {missing} or ran "
+                               f"plain versions {plain}")
+        return launches
+
+    dev0 = torch.device(device, 0) if device == "cuda" else \
+        torch.device(device)
+    common.reset_counts()
+    mesh_times = mesh_phase(corpus, {
+        "default mesh": M.default_mesh(device=device),
+        "4 positions on cuda:0": M.Mesh((dev0,) * 4)}, mesh_ref, card_line)
+    counts = {"mesh": check_counts(
+        "mesh", {k: common.LAUNCHES.get(k, 0) for k in KERNELS},
+        {k: v for k, v in common.PLAIN_CALLS.items() if v},
+        ["encode_linked", "pack", "encode", "decode_batch", "decode_sg",
+         "sg_encode_chain_batch"])}
+    world = torch.cuda.device_count() if device == "cuda" else 2
+    mh_times = multihost_phase(corpus, world, REPO / "build", device)
+    counts["multihost"] = check_counts(
+        "multihost (all ranks)",
+        {k: sum(r["launches"].get(k, 0) for r in mh_times["ranks"])
+         for k in KERNELS},
+        [r["plain"] for r in mh_times["ranks"] if r["plain"]],
+        ["encode", "decode_batch"])
+    mh_times["card"] = card_line
+    return counts, {**mesh_times, "multihost": mh_times}
+
+
+def parallel_only() -> int:
+    """Steps 1, 2, 13 and 14 alone (the four-card check): the card line,
+    the build, the corpus, one unsharded encode_blocks call of its rows,
+    then the mesh and multihost phases over every visible card; prints
+    their JSON line and the last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from lz4_tpu_torch.kernels import build
+    from lz4_tpu_torch.kernels import encode_kernel as enc
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card_line = "; ".join(smi.stdout.strip().splitlines()) \
+        or f"nvidia-smi: {smi.stderr.strip()}"
+    log(card_line)
+    name = torch.cuda.get_device_name(0)
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {name} x "
+        f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    build.kernels_lib()
+    log(f"[build] kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    corpus = real_text_corpus(CORPUS_BYTES)
+    mesh_ref = enc.encode_blocks(*corpus_rows(corpus, torch.device("cuda")))
+    counts, times = parallel_phases(corpus, mesh_ref, card_line)
+    log(json.dumps({"launches_by_phase": counts, "mesh_phase": times}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def compare_pack(cmp_rows, pack_kernel, what, k, p):
     """Kernel C against its plain version: totals, stored flags and the
     body's bytes."""
@@ -2150,13 +2598,15 @@ def main() -> int:
     from lz4_tpu_torch.kernels import pack_kernel
     from lz4_tpu_torch.kernels.pack_kernel import pack_frame_payloads
     from lz4_tpu_torch.legacy import _ext, literal_head, terminal_literals
+    from lz4_tpu_torch.parallel import mesh as pmesh
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-        else f"nvidia-smi: {smi.stderr.strip()}")
+    card_line = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+                 else f"nvidia-smi: {smi.stderr.strip()}")
+    log(card_line)
     name = torch.cuda.get_device_name(0)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {name}")
@@ -3286,6 +3736,84 @@ def main() -> int:
         " ms")
     del hc_rows, hc_lens, hc_tabs, k_off, k_on
 
+    # -- 3k. kernel G with a list axis: the mesh phase's bucket --------------
+    def cmp_chain_batch(what, k, p):
+        """Exact comparison of two sg_encode_chain_batch results: every
+        list's boff, blen, consumed, isz and osz, and its block bytes up to
+        the end of its last step."""
+        torch.cuda.synchronize()
+        (kb, *kr), (pb, *pr) = k, p
+        err = max(int((a.cpu().long() - b.long()).abs().max())
+                  for a, b in zip(kr, pr))
+        boff, blen = pr[0], pr[1]
+        for i in range(len(pb)):
+            live = int((blen[i] >= 0).sum())
+            end = int(boff[i, live - 1] + blen[i, live - 1]) if live else 0
+            if end:
+                err = max(err, int((kb[i, :end].cpu().int()
+                                    - pb[i, :end].int()).abs().max()))
+        stats["sg_encode_chain_batch"]["max_abs_err"] = max(
+            stats["sg_encode_chain_batch"]["max_abs_err"], err)
+        log(f"[compare] sg_encode_chain_batch {what}: lists={len(pb)} "
+            f"steps={int((blen >= 0).sum())} max_abs_err={err}")
+        if err:
+            raise SmokeFailure(f"sg_encode_chain_batch disagrees on {what}")
+
+    m_lists, m_caps, _ = mesh_sg_lists(corpus)
+    bucket = m_lists[:MESH_SG_LISTS]
+    b_caps = m_caps[0]
+    b_rows, b_ends = pmesh.sg_bucket_rows(bucket, "cpu")
+    b_args = (b_ends, b_caps, sum(b_caps))
+    b_card = b_rows.to(cuda)
+    k = dsk.sg_encode_chain_batch(b_card, *b_args)
+    p, plain_ms = time_host(lambda: dsk.sg_encode_chain_batch(b_rows,
+                                                              *b_args))
+    cmp_chain_batch(f"{MESH_SG_LISTS} lists of 256 KB (the mesh phase's "
+                    "bucket) against its plain version", k, p)
+    # the same lists one launch each (the single-list kernel G)
+    singles = [dsk.sg_encode_chain(b_card[i], *b_args)
+               for i in range(MESH_SG_LISTS)]
+    width = max(len(s[0]) for s in singles)
+    cmp_chain_batch(f"{MESH_SG_LISTS} lists of 256 KB against one "
+                    "sg_encode_chain launch per list", k, (
+                        torch.stack([torch.nn.functional.pad(
+                            s[0], (0, width - len(s[0]))) for s in singles]
+                        ).cpu(),
+                        *(torch.stack([s[j] for s in singles]).cpu()
+                          for j in range(1, 6))))
+    del singles
+    # four lists of the bucket in one launch, against the plain version
+    cmp_chain_batch("4 lists of 256 KB against its plain version",
+                    dsk.sg_encode_chain_batch(b_card[:4], *b_args),
+                    dsk.sg_encode_chain_batch(b_rows[:4], *b_args))
+    bucket_ms = time_rounds(lambda: dsk.sg_encode_chain_batch(b_card,
+                                                              *b_args))
+    four_ms = time_rounds(lambda: dsk.sg_encode_chain_batch(b_card[:4],
+                                                            *b_args))
+    _, single_ms = event_ms(lambda: [dsk.sg_encode_chain(b_card[i], *b_args)
+                                     for i in range(MESH_SG_LISTS)])
+    stats["sg_encode_chain_batch"].update(
+        ms=sorted(bucket_ms)[1], ms_rounds=bucket_ms, plain_ms=plain_ms,
+        lists=MESH_SG_LISTS, ms_4_lists=sorted(four_ms)[1],
+        ms_single_launches=single_ms)
+    T = k[1].shape[1]
+    # the lists' content, input ends and caps in; blocks and records out
+    blocks_out = sum(int(k[1][i, int((k[2][i] >= 0).sum()) - 1]
+                         + k[2][i, int((k[2][i] >= 0).sum()) - 1])
+                     for i in range(MESH_SG_LISTS))
+    set_bound("sg_encode_chain_batch",
+              MESH_SG_LISTS * MESH_SG_LIST + 4 * (len(b_ends) + len(b_caps)),
+              blocks_out + MESH_SG_LISTS * T * (8 + 4 * 4))
+    mb = MESH_SG_LISTS * MESH_SG_LIST / 1e6
+    log(f"[time] sg_encode_chain_batch, {MESH_SG_LISTS} lists of 256 KB in "
+        f"one launch: rounds {[round(t, 3) for t in bucket_ms]} ms "
+        f"({mb / sorted(bucket_ms)[1] * 1e3:.1f} MB/s); 4 lists "
+        f"{sorted(four_ms)[1]:.3f} ms; {MESH_SG_LISTS} single-list launches "
+        f"{single_ms:.3f} ms; plain version {plain_ms:.1f} ms")
+    del k, p, b_card, b_rows
+    # the mesh phase's rows, encoded by one unsharded call
+    mesh_ref = enc.encode_blocks(*corpus_rows(corpus, cuda))
+
     def phase_counts(phase, need):
         """Read the counters after a phase: every kernel in ``need`` must
         have launched and no plain version may have run."""
@@ -3413,6 +3941,11 @@ def main() -> int:
         raise SmokeFailure("plain decoder disagrees on a kernel-written frame")
     log("[check] plain decoder reads a 1 MB frame written by the kernels")
 
+    # -- 13-14. the mesh and multihost paths ---------------------------------
+    mesh_counts, mesh_times = parallel_phases(corpus, mesh_ref, card_line)
+    counts.update(mesh_counts)
+    del mesh_ref
+
     unbound = [k for k in KERNELS if "bound_ms" not in stats[k]]
     if unbound:
         raise SmokeFailure(f"no bound computed for {unbound}")
@@ -3424,7 +3957,7 @@ def main() -> int:
         for k, (route, src, rep, phase) in KERNELS.items()],
         "sg_phase": sg_times, "hc_phase": hc_times,
         "destsize_phase": ds_times, "legacy_phase": legacy_times,
-        "envelope_phase": envelope_times}
+        "envelope_phase": envelope_times, "mesh_phase": mesh_times}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3443,4 +3976,9 @@ if __name__ == "__main__":
         sys.exit(hc_times(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--xxh-times"] and len(sys.argv) == 3:
         sys.exit(xxh_times(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--parallel-only"] and len(sys.argv) == 2:
+        sys.exit(parallel_only())
+    if sys.argv[1:2] == ["--multihost-worker"] and len(sys.argv) == 7:
+        sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                  *sys.argv[4:7]))
     sys.exit(main())

@@ -29,6 +29,15 @@
 // only for its row copies.  The TPU kernel wrote each step into a [T, M]
 // row (about 574 MB at 16 MiB of 4 KB buffers); here the steps' blocks
 // follow each other at a running offset.
+//
+// The list axis (lz4tt_sg_encode_chain_batch): L lists of one layout (the
+// same input ends and output caps) walk in one launch, one CTA per list,
+// each with its own hash table in its SM's shared memory and its own rows
+// of source, blocks, offsets and records.  The TPU's mesh walked a
+// device's lists one after another (lax.map in lz4_tpu/parallel/mesh.py);
+// here the lists' walks run side by side on up to 132 SMs (several per SM,
+// as their 64 KB tables allow), so a bucket takes about one walk's time.
+// lz4tt_sg_encode_chain is the batch of one list.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,14 +53,21 @@ constexpr int BH = 4;
 constexpr int CHAIN_BLOCK = 65536;
 constexpr int THREADS = 256;  // all set the table; warp 0 walks
 
-// recs is int32 [4, T]: blen, consumed, isz, osz.
-__global__ void sg_chain_kernel(const uint8_t* src, const int32_t* in_ends,
-                                int n_in, const int32_t* caps, int n_out,
-                                int total, int max_dest, int T, int M,
-                                int acceleration, int min_match,
-                                uint8_t* blocks, long long* boff,
+// List blockIdx.x: its source at src + blockIdx.x * src_stride, its blocks
+// at blocks + blockIdx.x * blocks_stride, its offsets boff[blockIdx.x] [T]
+// and its records recs[blockIdx.x], int32 [4, T]: blen, consumed, isz, osz.
+__global__ void sg_chain_kernel(const uint8_t* src, long long src_stride,
+                                const int32_t* in_ends, int n_in,
+                                const int32_t* caps, int n_out, int total,
+                                int max_dest, int T, int M, int acceleration,
+                                int min_match, uint8_t* blocks,
+                                long long blocks_stride, long long* boff,
                                 int32_t* recs) {
   extern __shared__ int32_t table[];
+  src += blockIdx.x * src_stride;
+  blocks += blockIdx.x * blocks_stride;
+  boff += (long long)blockIdx.x * T;
+  recs += (long long)blockIdx.x * 4 * T;
   for (int i = threadIdx.x; i < HASH_SIZE; i += blockDim.x) table[i] = -1;
   __syncthreads();
   if (threadIdx.x >= lz4tt::WARP) return;
@@ -114,8 +130,28 @@ __global__ void sg_chain_kernel(const uint8_t* src, const int32_t* in_ends,
 
 }  // namespace
 
-// src holds the content (total bytes) and at least 8 more.  blocks must
-// hold min(max_dest, T * M) + 2 * M bytes.
+// src holds L rows of src_stride bytes, each the content (total bytes) and
+// at least 8 more.  blocks holds L rows of blocks_stride >= min(max_dest,
+// T * M) + 2 * M bytes; boff is [L, T], recs [L, 4, T].
+extern "C" int lz4tt_sg_encode_chain_batch(
+    const uint8_t* src, long long src_stride, int L, const int32_t* in_ends,
+    int n_in, const int32_t* caps, int n_out, int total, int max_dest, int T,
+    int M, int acceleration, int min_match, uint8_t* blocks,
+    long long blocks_stride, long long* boff, int32_t* recs,
+    void* cuda_stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      sg_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      HASH_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  if (T > 0 && L > 0)
+    sg_chain_kernel<<<L, THREADS, HASH_BYTES, (cudaStream_t)cuda_stream>>>(
+        src, src_stride, in_ends, n_in, caps, n_out, total, max_dest, T, M,
+        acceleration, min_match, blocks, blocks_stride, boff, recs);
+  return (int)cudaGetLastError();
+}
+
+// One list: src holds the content (total bytes) and at least 8 more.
+// blocks must hold min(max_dest, T * M) + 2 * M bytes.
 extern "C" int lz4tt_sg_encode_chain(const uint8_t* src,
                                      const int32_t* in_ends, int n_in,
                                      const int32_t* caps, int n_out,
@@ -123,14 +159,8 @@ extern "C" int lz4tt_sg_encode_chain(const uint8_t* src,
                                      int acceleration, int min_match,
                                      uint8_t* blocks, long long* boff,
                                      int32_t* recs, void* cuda_stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      sg_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      HASH_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  if (T > 0)
-    sg_chain_kernel<<<1, THREADS, HASH_BYTES,
-                      (cudaStream_t)cuda_stream>>>(
-        src, in_ends, n_in, caps, n_out, total, max_dest, T, M, acceleration,
-        min_match, blocks, boff, recs);
-  return (int)cudaGetLastError();
+  return lz4tt_sg_encode_chain_batch(src, 0, 1, in_ends, n_in, caps, n_out,
+                                     total, max_dest, T, M, acceleration,
+                                     min_match, blocks, 0, boff, recs,
+                                     cuda_stream);
 }

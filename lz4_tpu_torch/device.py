@@ -292,20 +292,34 @@ def compress_frame_device(data: bytes,
     return _frame(prefs, data, _fetch_body(flat, total, prefs.block_checksum))
 
 
+def dispatch_linked(data: bytes, prefix: bytes, acceleration: int,
+                    min_match: int, reject_step: int, dev: torch.device):
+    """Launch kernels A and C for ``data`` as one linked stream of 64 KB
+    blocks, ``prefix`` (at most 64 KB) as block 0's window, without
+    waiting.  Block 0's window lanes below the prefix are not zeroed, as in
+    the one-shot route.  Returns kernel C's (flat, total): the body's
+    records, for ``_fetch_body``."""
+    nb = max(1, -(-len(data) // WINDOW))
+    stream, lens = linked_stream(data, prefix, dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    out, olen = encode_blocks_linked(
+        stream, lens_d, acceleration,
+        prefix_lens=torch.tensor([len(prefix)], dtype=torch.int32,
+                                 device=dev),
+        min_match=min_match, reject_step=reject_step)
+    flat, total, _stored = pack_frame_payloads(
+        out.reshape(nb, -1), olen.reshape(nb), _block_view(stream, nb),
+        lens_d.reshape(nb))
+    return flat, total
+
+
 def _compress_frame_device_linked(data: bytes, prefs: FramePreferences,
                                   acceleration: int, min_match: int,
                                   reject_step: int,
                                   dev: torch.device) -> bytes:
     """Linked frame of 64 KB blocks in one pass through kernels A and C."""
-    nb = max(1, -(-len(data) // WINDOW))
-    stream, lens = linked_stream(data, device=dev)
-    lens_d = torch.from_numpy(lens).to(dev)
-    out, olen = encode_blocks_linked(stream, lens_d, acceleration,
-                                     min_match=min_match,
-                                     reject_step=reject_step)
-    flat, total, _stored = pack_frame_payloads(
-        out.reshape(nb, -1), olen.reshape(nb), _block_view(stream, nb),
-        lens_d.reshape(nb))
+    flat, total = dispatch_linked(data, b"", acceleration, min_match,
+                                  reject_step, dev)
     return _frame(prefs, data, _fetch_body(flat, total, prefs.block_checksum))
 
 

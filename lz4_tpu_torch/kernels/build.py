@@ -61,6 +61,8 @@ _SIGNATURES = {
                         _P],
     "lz4tt_sg_encode_chain": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P],
+    "lz4tt_sg_encode_chain_batch": [_P, _L, _I, _P, _I, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _P, _L, _P, _P, _P],
     "lz4tt_encode_dest_size": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
                                _I, _P],
     "lz4tt_xxh32_rows": [_P, _L, _P, _I, _U32, _P, _I, _P],

@@ -50,6 +50,15 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors on mixed or unsupported devices: {devices}")
 
 
+def on_device(dev: torch.device):
+    """Context in which card ``dev`` is the current CUDA device.  Every C
+    entry point is called inside it, with its tensors' device: the entry
+    points launch on the current device (with the stream of ``dev``) and
+    read per-device attributes there, so tensors on ``cuda:1`` must not
+    launch on card 0."""
+    return torch.cuda.device(dev)
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
     """Validate a kernel argument: dtype, rank and contiguity."""
     if t.dtype != dtype:

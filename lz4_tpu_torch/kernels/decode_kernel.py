@@ -47,7 +47,8 @@ import numpy as np
 import torch
 
 from . import build
-from .common import LAUNCHES, PLAIN_CALLS, check, to_device, use_kernel
+from .common import (LAUNCHES, PLAIN_CALLS, check, to_device, on_device,
+                     use_kernel)
 
 ERR_MALFORMED = -1
 MAX_OFFSET = 65535                # the largest LZ4 match offset
@@ -287,11 +288,12 @@ def decode_blocks_linked(comp: torch.Tensor, comp_lens: torch.Tensor,
     cells = torch.empty((W, N), dtype=torch.int32, device=dev)
     far = torch.empty((B + JUMP_ROUND_FLAGS,), dtype=torch.int32,
                       device=dev)
-    err = build.kernels_lib().lz4tt_decode_linked(
-        comp.data_ptr(), M, comp_lens.data_ptr(), init_window.data_ptr(),
-        int(init_window_len), out.data_ptr(), N, olen.data_ptr(), B,
-        cells.data_ptr(), W, far.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_device(dev):
+        err = build.kernels_lib().lz4tt_decode_linked(
+            comp.data_ptr(), M, comp_lens.data_ptr(), init_window.data_ptr(),
+            int(init_window_len), out.data_ptr(), N, olen.data_ptr(), B,
+            cells.data_ptr(), W, far.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("decode_linked", err)
     LAUNCHES["decode_linked"] += 1
     return out, olen
@@ -361,13 +363,14 @@ def _decode_batch(name: str, comp, comp_lens, N: int, out_caps, dict_rows,
     cells = torch.empty((max(W * N, 1),), dtype=torch.int32, device=dev)
     more = torch.zeros((-(-B // max(W, 1)) * JUMP_ROUND_FLAGS,),
                        dtype=torch.int32, device=dev)
-    err = build.kernels_lib().lz4tt_decode_batch(
-        comp.data_ptr(), M, comp_lens.data_ptr(), out_caps.data_ptr(),
-        _ptr(dict_rows), P, _ptr(dict_lens), out.data_ptr(), N,
-        olen.data_ptr(), _ptr(cons), B, ROW_SPAN_LOG, stride,
-        slots.data_ptr(), nspans.data_ptr(), cells.data_ptr(), W,
-        more.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_device(dev):
+        err = build.kernels_lib().lz4tt_decode_batch(
+            comp.data_ptr(), M, comp_lens.data_ptr(), out_caps.data_ptr(),
+            _ptr(dict_rows), P, _ptr(dict_lens), out.data_ptr(), N,
+            olen.data_ptr(), _ptr(cons), B, ROW_SPAN_LOG, stride,
+            slots.data_ptr(), nspans.data_ptr(), cells.data_ptr(), W,
+            more.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(name, err)
     LAUNCHES[name] += 1
     return out, olen, cons
@@ -589,10 +592,11 @@ def decode_stream_raw(flat: torch.Tensor, bstart, clen, stored,
         cells = torch.empty((held,), dtype=torch.int32, device=dev)
         need = torch.empty((B + (len(win) - 1) * JUMP_ROUND_FLAGS,),
                            dtype=torch.int32, device=dev)
-        err = lib.lz4tt_decode_stream(
-            flat.data_ptr(), meta.data_ptr(), B, win.ctypes.data,
-            len(win) - 1, cells.data_ptr(), need.data_ptr(), dst.data_ptr(),
-            out.data_ptr(), olen.data_ptr(), stream)
+        with on_device(dev):
+            err = lib.lz4tt_decode_stream(
+                flat.data_ptr(), meta.data_ptr(), B, win.ctypes.data,
+                len(win) - 1, cells.data_ptr(), need.data_ptr(),
+                dst.data_ptr(), out.data_ptr(), olen.data_ptr(), stream)
     else:
         lay = span_layout(clen, caps, stored, SPAN_LOG)
         wins = lay["windows"]
@@ -609,13 +613,14 @@ def decode_stream_raw(flat: torch.Tensor, bstart, clen, stored,
         nspans, cells = i32(B), i32(max(lay["cells"], 1))
         more = torch.zeros((len(wins) * JUMP_ROUND_FLAGS,), dtype=torch.int32,
                            device=dev)
-        err = lib.lz4tt_decode_stream_spans(
-            flat.data_ptr(), meta.data_ptr(), B, spans.data_ptr(),
-            wins.ctypes.data, len(wins), SPAN_LOG, pmax, smax,
-            pbuf.data_ptr(), parse.data_ptr(), tiles.data_ptr(),
-            slots.data_ptr(), nspans.data_ptr(), cells.data_ptr(),
-            more.data_ptr(), dst.data_ptr(), out.data_ptr(), olen.data_ptr(),
-            stream)
+        with on_device(dev):
+            err = lib.lz4tt_decode_stream_spans(
+                flat.data_ptr(), meta.data_ptr(), B, spans.data_ptr(),
+                wins.ctypes.data, len(wins), SPAN_LOG, pmax, smax,
+                pbuf.data_ptr(), parse.data_ptr(), tiles.data_ptr(),
+                slots.data_ptr(), nspans.data_ptr(), cells.data_ptr(),
+                more.data_ptr(), dst.data_ptr(), out.data_ptr(),
+                olen.data_ptr(), stream)
     build.check_launch("decode_stream", err)
     LAUNCHES["decode_stream"] += 1
     return out, olen
@@ -1196,12 +1201,13 @@ def decode_blocks_sg_raw(flat: torch.Tensor, bstart, clen, out_sizes):
                        dtype=torch.int32, device=dev)
     offs = torch.from_numpy(np.stack([bstart, cum[:-1]])).to(dev)
     meta = torch.from_numpy(np.stack([clen, sizes]).astype(np.int32)).to(dev)
-    err = build.kernels_lib().lz4tt_decode_sg(
-        flat.data_ptr(), offs[0].data_ptr(), meta[0].data_ptr(),
-        meta[1].data_ptr(), offs[1].data_ptr(), B, win.ctypes.data,
-        wcum.ctypes.data, len(win) - 1, cells.data_ptr(), more.data_ptr(),
-        out.data_ptr(), olen.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_device(dev):
+        err = build.kernels_lib().lz4tt_decode_sg(
+            flat.data_ptr(), offs[0].data_ptr(), meta[0].data_ptr(),
+            meta[1].data_ptr(), offs[1].data_ptr(), B, win.ctypes.data,
+            wcum.ctypes.data, len(win) - 1, cells.data_ptr(), more.data_ptr(),
+            out.data_ptr(), olen.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("decode_sg", err)
     LAUNCHES["decode_sg"] += 1
     return out, olen

@@ -50,7 +50,8 @@ import torch
 
 from .. import spec
 from . import build
-from .common import LAUNCHES, PLAIN_CALLS, check, to_device, use_kernel
+from .common import (LAUNCHES, PLAIN_CALLS, check, to_device, on_device,
+                     use_kernel)
 from .encode_kernel import (MAX_BLOCK, _common_run, _emit_final, _emit_seq,
                             _fill_rows, _final_run_size, _seq_size,
                             out_width)
@@ -376,11 +377,12 @@ def encode_blocks_dest_size(rows: torch.Tensor, src_lens: torch.Tensor,
     out = torch.empty((B, M), dtype=torch.uint8, device=dev)
     olen = torch.empty((B,), dtype=torch.int32, device=dev)
     consumed = torch.empty((B,), dtype=torch.int32, device=dev)
-    err = build.kernels_lib().lz4tt_encode_dest_size(
-        rows.data_ptr(), NS, src_lens.data_ptr(), capacities.data_ptr(),
-        window_lens.data_ptr(), acceleration, min_match, out.data_ptr(), M,
-        olen.data_ptr(), consumed.data_ptr(), B,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_device(dev):
+        err = build.kernels_lib().lz4tt_encode_dest_size(
+            rows.data_ptr(), NS, src_lens.data_ptr(), capacities.data_ptr(),
+            window_lens.data_ptr(), acceleration, min_match, out.data_ptr(), M,
+            olen.data_ptr(), consumed.data_ptr(), B,
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("encode_dest_size", err)
     LAUNCHES["encode_dest_size"] += 1
     return out, olen, consumed
@@ -494,6 +496,28 @@ def _ints(values, name: str) -> np.ndarray:
     return arr
 
 
+def _chain_args(in_ends, out_caps, max_dest: int, width: int):
+    """Validate a walk's arguments for content rows of ``width`` bytes:
+    returns (in_ends, caps as int64 numpy, total, T, M, max_dest)."""
+    in_ends = _ints(in_ends, "in_ends")
+    caps = _ints(out_caps, "out_caps")
+    if len(in_ends) < 2 or in_ends[0] != 0 or (np.diff(in_ends) < 0).any():
+        raise ValueError("in_ends must start at 0 and not decrease")
+    if not len(caps):
+        raise ValueError("out_caps must not be empty")
+    total = int(in_ends[-1])
+    if not 0 < total <= MAX_TOTAL:
+        raise ChainEnvelopeError(
+            f"sg_encode_chain takes 1..{MAX_TOTAL} bytes, not {total}")
+    if width < total + TAIL:
+        raise ValueError(f"flat must hold the content and {TAIL} more bytes")
+    T, M = sg_chain_statics(total, len(in_ends) - 1, len(caps))
+    max_dest = int(max_dest)
+    if not 0 <= max_dest < (1 << 31) - 2 * M:
+        raise ValueError("max_dest must fit int32")
+    return in_ends, caps, total, T, M, max_dest
+
+
 def sg_encode_chain(flat: torch.Tensor, in_ends, out_caps, max_dest: int,
                     acceleration: int = 1, min_match: int = 4):
     """Run the SG compression walk: kernel G on the card, its plain version
@@ -513,22 +537,8 @@ def sg_encode_chain(flat: torch.Tensor, in_ends, out_caps, max_dest: int,
     is empty or longer than MAX_TOTAL bytes.
     """
     check(flat, "flat", torch.uint8, 1)
-    in_ends = _ints(in_ends, "in_ends")
-    caps = _ints(out_caps, "out_caps")
-    if len(in_ends) < 2 or in_ends[0] != 0 or (np.diff(in_ends) < 0).any():
-        raise ValueError("in_ends must start at 0 and not decrease")
-    if not len(caps):
-        raise ValueError("out_caps must not be empty")
-    total = int(in_ends[-1])
-    if not 0 < total <= MAX_TOTAL:
-        raise ChainEnvelopeError(
-            f"sg_encode_chain takes 1..{MAX_TOTAL} bytes, not {total}")
-    if flat.shape[0] < total + TAIL:
-        raise ValueError(f"flat must hold the content and {TAIL} more bytes")
-    T, M = sg_chain_statics(total, len(in_ends) - 1, len(caps))
-    max_dest = int(max_dest)
-    if not 0 <= max_dest < (1 << 31) - 2 * M:
-        raise ValueError("max_dest must fit int32")
+    in_ends, caps, total, T, M, max_dest = _chain_args(
+        in_ends, out_caps, max_dest, flat.shape[0])
     acceleration, min_match = int(acceleration), int(min_match)
     if not use_kernel(flat):
         PLAIN_CALLS["sg_encode_chain"] += 1
@@ -546,11 +556,68 @@ def sg_encode_chain(flat: torch.Tensor, in_ends, out_caps, max_dest: int,
                          device=dev)
     boff = torch.empty((T,), dtype=torch.int64, device=dev)
     recs = torch.empty((4, T), dtype=torch.int32, device=dev)
-    err = build.kernels_lib().lz4tt_sg_encode_chain(
-        flat.data_ptr(), ends_d.data_ptr(), len(in_ends) - 1,
-        caps_d.data_ptr(), len(caps), total, max_dest, T, M, acceleration,
-        min_match, blocks.data_ptr(), boff.data_ptr(), recs.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_device(dev):
+        err = build.kernels_lib().lz4tt_sg_encode_chain(
+            flat.data_ptr(), ends_d.data_ptr(), len(in_ends) - 1,
+            caps_d.data_ptr(), len(caps), total, max_dest, T, M,
+            acceleration, min_match, blocks.data_ptr(), boff.data_ptr(),
+            recs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("sg_encode_chain", err)
     LAUNCHES["sg_encode_chain"] += 1
     return (blocks, boff, *recs.unbind(0))
+
+
+def sg_encode_chain_batch(flat_rows: torch.Tensor, in_ends, out_caps,
+                          max_dest: int, acceleration: int = 1,
+                          min_match: int = 4):
+    """Run the SG compression walks of L lists of one layout at once: kernel
+    G with a list axis on the card (one CTA per list), a loop of
+    ``sg_encode_chain_plain`` on the CPU.
+
+    Args:
+      flat_rows: [L, W] uint8; row l is list l's ``concat(in_bufs)``
+        followed by at least TAIL bytes.
+      in_ends, out_caps, max_dest: the layout every list shares, as for
+        ``sg_encode_chain``.
+
+    Returns (blocks [L, BW] uint8, boff [L, T] int64, blen, consumed, isz,
+    osz [L, T] int32), on ``flat_rows``' device: row l equals what
+    ``sg_encode_chain`` returns for list l.
+    """
+    check(flat_rows, "flat_rows", torch.uint8, 2)
+    L, width = flat_rows.shape
+    in_ends, caps, total, T, M, max_dest = _chain_args(
+        in_ends, out_caps, max_dest, width)
+    acceleration, min_match = int(acceleration), int(min_match)
+    BW = min(max_dest, T * M) + 2 * M
+    if not use_kernel(flat_rows):
+        PLAIN_CALLS["sg_encode_chain_batch"] += 1
+        blocks = torch.zeros((L, BW), dtype=torch.uint8)
+        boff = torch.zeros((L, T), dtype=torch.int64)
+        recs = torch.zeros((4, L, T), dtype=torch.int32)
+        for i in range(L):
+            b, off, *rest = sg_encode_chain_plain(
+                flat_rows[i, :total + TAIL].numpy().tobytes(),
+                in_ends.tolist(), caps.tolist(), max_dest, acceleration,
+                min_match)
+            blocks[i, :len(b)] = torch.from_numpy(
+                np.frombuffer(b, np.uint8).copy())
+            boff[i] = torch.tensor(off, dtype=torch.int64)
+            recs[:, i] = torch.tensor(rest, dtype=torch.int32)
+        return (blocks, boff, *recs.unbind(0))
+    dev = flat_rows.device
+    ends_d = torch.from_numpy(in_ends.astype(np.int32)).to(dev)
+    caps_d = torch.from_numpy(caps.astype(np.int32)).to(dev)
+    blocks = torch.empty((L, BW), dtype=torch.uint8, device=dev)
+    boff = torch.empty((L, T), dtype=torch.int64, device=dev)
+    recs = torch.empty((L, 4, T), dtype=torch.int32, device=dev)
+    with on_device(dev):
+        err = build.kernels_lib().lz4tt_sg_encode_chain_batch(
+            flat_rows.data_ptr(), width, L, ends_d.data_ptr(),
+            len(in_ends) - 1, caps_d.data_ptr(), len(caps), total, max_dest,
+            T, M, acceleration, min_match, blocks.data_ptr(), BW,
+            boff.data_ptr(), recs.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch("sg_encode_chain_batch", err)
+    LAUNCHES["sg_encode_chain_batch"] += 1
+    return (blocks, boff, *recs.unbind(1))

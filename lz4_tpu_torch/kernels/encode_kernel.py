@@ -31,7 +31,8 @@ import torch
 
 from .. import spec
 from . import build
-from .common import LAUNCHES, PLAIN_CALLS, check, le32_lanes, use_kernel
+from .common import (LAUNCHES, PLAIN_CALLS, check, le32_lanes, on_device,
+                     use_kernel)
 
 WINDOW = spec.WINDOW_SIZE
 ENC_TILE_BLOCKS = 6        # blocks per sorted tile of the linked tables
@@ -706,15 +707,16 @@ def scan_linked(stream: torch.Tensor, src_lens: torch.Tensor,
     tail = torch.empty((S, NB), dtype=torch.int32, device=dev) if tails \
         else None
     words, lrec, rec, nrec, group = _scan_scratch(S * NB, WINDOW, dev)
-    err = build.kernels_lib().lz4tt_encode_linked(
-        stream.data_ptr(), stream.stride(0), delta.data_ptr(),
-        jump.data_ptr(), src_lens.data_ptr(), prefix_lens.data_ptr(),
-        words.data_ptr(), lrec.data_ptr(), lrec.shape[1], rec.data_ptr(),
-        rec.shape[1], nrec.data_ptr(), group,
-        out.data_ptr(), M, olen.data_ptr(),
-        tail.data_ptr() if tails else None, S, NB, int(acceleration),
-        int(min_match), int(reject_step),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_device(dev):
+        err = build.kernels_lib().lz4tt_encode_linked(
+            stream.data_ptr(), stream.stride(0), delta.data_ptr(),
+            jump.data_ptr(), src_lens.data_ptr(), prefix_lens.data_ptr(),
+            words.data_ptr(), lrec.data_ptr(), lrec.shape[1], rec.data_ptr(),
+            rec.shape[1], nrec.data_ptr(), group,
+            out.data_ptr(), M, olen.data_ptr(),
+            tail.data_ptr() if tails else None, S, NB, int(acceleration),
+            int(min_match), int(reject_step),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("encode_linked", err)
     LAUNCHES["encode_linked"] += 1
     return (out, olen, tail) if tails else (out, olen)
@@ -814,13 +816,14 @@ def scan_blocks(src_rows: torch.Tensor, src_lens: torch.Tensor,
     out = torch.empty((B, M), dtype=torch.uint8, device=dev)
     olen = torch.empty((B,), dtype=torch.int32, device=dev)
     words, lrec, rec, nrec, group = _scan_scratch(B, NS, dev)
-    err = build.kernels_lib().lz4tt_encode(
-        src_rows.data_ptr(), NS, delta.data_ptr(), jump.data_ptr(),
-        src_lens.data_ptr(), words.data_ptr(), words.shape[1],
-        lrec.data_ptr(), lrec.shape[1], rec.data_ptr(), rec.shape[1],
-        nrec.data_ptr(), group, out.data_ptr(), M,
-        olen.data_ptr(), B, int(acceleration), int(min_match),
-        int(reject_step), torch.cuda.current_stream(dev).cuda_stream)
+    with on_device(dev):
+        err = build.kernels_lib().lz4tt_encode(
+            src_rows.data_ptr(), NS, delta.data_ptr(), jump.data_ptr(),
+            src_lens.data_ptr(), words.data_ptr(), words.shape[1],
+            lrec.data_ptr(), lrec.shape[1], rec.data_ptr(), rec.shape[1],
+            nrec.data_ptr(), group, out.data_ptr(), M,
+            olen.data_ptr(), B, int(acceleration), int(min_match),
+            int(reject_step), torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("encode", err)
     LAUNCHES["encode"] += 1
     return out, olen

@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from . import build
-from .common import LAUNCHES, PLAIN_CALLS, check, le32_lanes, use_kernel
+from .common import (LAUNCHES, PLAIN_CALLS, check, le32_lanes, on_device,
+                     use_kernel)
 from .encode_kernel import (_common_run, _emit_final, _emit_seq, _fill_rows,
                             out_width)
 
@@ -192,11 +193,12 @@ def _scan(rows, src_lens, tables, level, tails=False):
     olen = torch.empty((B,), dtype=torch.int32, device=rows.device)
     tail = torch.empty((B,), dtype=torch.int32, device=rows.device) \
         if tails else None
-    err = build.kernels_lib().lz4tt_encode_hc(
-        rows.data_ptr(), NS, perm.data_ptr(), slot.data_ptr(),
-        src_lens.data_ptr(), out.data_ptr(), M, olen.data_ptr(),
-        tail.data_ptr() if tails else None, B, max_attempts,
-        torch.cuda.current_stream(rows.device).cuda_stream)
+    with on_device(rows.device):
+        err = build.kernels_lib().lz4tt_encode_hc(
+            rows.data_ptr(), NS, perm.data_ptr(), slot.data_ptr(),
+            src_lens.data_ptr(), out.data_ptr(), M, olen.data_ptr(),
+            tail.data_ptr() if tails else None, B, max_attempts,
+            torch.cuda.current_stream(rows.device).cuda_stream)
     build.check_launch("encode_hc", err)
     LAUNCHES["encode_hc"] += 1
     return (out, olen, tail) if tails else (out, olen)

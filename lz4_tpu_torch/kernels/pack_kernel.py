@@ -22,7 +22,7 @@ import torch
 
 from .. import spec
 from . import build
-from .common import LAUNCHES, PLAIN_CALLS, check, use_kernel
+from .common import LAUNCHES, PLAIN_CALLS, check, on_device, use_kernel
 
 ROW_FAULT = ("a block length exceeds its row: blens must lie in [0, NS] and "
              "a compressed olen in [0, M]")
@@ -109,12 +109,13 @@ def pack_frame_payloads(comp_rows: torch.Tensor, olen: torch.Tensor,
     dst = torch.empty((B,), dtype=torch.int64, device=dev)
     stored = torch.empty((B,), dtype=torch.bool, device=dev)
     total = torch.empty((2,), dtype=torch.int64, device=dev)
-    err = build.kernels_lib().lz4tt_pack(
-        comp_rows.data_ptr(), M, src_rows.data_ptr(), src_rows.stride(0), NS,
-        olen.data_ptr(), blen.data_ptr(), B, sizes[0].data_ptr(),
-        sizes[1].data_ptr(), dst.data_ptr(), stored.data_ptr(),
-        total.data_ptr(), flat.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_device(dev):
+        err = build.kernels_lib().lz4tt_pack(
+            comp_rows.data_ptr(), M, src_rows.data_ptr(), src_rows.stride(0),
+            NS, olen.data_ptr(), blen.data_ptr(), B, sizes[0].data_ptr(),
+            sizes[1].data_ptr(), dst.data_ptr(), stored.data_ptr(),
+            total.data_ptr(), flat.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("pack", err)
     LAUNCHES["pack"] += 1
     return flat, total, stored

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from . import build
-from .common import LAUNCHES, PLAIN_CALLS, check, use_kernel
+from .common import LAUNCHES, PLAIN_CALLS, check, on_device, use_kernel
 
 P1, P2, P3, P4, P5 = (np.uint32(2654435761), np.uint32(2246822519),
                       np.uint32(3266489917), np.uint32(668265263),
@@ -258,10 +258,11 @@ def xxh32_batch(rows: torch.Tensor, lens: torch.Tensor, seed: int = 0
         PLAIN_CALLS["xxh32"] += 1
         return xxh32_rows_plain(rows.numpy(), lens.numpy().clip(0, N), seed)
     out = torch.empty((B,), dtype=torch.int32, device=rows.device)
-    err = build.kernels_lib().lz4tt_xxh32_rows(
-        rows.data_ptr(), rows.stride(0), lens.data_ptr(), N,
-        seed & 0xFFFFFFFF, out.data_ptr(), B,
-        torch.cuda.current_stream(rows.device).cuda_stream)
+    with on_device(rows.device):
+        err = build.kernels_lib().lz4tt_xxh32_rows(
+            rows.data_ptr(), rows.stride(0), lens.data_ptr(), N,
+            seed & 0xFFFFFFFF, out.data_ptr(), B,
+            torch.cuda.current_stream(rows.device).cuda_stream)
     build.check_launch("xxh32", err)
     LAUNCHES["xxh32"] += 1
     return out.cpu().numpy().view(np.uint32)

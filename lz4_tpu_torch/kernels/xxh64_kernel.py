@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from . import build
-from .common import LAUNCHES, PLAIN_CALLS, use_kernel
+from .common import LAUNCHES, PLAIN_CALLS, on_device, use_kernel
 from .xxh32_kernel import (NSTAGE, TILE, check_rows, funnel, narrow_layout,
                            stage_rows, tail_bytes, tile_layout)
 
@@ -182,10 +182,11 @@ def xxh64_batch(rows: torch.Tensor, lens: torch.Tensor, seed: int = 0
         PLAIN_CALLS["xxh64"] += 1
         return xxh64_rows_plain(rows.numpy(), lens.numpy().clip(0, N), seed)
     out = torch.empty((B,), dtype=torch.int64, device=rows.device)
-    err = build.kernels_lib().lz4tt_xxh64_rows(
-        rows.data_ptr(), rows.stride(0), lens.data_ptr(), N,
-        seed & 0xFFFFFFFFFFFFFFFF, out.data_ptr(), B,
-        torch.cuda.current_stream(rows.device).cuda_stream)
+    with on_device(rows.device):
+        err = build.kernels_lib().lz4tt_xxh64_rows(
+            rows.data_ptr(), rows.stride(0), lens.data_ptr(), N,
+            seed & 0xFFFFFFFFFFFFFFFF, out.data_ptr(), B,
+            torch.cuda.current_stream(rows.device).cuda_stream)
     build.check_launch("xxh64", err)
     LAUNCHES["xxh64"] += 1
     return out.cpu().numpy().view(np.uint64)

@@ -660,7 +660,12 @@ def _sg_decompress_device(in_bufs, out_caps, compressed_size, max_output,
                            f"{int(olen[bad])} bytes, not {sizes[bad]}")
     if content is None:
         content = to_host(out[:total]).tobytes()
+    return total, fill_buffers(content, total, out_caps)
 
+
+def fill_buffers(content: bytes, total: int, out_caps) -> List[bytes]:
+    """A decoded frame's output list: its first ``total`` content bytes cut
+    into buffers of ``out_caps`` bytes, zeros past the content."""
     outs = []
     pos = 0
     for cap in out_caps:
@@ -669,4 +674,4 @@ def _sg_decompress_device(in_bufs, out_caps, compressed_size, max_output,
         buf[:take] = content[pos:pos + take]
         outs.append(bytes(buf))
         pos += take
-    return total, outs
+    return outs

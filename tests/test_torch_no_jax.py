@@ -29,7 +29,8 @@ assert {"lz4_tpu_torch.device", "lz4_tpu_torch.kernels.encode_kernel",
         "lz4_tpu_torch.kernels.xxh32_kernel",
         "lz4_tpu_torch.kernels.xxh64_kernel", "lz4_tpu_torch.block",
         "lz4_tpu_torch.io", "lz4_tpu_torch.cli",
-        "lz4_tpu_torch.sg"} <= set(names), names
+        "lz4_tpu_torch.sg", "lz4_tpu_torch.parallel.mesh",
+        "lz4_tpu_torch.parallel.multihost"} <= set(names), names
 
 import torch
 from lz4_tpu_torch.device import compress_frame_device, decompress_frame_device
@@ -135,6 +136,26 @@ version = io.StringIO()
 with contextlib.redirect_stdout(version):
     assert cli.main(["lz4tt", "--version"]) == 0
 assert version.getvalue().startswith("lz4_tpu_torch v")
+
+# the mesh and the process group: a frame over a two-entry CPU mesh, and a
+# world of one gloo process compressing through the length all-gather
+import torch.distributed as dist
+from lz4_tpu_torch.frame import encode_frame_header
+from lz4_tpu_torch.parallel import mesh as tmesh, multihost as mh
+frame = tmesh.compress_frame_mesh(tmesh.default_mesh(2, device="cpu"), data)
+assert frame == tmesh.compress_frame_mesh(tmesh.default_mesh(device="cpu"),
+                                          data)
+assert decompress_frame_device(frame, device="cpu") == (data, len(frame))
+with tempfile.TemporaryDirectory() as d:
+    dev = mh.initialize(f"file://{d}/store", 1, 0, device="cpu")
+    rows, lens = byte_rows([data[:4096], data[4096:8192]], 4096, dev)
+    comp, all_len = mh.encode_blocks_multihost(mh.global_mesh(), rows, lens)
+    seg = mh.frame_segment(comp, all_len, [4096, 4096], 0, 2)
+    dist.destroy_process_group()
+prefs = FramePreferences(block_size_id=4, block_independent=True)
+frame = encode_frame_header(prefs) + seg + bytes(4)
+assert decompress_frame_device(frame, device="cpu") == (data[:8192],
+                                                        len(frame))
 
 assert sys.modules["jax"] is None
 bad = [m for m in sys.modules
