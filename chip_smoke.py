@@ -185,6 +185,25 @@
    the corpus.  B and batch D must launch in the workers, and no plain
    version run.  --parallel-only runs steps 1, 2, 13 and 14 alone (the
    check on four cards).
+15. The library API (lz4_tpu_torch.block, .stream, .frame), with its own
+   counter reset and read: the one-shot calls on 4 KB, 64 KB, 256 KB and
+   1 MB of the corpus (kernel B, or A's chain past 256 KB; H; batch and
+   resumable D behind the host's walk over the lengths) and the decoders
+   on adversarial blocks; two stream sessions of 64 chunks of 4-96 KB
+   (a double buffer and a ring buffer; the window on the card; every
+   eighth chunk through the destSize forms, decoded in two resumed
+   pieces); FrameDecompressor fed step 6's flushed linked file and its -B7
+   file (64 MiB each) in random slices of 1 KB-1 MiB, the content also
+   against decompress_frame_device; the FrameCompressor matrix on 16 MiB
+   (ids 4-7, independent and linked, checksums, auto_flush, flush; HC
+   level 9 on 256 KB).  Kernels A, B, C, H, I, E and both batch variants
+   of D must launch, and no plain version run.  Then the same calls run
+   through the plain route on this host's CPU, and every result must be
+   the card's (tolerance 0).  Each call is then timed at 4 KB and 64 KB
+   (wall, and its kernels' device time from the profiler), and the two
+   routes FrameDecompressor could take for a feed's blocks (linked 64 KB
+   blocks: E behind a window from the host, or D linked behind one on the
+   card; independent 4 MB blocks: D batch or E) side by side.
 
 Prints a JSON line of the kernels (each with the launch count of the phase
 that drives it, every phase's counts, its time on the card, its plain
@@ -214,7 +233,7 @@ MAIN_POINTS = ((8, 1, False), (4, 1, False), (8, 1, True))
 # name -> (route, source, the Pallas launch it replaces, the phase whose
 # launch count it reports: "main" = step 4, "entry" = step 5, "stream" =
 # step 6, "sg" = step 7, "hc" = step 8, "destsize" = step 9, "mesh" = step
-# 13)
+# 13; every phase's counts, step 15's "api" too, are in launches_by_phase)
 KERNELS = {
     "encode_linked": ("cuda", "lz4_tpu_torch/csrc/encode.cu",
                       "lz4_tpu/kernels/encode_kernel.py:744", "main"),
@@ -1907,6 +1926,407 @@ def legacy_phase(corpus: bytes, dev) -> dict:
             f"({t2 - t1:.3f} s), byte-exact")
         del out
     return res
+
+
+# -- the library API: block, stream and frame (step 15) -----------------------
+API_SIZES = (4 << 10, 64 << 10, 256 << 10, 1 << 20)   # the one-shot slices
+API_TIMED = (4 << 10, 64 << 10)          # the sizes timed call by call
+API_CHUNKS = 64                          # chunks of each stream session
+API_MATRIX_BYTES = 16 << 20              # the FrameCompressor matrix's input
+API_HC_BYTES = 256 << 10                 # its HC cell (level 9)
+API_FEED = (1 << 10, 1 << 20)            # FrameDecompressor's slices
+# (block_size_id, independent, checksums, auto_flush, flush every k
+# updates, level, bytes): ids 4-7, both block modes, and an HC cell
+API_MATRIX = ((4, True, False, False, 0, 0, API_MATRIX_BYTES),
+              (4, False, True, False, 3, 0, API_MATRIX_BYTES),
+              (5, True, True, False, 0, 0, API_MATRIX_BYTES),
+              (5, False, False, True, 0, 0, API_MATRIX_BYTES),
+              (6, True, False, False, 2, 0, API_MATRIX_BYTES),
+              (6, False, True, False, 0, 0, API_MATRIX_BYTES),
+              (7, True, True, False, 0, 0, API_MATRIX_BYTES),
+              (7, False, False, False, 0, 0, API_MATRIX_BYTES),
+              (5, True, True, False, 0, 9, API_HC_BYTES))
+
+
+def api_outcome(fn, *args, **kwargs):
+    """("ok", result) or ("error", message) of an API call."""
+    from lz4_tpu_torch.block import Lz4BlockError
+    from lz4_tpu_torch.frame import Lz4FrameError
+    try:
+        return "ok", fn(*args, **kwargs)
+    except (Lz4BlockError, Lz4FrameError) as e:
+        return "error", str(e)
+
+
+def api_adversarial(text: bytes):
+    """Malformed and edge blocks for the one-shot decoders: truncations,
+    bit flips, a literal-length bomb, a wild offset, offset 0, an offset
+    before the output, a block cut right after a match, a long overlapping
+    match, and the empty block."""
+    good = (lz4_seq(text[:300], 7, 600) + lz4_seq(text[300:340], 299, 70)
+            + lz4_seq(text[340:400]))
+    rng = random.Random(15)
+    cases = [good, b"", long_match(60_000, text[:7])]
+    cases += [good[:rng.randrange(1, len(good))] for _ in range(6)]
+    for _ in range(6):
+        b = bytearray(good)
+        b[rng.randrange(len(b))] ^= 1 << rng.randrange(8)
+        cases.append(bytes(b))
+    return cases + [
+        b"\xf0" + b"\xff" * 40 + good, bytes([0x12, 0xAA, 0xFF, 0xFF]) + good,
+        b"\x20ab\x00\x00" + lz4_seq(b"tail!"),
+        lz4_seq(b"ab", 5_000, 20) + lz4_seq(b"x"), lz4_seq(b"ab", 2, 20)]
+
+
+def api_calls(corpus: bytes, frames: dict):
+    """Step 15's calls: (what, fn), fn(device, check) returning what the
+    calls gave (bytes, lengths, or the errors they raised).  With
+    ``check``, fn also holds its round trips against the input
+    (SmokeFailure)."""
+    from lz4_tpu_torch import block as B
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import frame as F
+    from lz4_tpu_torch import stream as S
+    from lz4_tpu_torch.frame import FramePreferences
+
+    def need(ok, what):
+        if not ok:
+            raise SmokeFailure(f"api phase: {what}")
+
+    calls = []
+    base = 5 << 20
+    for n in API_SIZES:
+        s = corpus[base:base + n]
+        base += n
+
+        def one_shot(dev, check, s=s, n=n):
+            c = B.compress_fast(s, device=dev)
+            res = (c, B.compress_default(s, len(c) - 1, device=dev),
+                   B.compress_fast(s, 4, device=dev),
+                   B.compress_dest_size(s, n // 2, device=dev),
+                   B.decompress_safe(c, n, device=dev),
+                   B.decompress_safe(c, 2 ** 31 - 1, device=dev),
+                   B.decompress_safe_partial(c, n // 3 + 7, device=dev),
+                   B.decompress_dest_size(c, n // 2, device=dev),
+                   B.decompress_fast(c + b"tail", n, device=dev))
+            if check:
+                (blk, took), (out, used) = res[3], res[7]
+                need(res[1] == b"" and res[4] == res[5] == s
+                     and res[6] == s[:n // 3 + 7]
+                     and res[8] == (s, len(c))
+                     and B.decompress_safe(res[2], n, device=dev) == s
+                     and B.decompress_safe(blk, took, device=dev) == s[:took]
+                     and s.startswith(out) and 0 < used <= len(c),
+                     f"a one-shot call on {n} bytes does not round-trip")
+            return res
+        calls.append((f"one-shot calls on {n >> 10} KB", one_shot))
+
+    bad = api_adversarial(corpus[:W])
+
+    def adversarial(dev, check):
+        out = []
+        for c in bad:
+            out.append(api_outcome(B.decompress_safe, c, W, device=dev))
+            out.append(api_outcome(B.decompress_fast, c, 1_070, device=dev))
+            out += [api_outcome(B.decompress_safe_partial, c, t, device=dev)
+                    for t in (0, 5, 350, 10_000)]
+            out += [api_outcome(B.decompress_dest_size, c, cap, device=dev)
+                    for cap in (0, 100, W)]
+        if check:
+            need(out[0][0] == "ok" and out[9][0] == "error",
+                 "the adversarial set's first two verdicts are wrong")
+        return out
+    calls.append((f"the decoders on {len(bad)} adversarial blocks",
+                  adversarial))
+
+    rng = random.Random(16)
+    sizes = [rng.randint(4 << 10, 96 << 10) for _ in range(API_CHUNKS)]
+    ends = [sum(sizes[:i + 1]) for i in range(API_CHUNKS)]
+    text = corpus[16 << 20:(16 << 20) + ends[-1]]
+    chunks = [text[e - z:e] for e, z in zip(ends, sizes)]
+    for discipline in ("double buffer", "ring buffer"):
+        def session(dev, check, discipline=discipline):
+            enc = S.BlockCompressStream(device=dev)
+            dec = S.BlockDecompressStream(corpus[:W], device=dev)
+            enc.load_dict(corpus[:W])
+            slots = [bytearray(96 << 10), bytearray(96 << 10)]
+            ring, at = bytearray(256 << 10), 0
+            blocks, out = [], []
+            for i, chunk in enumerate(chunks):
+                if discipline == "double buffer":
+                    slots[i % 2][:len(chunk)] = chunk
+                    view = bytes(slots[i % 2][:len(chunk)])
+                else:
+                    at = 0 if at + len(chunk) > len(ring) else at
+                    ring[at:at + len(chunk)] = chunk
+                    view = bytes(ring[at:at + len(chunk)])
+                    at += len(chunk)
+                if i % 8 != 7:
+                    blocks.append(enc.compress_continue(view))
+                    out.append(dec.decompress_continue(blocks[-1],
+                                                       len(view)))
+                    continue
+                # the destSize forms: a third of the chunk's room, the
+                # block decoded in two resumed pieces, then the rest
+                used, blk = enc.compress_dest_size_continue(view,
+                                                            len(view) // 3)
+                cons, first = dec.decompress_dest_size_continue(
+                    blk, used // 2 + 1)
+                cons2, second = dec.decompress_dest_size_continue(
+                    blk[cons:], used)
+                blocks.append(blk)
+                out += [first, second]
+                need(cons + cons2 == len(blk), "a resumed destSize "
+                     "decode does not consume its block")
+                if used < len(view):
+                    blocks.append(enc.compress_continue(view[used:]))
+                    out.append(dec.decompress_continue(blocks[-1],
+                                                       len(view) - used))
+            if check:
+                need(b"".join(out) == text, f"the {discipline} session "
+                     "does not round-trip")
+            return blocks, out, enc.save_dict()
+        calls.append((f"a stream session of {API_CHUNKS} chunks of 4-96 KB "
+                      f"({discipline})", session))
+
+    for name, (frame, want) in frames.items():
+        def feed(dev, check, frame=frame, want=want):
+            rng = random.Random(17)
+            d, pos, res, out = F.FrameDecompressor(device=dev), 0, [], []
+            while not d.finished:
+                used, got = d.feed(frame[pos:pos + rng.randint(*API_FEED)])
+                if not used:
+                    raise SmokeFailure("api phase: a feed consumed nothing")
+                pos += used
+                res.append((used, len(got), d.src_hint))
+                out.append(got)
+            content = b"".join(out)
+            if check:
+                need(content == want and pos == len(frame)
+                     and D.decompress_frame_device(frame, device=dev)[0]
+                     == content, f"FrameDecompressor on the {name} frame "
+                     "differs from the corpus or decompress_frame_device")
+            return res, content
+        calls.append((f"FrameDecompressor fed the {name} frame in slices of "
+                      "1 KB-1 MiB", feed))
+
+    for bsid, indep, sums, auto, every, level, nbytes in API_MATRIX:
+        src = corpus[24 << 20:(24 << 20) + nbytes]
+        prefs = FramePreferences(
+            block_size_id=bsid, block_independent=indep,
+            block_checksum=sums, content_checksum=sums, auto_flush=auto,
+            content_size=len(src) if sums else None, level=level)
+        what = (f"FrameCompressor -B{bsid} "
+                f"{'independent' if indep else 'linked'}"
+                f"{' checksums' if sums else ''}"
+                f"{' auto_flush' if auto else ''}"
+                f"{f' flush every {every}' if every else ''}"
+                f"{f' level {level}' if level else ''} on "
+                f"{len(src) >> 10} KB")
+
+        def matrix(dev, check, src=src, prefs=prefs, every=every):
+            rng = random.Random(18)
+            comp = F.FrameCompressor(prefs, device=dev)
+            parts, pos, k = [comp.begin()], 0, 0
+            while pos < len(src):
+                n = rng.randint(1 << 10, 3 << 20)
+                parts.append(comp.update(src[pos:pos + n]))
+                pos, k = pos + n, k + 1
+                if every and k % every == 0:
+                    parts.append(comp.flush())
+            frame = b"".join(parts + [comp.end()])
+            if check:
+                need(D.decompress_frame_device(frame, device=dev)
+                     == (src, len(frame)), f"{prefs} does not round-trip")
+            return frame
+        calls.append((what, matrix))
+    return calls
+
+
+def api_phase(corpus: bytes, frames: dict, dev):
+    """Step 15, after the counters were reset: every call of
+    ``api_calls`` on the card (its round trips held against the input).
+    Returns (what the calls gave, their walls)."""
+    import torch
+    results, walls = [], {}
+    for what, fn in api_calls(corpus, frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(fn(dev, True))
+        walls[what] = time.perf_counter() - t0
+        log(f"[api] {what}: {walls[what]:.3f} s on the card, round trips "
+            "byte-exact")
+    return results, walls
+
+
+def api_plain_check(corpus: bytes, frames: dict, results) -> None:
+    """Step 15's calls again through the port's plain route on the CPU:
+    every result must equal the card's (tolerance 0)."""
+    for (what, fn), got in zip(api_calls(corpus, frames), results):
+        t0 = time.perf_counter()
+        if fn("cpu", False) != got:
+            raise SmokeFailure(f"api phase: {what} differs from the plain "
+                               "route on the CPU")
+        log(f"[api] {what}: equal to the plain route on the CPU "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def api_times(corpus: bytes, dev, card: str) -> dict:
+    """Step 15's per-call times at 4 KB and 64 KB: each function's wall
+    (the median of 9 calls after 2), the span of CUDA events recorded
+    around it, and the device time of the kernels it launches (the
+    profiler, per call over 5), in microseconds, with MB/s of the wall;
+    and the two routes for the linked blocks one feed
+    completes, on 1, 8 and 64 blocks of a -B4 linked frame: kernel E
+    behind a window from the host (``decode_stream_runs``, what
+    FrameDecompressor runs) and kernel D's linked mode behind a window on
+    the device (``decode_blocks_linked``)."""
+    import statistics
+
+    import torch
+
+    from lz4_tpu_torch import block as B
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import frame as F
+    from lz4_tpu_torch import stream as S
+    from lz4_tpu_torch.frame import FramePreferences
+    from lz4_tpu_torch.kernels.common import to_host
+    from lz4_tpu_torch.kernels.decode_kernel import decode_blocks_linked
+
+    def timed(fn, n):
+        for _ in range(2):
+            fn()
+        walls, spans = [], []
+        for _ in range(9):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            fn()
+            b.record()
+            walls.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            spans.append(a.elapsed_time(b))
+        wall = statistics.median(walls)
+        kernel = sum(device_ms(fn, reps=5).values())
+        return {"wall_us": wall * 1e6, "kernel_us": kernel * 1e3,
+                "event_us": statistics.median(spans) * 1e3,
+                "mbs": n / 1e6 / wall}
+
+    out = {"card": card, "calls": {}, "linked_routes": {}}
+    for n in API_TIMED:
+        s = corpus[(40 << 20):(40 << 20) + n]
+        c = B.compress_fast(s, device=dev)
+        enc = S.BlockCompressStream(device=dev)
+        enc.load_dict(corpus[:W])
+        sblk = enc.compress_continue(s)
+        dec = S.BlockDecompressStream(corpus[:W], device=dev)
+        fc = F.FrameCompressor(FramePreferences(block_size_id=4,
+                                                auto_flush=True), device=dev)
+        fc.begin()
+        prefs = FramePreferences(block_size_id=4)
+        frame = F.compress_frame(s, prefs, device=dev)
+        fns = {
+            "compress_default": lambda: B.compress_default(s, device=dev),
+            "compress_dest_size": lambda: B.compress_dest_size(
+                s, n // 2, device=dev),
+            "decompress_safe": lambda: B.decompress_safe(c, n, device=dev),
+            "decompress_safe_partial": lambda: B.decompress_safe_partial(
+                c, n // 2, device=dev),
+            "decompress_dest_size": lambda: B.decompress_dest_size(
+                c, n // 2, device=dev),
+            "decompress_fast": lambda: B.decompress_fast(c, n, device=dev),
+            "BlockCompressStream.compress_continue":
+                lambda: enc.compress_continue(s),
+            "BlockCompressStream.compress_dest_size_continue":
+                lambda: enc.compress_dest_size_continue(s, n // 2),
+            "BlockDecompressStream.decompress_continue":
+                lambda: dec.decompress_continue(sblk, n),
+            "BlockDecompressStream.decompress_dest_size_continue":
+                lambda: dec.decompress_dest_size_continue(sblk, n // 2),
+            "FrameCompressor.update (auto_flush)": lambda: fc.update(s),
+            "FrameDecompressor.feed (one frame)": lambda:
+                F.FrameDecompressor(device=dev).feed(frame),
+            "compress_frame": lambda: F.compress_frame(s, prefs,
+                                                       device=dev),
+            "decompress_frame": lambda: F.decompress_frame(frame,
+                                                           device=dev),
+        }
+        for name, fn in fns.items():
+            t = timed(fn, n)
+            out["calls"].setdefault(name, {})[f"{n >> 10} KB"] = t
+            log(f"[api] {name} on {n >> 10} KB: {t['wall_us']:.1f} us a "
+                f"call ({t['mbs']:.1f} MB/s), kernels {t['kernel_us']:.1f} "
+                f"us, CUDA events around the call {t['event_us']:.1f} us")
+    content = corpus[:5 << 20]
+    recs = frame_payloads(D.compress_frame_device(
+        content, FramePreferences(block_size_id=4), device=dev), 7)
+    for nb in (1, 8, 64):
+        k0 = 4
+        pay = [p for p, _ in recs[k0:k0 + nb]]
+        stored = [st for _, st in recs[k0:k0 + nb]]
+        sizes = [len(p) for p in pay]
+        starts = [sum(sizes[:i]) for i in range(nb)]
+        window = content[(k0 - 1) * W:k0 * W]
+        want = content[k0 * W:(k0 + nb) * W]
+        win_dev = D.window_tensor(window, dev)
+
+        def e_route():
+            return D.decode_stream_runs(
+                b"".join(pay), starts, sizes, stored, [W] * nb, W, True, dev,
+                window=window)[0]
+
+        def d_route():
+            rows, lens = D.byte_rows([D._literal_block(p) if st else p
+                                      for p, st in zip(pay, stored)],
+                                     max(sizes), dev)
+            res, olen = decode_blocks_linked(rows, lens, W,
+                                             init_window=win_dev,
+                                             init_window_len=W)
+            return to_host(res).tobytes()
+        if e_route() != want or d_route() != want:
+            raise SmokeFailure("api phase: a linked route differs")
+        out["linked_routes"][f"{nb} blocks"] = {
+            "E (decode_stream_runs)": timed(e_route, nb * W),
+            "D linked (decode_blocks_linked)": timed(d_route, nb * W)}
+        log(f"[api] linked feed of {nb} blocks: "
+            + "; ".join(f"{k} {v['wall_us']:.1f} us ({v['kernel_us']:.1f} us "
+                        "in kernels)"
+                        for k, v in out["linked_routes"][
+                            f"{nb} blocks"].items()))
+    # independent 4 MB blocks: kernel D's batch mode (a row each) against
+    # kernel E's independent mode (FrameDecompressor's route past 64 KB)
+    big = corpus[:16 << 20]
+    recs = frame_payloads(F.compress_frame(big, FramePreferences(
+        block_size_id=7, block_independent=True), device=dev), 7)
+    bs = 4 << 20
+    out["independent_routes"] = {}
+    for nb in (1, 4):
+        pay = [p for p, _ in recs[:nb]]
+        sizes = [len(p) for p in pay]
+        starts = [sum(sizes[:i]) for i in range(nb)]
+        want = big[:nb * bs]
+
+        def e_route():
+            return D.decode_stream_runs(b"".join(pay), starts, sizes,
+                                        [False] * nb, [bs] * nb, bs, False,
+                                        dev)[0]
+
+        def d_route():
+            rows, lens = D.byte_rows(pay, max(sizes), dev)
+            return to_host(D.decode_blocks(rows, lens, bs)[0]).tobytes()
+        if e_route() != want or d_route() != want:
+            raise SmokeFailure("api phase: an independent route differs")
+        out["independent_routes"][f"{nb} blocks of 4 MB"] = {
+            "E (decode_stream_runs)": timed(e_route, nb * bs),
+            "D batch (decode_blocks)": timed(d_route, nb * bs)}
+        log(f"[api] independent feed of {nb} blocks of 4 MB: "
+            + "; ".join(f"{k} {v['wall_us']:.1f} us ({v['kernel_us']:.1f} "
+                        "us in kernels)"
+                        for k, v in out["independent_routes"][
+                            f"{nb} blocks of 4 MB"].items()))
+    return out
 
 
 # -- the single-card envelope: frames past 2 GiB, SG layouts outside G and F --
@@ -3895,6 +4315,8 @@ def main() -> int:
     counts["stream"] = phase_counts("stream path",
                                     ["decode_stream", "decode_linked"])
     b7_blocks = [p for p, _ in frame_payloads(files["b7"], 7)]
+    api_frames = {"linked 64 KB-block (flushed)": (files["flushed"], corpus),
+                  "-B7 independent": (files["b7"], corpus)}
     del files
 
     # -- 7. the scatter-gather path at full size ----------------------------
@@ -3946,6 +4368,16 @@ def main() -> int:
     counts.update(mesh_counts)
     del mesh_ref
 
+    # -- 15. the library API: block, stream and frame ------------------------
+    common.reset_counts()
+    api_results, api_walls = api_phase(corpus, api_frames, cuda)
+    counts["api"] = phase_counts("api", [
+        "encode", "encode_linked", "pack", "encode_dest_size",
+        "decode_batch", "decode_dest_size", "decode_stream", "encode_hc"])
+    api_plain_check(corpus, api_frames, api_results)
+    del api_results, api_frames
+    api_record = {"walls_s": api_walls, **api_times(corpus, cuda, card_line)}
+
     unbound = [k for k in KERNELS if "bound_ms" not in stats[k]]
     if unbound:
         raise SmokeFailure(f"no bound computed for {unbound}")
@@ -3957,7 +4389,8 @@ def main() -> int:
         for k, (route, src, rep, phase) in KERNELS.items()],
         "sg_phase": sg_times, "hc_phase": hc_times,
         "destsize_phase": ds_times, "legacy_phase": legacy_times,
-        "envelope_phase": envelope_times, "mesh_phase": mesh_times}
+        "envelope_phase": envelope_times, "mesh_phase": mesh_times,
+        "api_phase": api_record}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

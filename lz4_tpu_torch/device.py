@@ -77,10 +77,11 @@ HC_GROUP_ROWS = 1024     # 64 MiB of blocks per launch of kernel I (rows,
                          # 16-bit tables and output: about 0.4 GB; the
                          # tables' sort peaks at 0.63 GiB per group)
 # legacy compress: the slice each block holds (8 MB; tests shrink it, to a
-# multiple of 64 KB), and the input per launch of kernel A (its candidate
-# tables take about 82 bytes of device memory per input byte)
+# multiple of 64 KB); and the input per launch of kernel A in
+# chain_payloads (its candidate tables take about 82 bytes of device memory
+# per input byte)
 LEGACY_SLICE = spec.LEGACY_BLOCK_SIZE
-LEGACY_GROUP_BYTES = 64 << 20
+CHAIN_GROUP_BYTES = 64 << 20
 # kernel E's runs: the most output one run decodes (its input is bounded
 # by decode_kernel.STREAM_MAX_INPUT)
 RUN_MAX_OUTPUT = 1 << 31
@@ -368,57 +369,143 @@ def _fetch_payloads(out: torch.Tensor, olen: torch.Tensor,
             to_host(tails).astype(np.int64))
 
 
-def _joined_blocks(out, olen, tails, per_block: int) -> List[bytes]:
-    """Join every ``per_block`` consecutive rows' payloads into one block;
-    rows of length 0 (padding) take no part."""
+def _row_payloads(out, olen, tails, per_block: int):
+    """The payloads of every ``per_block`` consecutive rows, fetched in one
+    copy: a list per group of (payload views, tails) of its rows of nonzero
+    length (rows of length 0 are padding)."""
     flat, olen_h, tails_h = _fetch_payloads(out, olen, tails)
     ends = np.cumsum(olen_h)
-    blocks = []
+    groups = []
     for r0 in range(0, len(olen_h), per_block):
         rows = [r for r in range(r0, min(r0 + per_block, len(olen_h)))
                 if olen_h[r] > 0]
-        if rows:
-            blocks.append(merge_payloads(
-                [flat[ends[r] - olen_h[r]:ends[r]] for r in rows],
-                [tails_h[r] for r in rows]))
-    return blocks
+        groups.append(([flat[ends[r] - olen_h[r]:ends[r]] for r in rows],
+                       [tails_h[r] for r in rows]))
+    return groups
+
+
+def _joined_blocks(out, olen, tails, per_block: int) -> List[bytes]:
+    """Join every ``per_block`` consecutive rows' payloads into one block;
+    rows of length 0 (padding) take no part."""
+    return [merge_payloads(views, tl)
+            for views, tl in _row_payloads(out, olen, tails, per_block)
+            if views]
+
+
+def window_tensor(history, dev) -> torch.Tensor:
+    """The last 64 KB of ``history`` (bytes) as a 1-D uint8 tensor on
+    ``dev``: a window that stays on the device between calls."""
+    return to_device(bytes(history)[-WINDOW:], dev)
+
+
+def next_window(window: Optional[torch.Tensor],
+                data: torch.Tensor) -> torch.Tensor:
+    """The last 64 KB of ``window`` followed by ``data`` (both 1-D uint8
+    tensors on one device), as a new tensor on that device."""
+    if data.numel() >= WINDOW or window is None or not window.numel():
+        return data[-WINDOW:].clone()
+    return torch.cat([window, data])[-WINDOW:]
+
+
+def chain_payloads(data: bytes, piece: int,
+                   window: Optional[torch.Tensor], linked: bool,
+                   acceleration: int = 1, min_match: int = 4,
+                   device="cuda"):
+    """Kernel A over ``data`` cut into pieces of ``piece`` bytes (the last
+    may be shorter), each piece one stream of linked 64 KB blocks, S pieces
+    (CHAIN_GROUP_BYTES of input) a launch, each launch's input uploaded and
+    its payloads fetched in one copy.  With ``linked``, piece 0's
+    dictionary prefix is ``window`` (a 1-D uint8 tensor of at most 64 KB on
+    the device, or None) and piece k's the 64 KB before it, and the
+    candidate tables' lanes below a prefix are zeroed; else no piece has a
+    prefix (legacy slices, independent frame blocks).
+
+    Returns (a list per piece of (payload views, tails), which
+    ``merge_payloads`` joins into the piece's block; with ``linked``, the
+    last 64 KB of ``window`` and ``data`` as a tensor on the device, else
+    None)."""
+    dev = resolve_device(device)
+    n = len(data)
+    if linked and n > piece and piece < WINDOW:
+        raise ValueError("linked pieces must hold at least 64 KB")
+    if window is not None and window.numel() > WINDOW:
+        raise ValueError("a window holds at most 64 KB")
+    if not n:
+        return [], window if linked else None
+    starts = list(range(0, n, piece))
+    nb = -(-min(piece, n) // WINDOW)
+    per_launch = max(1, CHAIN_GROUP_BYTES // (nb * WINDOW))
+    groups = []
+    for g in range(0, len(starts), per_launch):
+        st = starts[g:g + per_launch]
+        S = len(st)
+        sizes = [min(piece, n - s) for s in st]
+        lo = max(st[0] - WINDOW, 0) if linked else st[0]
+        flat = to_device(data[lo:st[-1] + sizes[-1]], dev)
+        stream = torch.zeros((S, (nb + 1) * WINDOW), dtype=torch.uint8,
+                             device=dev)
+        full = sum(1 for z in sizes if z == piece)
+        if full:
+            stream[:full, WINDOW:WINDOW + piece] = \
+                flat[st[0] - lo:st[0] - lo + full * piece].view(full, piece)
+        if full < S:
+            stream[S - 1, WINDOW:WINDOW + sizes[-1]] = flat[st[-1] - lo:]
+        plens = [0] * S
+        if linked:
+            back = [r for r in range(S) if st[r] > 0]
+            if back:
+                idx = (torch.tensor([st[r] - lo - WINDOW for r in back],
+                                    device=dev)[:, None]
+                       + torch.arange(WINDOW, device=dev)[None, :])
+                stream[back, :WINDOW] = flat[idx]
+                for r in back:
+                    plens[r] = WINDOW
+            if st[0] == 0 and window is not None and window.numel():
+                plens[0] = window.numel()
+                stream[0, WINDOW - plens[0]:WINDOW] = window
+        lens = np.clip(np.asarray(sizes)[:, None]
+                       - WINDOW * np.arange(nb)[None, :], 0, WINDOW)
+        out, olen, tails = encode_blocks_linked(
+            stream, torch.from_numpy(lens.astype(np.int32)).to(dev),
+            acceleration,
+            prefix_lens=torch.tensor(plens, dtype=torch.int32, device=dev),
+            min_match=min_match, zero_window_lanes=any(plens), tails=True)
+        groups += _row_payloads(out.reshape(S * nb, -1), olen.reshape(-1),
+                                tails.reshape(-1), nb)
+    return groups, next_window(window, flat) if linked else None
+
+
+def chain_block(data: bytes, window: Optional[torch.Tensor] = None,
+                acceleration: int = 1, min_match: int = 4, device="cuda"):
+    """``data`` of any length as ONE LZ4 block behind ``window`` (the
+    history right before it, a tensor of at most 64 KB on the device, or
+    None): kernel A's linked chain over it, its payloads joined.  Returns
+    (block, the new window on the device)."""
+    groups, win = chain_payloads(data, CHAIN_GROUP_BYTES, window, True,
+                                 acceleration, min_match, device)
+    views = [v for vs, _ in groups for v in vs]
+    tails = [t for _, ts in groups for t in ts]
+    return (merge_payloads(views, tails) if views else b"\x00"), win
 
 
 def _legacy_fast_blocks(data: bytes, acceleration: int, min_match: int,
                         dev: torch.device) -> List[bytes]:
     """Each LEGACY_SLICE of ``data`` as one linked stream of 64 KB blocks
-    without a prefix through kernel A, S slices a launch, each slice's
-    payloads joined into one block: a match of the chain reaches at most
-    65,535 bytes back and never before the slice, so it stays valid in the
-    joined block."""
-    slices = [data[i:i + LEGACY_SLICE]
-              for i in range(0, len(data), LEGACY_SLICE)]
-    per_launch = max(1, LEGACY_GROUP_BYTES // LEGACY_SLICE)
-    blocks = []
-    for g in range(0, len(slices), per_launch):
-        group = slices[g:g + per_launch]
-        nb = -(-max(map(len, group)) // WINDOW)
-        host = np.zeros((len(group), (nb + 1) * WINDOW), np.uint8)
-        lens = np.zeros((len(group), nb), np.int32)
-        for s, piece in enumerate(group):
-            host[s, WINDOW:WINDOW + len(piece)] = np.frombuffer(piece,
-                                                                np.uint8)
-            lens[s] = np.clip(len(piece) - WINDOW * np.arange(nb), 0, WINDOW)
-        stream = to_device(host, dev).reshape(host.shape)
-        out, olen, tails = encode_blocks_linked(
-            stream, torch.from_numpy(lens).to(dev), acceleration,
-            min_match=min_match, tails=True)
-        blocks += _joined_blocks(out.reshape(len(group) * nb, -1),
-                                 olen.reshape(-1), tails.reshape(-1), nb)
-    return blocks
+    without a prefix through kernel A, its payloads joined into one block:
+    a match of the chain reaches at most 65,535 bytes back and never
+    before the slice, so it stays valid in the joined block."""
+    groups, _ = chain_payloads(data, LEGACY_SLICE, None, False, acceleration,
+                               min_match, dev)
+    return [merge_payloads(views, tails) for views, tails in groups]
 
 
-def _legacy_hc_blocks(data: bytes, level: int,
-                      dev: torch.device) -> List[bytes]:
-    """Each LEGACY_SLICE of ``data`` as independent 64 KB rows through
-    kernel I at ``level``, whole slices in groups of about HC_GROUP_ROWS
-    rows, each slice's payloads joined into one block."""
-    per_slice = LEGACY_SLICE // BLOCK
+def _legacy_hc_blocks(data: bytes, level: int, dev: torch.device,
+                      piece: Optional[int] = None) -> List[bytes]:
+    """Each ``piece`` (a multiple of 64 KB; LEGACY_SLICE by default) of
+    ``data`` as independent 64 KB rows through kernel I at ``level``, whole
+    pieces in groups of about HC_GROUP_ROWS rows, each piece's payloads
+    joined into one block."""
+    per_slice = (piece or LEGACY_SLICE) // BLOCK
     group = max(1, HC_GROUP_ROWS // per_slice) * per_slice
     rows_all = _split_blocks(data, BLOCK)
     blocks = []

@@ -19,6 +19,7 @@ SKIPPABLE_MAGIC_MIN = 0x184D2A50   # 0x184D2A50 .. 0x184D2A5F all valid
 SKIPPABLE_MAGIC_MASK = 0xFFFFFFF0
 FLG_VERSION = 0b01           # 2-bit version field, must be 01
 MIN_FRAME_HEADER_SIZE = 7    # magic + FLG + BD + HC
+MAX_FRAME_HEADER_SIZE = 15   # + 8-byte content size
 BLOCK_HEADER_SIZE = 4        # LE32 block size
 ENDMARK_SIZE = 4             # LE32 zero
 UNCOMPRESSED_BIT = 0x80000000  # high bit of a block size: stored, not compressed

@@ -93,12 +93,12 @@ def test_legacy_compress_round_trips(case, tmp_path, monkeypatch):
 
 
 def test_legacy_compress_groups_slices(monkeypatch):
-    """Slices go S to a launch of kernel A (LEGACY_GROUP_BYTES of input) and
+    """Slices go S to a launch of kernel A (CHAIN_GROUP_BYTES of input) and
     whole slices to a group of kernel I's rows; the file does not change
     with the grouping."""
     data = TEXT[:300_000]
     monkeypatch.setattr(tdev, "LEGACY_SLICE", 64 << 10)
-    for level, kernel, group in ((1, "encode_linked", "LEGACY_GROUP_BYTES"),
+    for level, kernel, group in ((1, "encode_linked", "CHAIN_GROUP_BYTES"),
                                  (3, "encode_hc", "HC_GROUP_ROWS")):
         whole = tdev.compress_legacy_device(data, level, device=CPU)
         monkeypatch.setattr(tdev, group, 2 if level >= 3 else 128 << 10)

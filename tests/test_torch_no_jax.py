@@ -30,7 +30,9 @@ assert {"lz4_tpu_torch.device", "lz4_tpu_torch.kernels.encode_kernel",
         "lz4_tpu_torch.kernels.xxh64_kernel", "lz4_tpu_torch.block",
         "lz4_tpu_torch.io", "lz4_tpu_torch.cli",
         "lz4_tpu_torch.sg", "lz4_tpu_torch.parallel.mesh",
-        "lz4_tpu_torch.parallel.multihost"} <= set(names), names
+        "lz4_tpu_torch.parallel.multihost", "lz4_tpu_torch.stream",
+        "lz4_tpu_torch.frame", "lz4_tpu_torch.utils.datagen",
+        "lz4_tpu_torch.utils.datagencli"} <= set(names), names
 
 import torch
 from lz4_tpu_torch.device import compress_frame_device, decompress_frame_device
@@ -157,6 +159,27 @@ frame = encode_frame_header(prefs) + seg + bytes(4)
 assert decompress_frame_device(frame, device="cpu") == (data[:8192],
                                                         len(frame))
 
+# the library API: a one-shot round trip, a stream session, and a frame fed
+# to FrameDecompressor in slices
+from lz4_tpu_torch import block as tblock, frame as tframe, stream as tstream
+from lz4_tpu_torch.utils.datagen import gen_buffer
+gen = gen_buffer(150_000, 0.7, 3)
+comp = tblock.compress_fast(gen, device="cpu")
+assert tblock.decompress_safe(comp, len(gen), device="cpu") == gen
+assert tblock.decompress_safe_partial(comp, 999, device="cpu") == gen[:999]
+enc = tstream.BlockCompressStream(device="cpu")
+dec = tstream.BlockDecompressStream(device="cpu")
+for i in range(0, len(gen), 40_000):
+    blk = enc.compress_continue(gen[i:i + 40_000])
+    assert dec.decompress_continue(blk, 40_000) == gen[i:i + 40_000]
+frame = tframe.compress_frame(gen, FramePreferences(
+    block_size_id=4, content_checksum=True), device="cpu")
+d, pos, got = tframe.FrameDecompressor(device="cpu"), 0, b""
+while not d.finished:
+    used, out = d.feed(frame[pos:pos + 7_001])
+    pos, got = pos + used, got + out
+assert (got, pos) == (gen, len(frame))
+
 assert sys.modules["jax"] is None
 bad = [m for m in sys.modules
        if m.startswith("jax.") or m == "lz4_tpu" or m.startswith("lz4_tpu.")]
@@ -176,6 +199,7 @@ print("ok")
 def test_port_imports_no_jax_and_round_trips_on_cpu():
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
     env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"   # small tensor ops: no pool to contend
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=str(REPO),
                          env=env, capture_output=True, text=True,
                          timeout=300)
