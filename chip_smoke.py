@@ -6,6 +6,7 @@
     python3 chip_smoke.py --destsize-times ROOT # kernels G and H of ROOT only
     python3 chip_smoke.py --decode-times ROOT   # kernels E, F, D of ROOT
     python3 chip_smoke.py --hc-times ROOT       # kernels I and C of ROOT
+                                                # (I behind prefixes too)
     python3 chip_smoke.py --xxh-times ROOT      # kernels J and K of ROOT
     python3 chip_smoke.py --parallel-only       # steps 13 and 14 alone
 
@@ -86,7 +87,15 @@
    plain versions (payloads and tails) and against themselves with tails
    off, A on two 9-block chains, the main-path chunk and 4 MB of noise, I
    on the small rows at levels 1 and 9 and (tails on against off) on the
-   1,024 corpus rows; both are timed with tails on.
+   1,024 corpus rows; both are timed with tails on.  Kernel I behind
+   prefixes (rows [prefix | source], step 3l) is held against its plain
+   version (payloads, olen, tails) and the serial walk at levels 1, 3, 9
+   and 16 on ``hc_prefix_cases`` (prefixes of 1 byte, 4 KB, 65,535 bytes
+   and of zeros, a repeat at distance 65,535 and one at 65,536, sources of
+   0, 12 and 13 bytes, noise; 16- and 32-bit tables; rows at storage
+   offsets 1 and 3), on sampled rows of the corpus as 1,024 rows [64 KB |
+   64 KB] at levels 3, 9 and 16, and timed on that batch at level 9 (median
+   of three) beside the independent rows, with its tables' time and peak.
 4. Runs the main path at full size: a 64 MiB real-text corpus (the Python
    stdlib sources, built the way bench.py builds its corpus) through
    compress_frame_device and decompress_frame_device, at min_match=8 /
@@ -204,6 +213,19 @@
    routes FrameDecompressor could take for a feed's blocks (linked 64 KB
    blocks: E behind a window from the host, or D linked behind one on the
    card; independent 4 MB blocks: D batch or E) side by side.
+16. The HC API (lz4_tpu_torch.hc) and linked HC frames, with its own
+   counter reset and read: compress_hc_block and compress_hc_dest_size on
+   4 KB, 64 KB and 1 MB of the corpus, with and without a 64 KB dict_ (the
+   destSize blocks within their capacity); two HcCompressStream sessions of
+   64 chunks of 4-96 KB (double buffer, ring buffer; every eighth chunk
+   first refused at capacity 1, which keeps the window); FrameCompressor
+   at level 9 on the 64 MiB corpus as linked -B4 (streamed) and -B7
+   frames.  Every result is decoded on the card (kernels D and E; the
+   frames also through decompress_frame_device) to its input.  Kernel I,
+   batch and linked D and E must launch, and no plain version run.  Then
+   the one-shot calls on 4 KB and 64 KB and the first three blocks of the
+   double-buffer session run through the plain route on this host's CPU,
+   equal to the card's; each call is timed at 4 KB and 64 KB.
 
 Prints a JSON line of the kernels (each with the launch count of the phase
 that drives it, every phase's counts, its time on the card, its plain
@@ -215,6 +237,7 @@ the temporary directories of steps 6 and 8).
 """
 
 import functools
+import inspect
 import json
 import os
 import random
@@ -233,7 +256,8 @@ MAIN_POINTS = ((8, 1, False), (4, 1, False), (8, 1, True))
 # name -> (route, source, the Pallas launch it replaces, the phase whose
 # launch count it reports: "main" = step 4, "entry" = step 5, "stream" =
 # step 6, "sg" = step 7, "hc" = step 8, "destsize" = step 9, "mesh" = step
-# 13; every phase's counts, step 15's "api" too, are in launches_by_phase)
+# 13; every phase's counts, step 15's "api" and step 16's "hc_api" too,
+# are in launches_by_phase)
 KERNELS = {
     "encode_linked": ("cuda", "lz4_tpu_torch/csrc/encode.cu",
                       "lz4_tpu/kernels/encode_kernel.py:744", "main"),
@@ -962,6 +986,246 @@ def hc_phase(corpus: bytes, dev, tmp_root: Path, kernel_ms: dict) -> dict:
     return out
 
 
+# -- kernel I behind prefixes, and the HC API (lz4_tpu_torch.hc) -------------
+HC_PREFIX_LEVELS = (3, 9, 16)      # [64 KB | 64 KB] corpus rows held at these
+HC_PREFIX_SMALL_LEVELS = (1, 3, 9, 16)
+HC_PREFIX_ROWS = 2                 # corpus rows held per level
+HC_API_SIZES = (4 << 10, 64 << 10, 1 << 20)   # the one-shot sources
+HC_API_TIMED = (4 << 10, 64 << 10)            # the sizes timed call by call
+HC_API_SAMPLE = 3                  # stream chunks held against the CPU
+
+
+def hc_prefix_cases(text: bytes) -> dict:
+    """Kernel I's rows behind prefixes at small sizes: name -> (prefix,
+    source).  Prefixes of 1 byte, 4 KB, 65,535 bytes and of zeros; a source
+    repeated at distance 65,535 (one match) and 65,536 (out of reach);
+    sources of 0, 12 and 13 bytes; noise that repeats part of its
+    prefix."""
+    x = text[100_000:101_500]
+    pre = noise_bytes(4_000, 2)
+    return {
+        "1-byte prefix": (text[:1], text[1:2_001]),
+        "4 KB prefix": (text[:4_096], text[4_096:7_096]),
+        "65,535-byte prefix": (text[:65_535], text[65_535:68_535]),
+        "zeros prefix": (bytes(4_096), text[:2_000] + bytes(300)),
+        "repeat at distance 65,535": (x + noise_bytes(65_535 - len(x), 1),
+                                      x),
+        "repeat at distance 65,536": (x + noise_bytes(65_536 - len(x), 1),
+                                      x),
+        "0-byte source": (text[:5_000], b""),
+        "12-byte source": (text[:5_000], text[5_000:5_012]),
+        "13-byte source": (text[:5_000], text[5_000:5_013]),
+        "noise": (pre, noise_bytes(1_000, 3) + pre[500:1_500]
+                  + noise_bytes(700, 4)),
+    }
+
+
+def hc_prefixed_batch(dev):
+    """1,024 rows [block i | block i + 1] of the corpus's 64 KB blocks (the
+    first 64 MiB + 64 KB of it), the first block the prefix: (rows,
+    src_lens, window_lens) on ``dev``."""
+    import torch
+    text = real_text_corpus(CORPUS_BYTES + W)
+    blocks = torch.frombuffer(bytearray(text), dtype=torch.uint8) \
+        .reshape(-1, W).to(dev)
+    return prefix_rows(blocks)
+
+
+def hc_api_calls(corpus: bytes):
+    """Step 16's calls: (what, fn), fn(device, check) returning what the
+    calls gave.  With ``check``, fn also decodes each result on ``device``
+    through the port's decoders (kernels D and E) and holds it against the
+    input (SmokeFailure)."""
+    from lz4_tpu_torch import block as B
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import frame as F
+    from lz4_tpu_torch import hc as H
+    from lz4_tpu_torch import stream as S
+    from lz4_tpu_torch.frame import FramePreferences
+
+    def need(ok, what):
+        if not ok:
+            raise SmokeFailure(f"hc api phase: {what}")
+
+    calls = []
+    base = 30 << 20
+    for n in HC_API_SIZES:
+        s, d = corpus[base:base + n], corpus[base - W:base]
+        base += n
+
+        def one_shot(dev, check, s=s, d=d, n=n):
+            c0 = H.compress_hc_block(s, device=dev)
+            c1 = H.compress_hc_block(s, dict_=d, device=dev)
+            res = (c0, c1, H.compress_hc_block(s, capacity=len(c0) - 1,
+                                               device=dev),
+                   H.compress_hc_dest_size(s, len(c0) // 3, device=dev),
+                   H.compress_hc_dest_size(s, len(c1) // 2, dict_=d,
+                                           device=dev))
+            if check:
+                (t1, b1), (t2, b2) = res[3:]
+                need(B.decompress_safe(c0, n, device=dev) == s
+                     and B.decompress_safe(c1, n, dict_=d, device=dev) == s
+                     and res[2] == b"",
+                     f"an HC block of {n} bytes does not round-trip")
+                need(len(b1) <= len(c0) // 3 and len(b2) <= len(c1) // 2
+                     and 0 < t1 < n and 0 < t2 < n
+                     and B.decompress_safe(b1, t1, device=dev) == s[:t1]
+                     and B.decompress_safe(b2, t2, dict_=d, device=dev)
+                     == s[:t2], f"an HC destSize block of {n} bytes passes "
+                     "its capacity or does not round-trip")
+            return res
+        calls.append((f"compress_hc_block and compress_hc_dest_size on "
+                      f"{n >> 10} KB, with and without a 64 KB dict_",
+                      one_shot))
+
+    rng = random.Random(16)
+    sizes = [rng.randint(4 << 10, 96 << 10) for _ in range(API_CHUNKS)]
+    ends = [sum(sizes[:i + 1]) for i in range(API_CHUNKS)]
+    text = corpus[40 << 20:(40 << 20) + ends[-1]]
+    chunks = [text[e - z:e] for e, z in zip(ends, sizes)]
+    for discipline in ("double buffer", "ring buffer"):
+        def session(dev, check, discipline=discipline, k=API_CHUNKS):
+            enc = H.HcCompressStream(device=dev)
+            dec = S.BlockDecompressStream(corpus[:W], device=dev)
+            enc.load_dict(corpus[:W])
+            slots = [bytearray(96 << 10), bytearray(96 << 10)]
+            ring, at = bytearray(256 << 10), 0
+            blocks, out = [], []
+            for i, chunk in enumerate(chunks[:k]):
+                if discipline == "double buffer":
+                    slots[i % 2][:len(chunk)] = chunk
+                    view = bytes(slots[i % 2][:len(chunk)])
+                else:
+                    at = 0 if at + len(chunk) > len(ring) else at
+                    ring[at:at + len(chunk)] = chunk
+                    view = bytes(ring[at:at + len(chunk)])
+                    at += len(chunk)
+                if i % 8 == 7:      # limited output: fails, keeps the window
+                    need(enc.compress_continue(view, capacity=1) == b"",
+                         "a block fit in one byte")
+                blocks.append(enc.compress_continue(view))
+                out.append(dec.decompress_continue(blocks[-1], len(view)))
+            if check:
+                need(b"".join(out) == text[:ends[k - 1]]
+                     and enc.save_dict() == (corpus[:W] + text[:ends[k - 1]])[
+                         -W:], f"the {discipline} HC session does not "
+                     "round-trip or its window differs")
+            return blocks, enc.save_dict()
+        calls.append((f"an HcCompressStream session of {API_CHUNKS} chunks "
+                      f"of 4-96 KB ({discipline})", session))
+
+    for bsid in (4, 7):
+        def frame_call(dev, check, bsid=bsid):
+            prefs = FramePreferences(block_size_id=bsid, level=9,
+                                     content_checksum=True)
+            if bsid == 4:           # streamed in updates of 1 KB-3 MiB
+                rng = random.Random(19)
+                comp = F.FrameCompressor(prefs, device=dev)
+                parts, pos = [comp.begin()], 0
+                while pos < len(corpus):
+                    k = rng.randint(1 << 10, 3 << 20)
+                    parts.append(comp.update(corpus[pos:pos + k]))
+                    pos += k
+                frame = b"".join(parts + [comp.end()])
+            else:
+                frame = F.compress_frame(corpus, prefs, device=dev)
+            if check:
+                need(not F.get_frame_info(frame).block_independent
+                     and F.decompress_frame(frame, device=dev)
+                     == (corpus, len(frame))
+                     and D.decompress_frame_device(frame, device=dev)
+                     == (corpus, len(frame)), f"the linked -B{bsid} HC frame "
+                     "is not linked or does not round-trip")
+            return frame
+        calls.append((f"FrameCompressor level 9, linked -B{bsid}, on the "
+                      f"{len(corpus) >> 20} MiB corpus", frame_call))
+    return calls
+
+
+def hc_api_phase(corpus: bytes, dev):
+    """Step 16, after the counters were reset: every call of
+    ``hc_api_calls`` on the card, its results decoded on the card and held
+    against the input.  Returns (what the calls gave, their walls)."""
+    import torch
+    results, walls = [], {}
+    for what, fn in hc_api_calls(corpus):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(fn(dev, True))
+        walls[what] = time.perf_counter() - t0
+        log(f"[hc-api] {what}: {walls[what]:.3f} s on the card, decoded "
+            "byte-exact")
+    return results, walls
+
+
+def hc_api_plain_check(corpus: bytes, results) -> None:
+    """A sample of step 16 again through the plain route on the CPU: the
+    one-shot calls on 4 KB and 64 KB and the first HC_API_SAMPLE chunks of
+    the double-buffer session must give the card's bytes (tolerance 0)."""
+    calls = hc_api_calls(corpus)
+    for k in range(2):
+        t0 = time.perf_counter()
+        if calls[k][1]("cpu", False) != results[k]:
+            raise SmokeFailure(f"hc api phase: {calls[k][0]} differs from "
+                               "the plain route on the CPU")
+        log(f"[hc-api] {calls[k][0]}: equal to the plain route on the CPU "
+            f"({time.perf_counter() - t0:.1f} s)")
+    at = len(HC_API_SIZES)
+    t0 = time.perf_counter()
+    blocks, _ = calls[at][1]("cpu", False, k=HC_API_SAMPLE)
+    if blocks != results[at][0][:HC_API_SAMPLE]:
+        raise SmokeFailure("hc api phase: the stream session's first blocks "
+                           "differ from the plain route on the CPU")
+    log(f"[hc-api] the first {HC_API_SAMPLE} blocks of {calls[at][0]}: equal "
+        f"to the plain route on the CPU ({time.perf_counter() - t0:.1f} s)")
+
+
+def hc_api_times(corpus: bytes, dev) -> dict:
+    """Step 16's per-call times at 4 KB and 64 KB (``call_times``).  Before
+    each call to the stream or the frame compressor their window is set
+    back to the 64 KB before the chunk (outside the timed span), so every
+    timed call compresses the same chunk behind its real history: a chunk
+    timed again and again behind itself would find it whole in the
+    window."""
+    from lz4_tpu_torch import frame as F
+    from lz4_tpu_torch import hc as H
+    from lz4_tpu_torch.frame import FramePreferences
+
+    out = {}
+    base = 44 << 20
+    for n in HC_API_TIMED:
+        s, d = corpus[base:base + n], corpus[base - W:base]
+        cap = len(H.compress_hc_block(s, device=dev)) // 2
+        enc = H.HcCompressStream(device=dev)
+        fc = []
+
+        def new_frame():
+            fc[:] = [F.FrameCompressor(FramePreferences(
+                block_size_id=4, level=9, auto_flush=True), device=dev)]
+            fc[0].begin()
+            fc[0].update(d)
+
+        fns = {
+            "compress_hc_block": (lambda: H.compress_hc_block(s, device=dev),
+                                  None),
+            "compress_hc_block (64 KB dict_)": (lambda: H.compress_hc_block(
+                s, dict_=d, device=dev), None),
+            "compress_hc_dest_size (half the block)":
+                (lambda: H.compress_hc_dest_size(s, cap, device=dev), None),
+            "HcCompressStream.compress_continue":
+                (lambda: enc.compress_continue(s), lambda: enc.load_dict(d)),
+            "FrameCompressor.update (level 9, linked, auto_flush)":
+                (lambda: fc[0].update(s), new_frame),
+        }
+        for name, (fn, setup) in fns.items():
+            t = call_times(fn, n, reps=5, setup=setup)
+            out.setdefault(name, {})[f"{n >> 10} KB"] = t
+            log(f"[hc-api] {name} on {n >> 10} KB: {t['wall_us']:.1f} us a "
+                f"call ({t['mbs']:.1f} MB/s), kernels {t['kernel_us']:.1f} "
+                f"us, CUDA events around the call {t['event_us']:.1f} us")
+    return out
+
+
 # -- the destSize and checksum path (kernels H, J, K, D resumable) -----------
 DS_SAMPLE_ROWS = 8                 # batch rows held against the plain versions
 DS_SMALL_CAPS = (1, 2, 5, 6, 10, 17)
@@ -1218,21 +1482,30 @@ def kernel_b_rows(corpus: bytes):
     return rows, lens
 
 
-def device_ms(fn, reps: int = 5) -> dict:
+def device_ms(fn, reps: int = 5, setup=None) -> dict:
     """Device ms per launch of each kernel ``fn`` launches, from
     torch.profiler's CUDA activity over ``reps`` calls (the kernels alone,
-    without the host work of their wrappers)."""
+    without the host work of their wrappers).  With ``setup``, each call
+    is preceded by ``setup()`` outside the profiled span."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if setup:
+        setup()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    profs = []
+    for _ in range(reps if setup else 1):
+        if setup:
+            setup()
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(1 if setup else reps):
+                fn()
+            torch.cuda.synchronize()
+        profs.append(prof)
     out = {}
-    for e in prof.key_averages():
+    for e in (e for prof in profs for e in prof.key_averages()):
         t = getattr(e, "device_time_total", None)
         if t is None:
             t = getattr(e, "cuda_time_total", 0)
@@ -1488,7 +1761,10 @@ def hc_times(root: Path) -> int:
     I on the corpus as 1,024 rows of 64 KB at level 9 (median of three
     launches) and on its first 64 rows at levels 3, 9 and 16 (median of
     three), its tables' time and peak device memory (``hc_sorted_tables``,
-    or ``hc_tables`` in a tree without it), the payloads' ratio; C on
+    or ``hc_tables`` in a tree without it), the payloads' ratio; in a tree
+    whose kernel I takes prefixes, also on 1,024 rows [64 KB prefix | 64 KB
+    source] (``hc_prefixed_batch``) at level 9, with their tables; each
+    batch's bound (bytes at 3.35 TB/s); C on
     kernel A's main-path chunk (64 blocks) and on HC's 1,024-row group,
     per call with its wrapper (CUDA events around 20 calls, so a host sync
     in the wrapper counts) and its kernels alone (the profiler).  Prints
@@ -1538,6 +1814,31 @@ def hc_times(root: Path) -> int:
         res[f"I_rows64_level{level}"] = sorted(
             event_ms(lambda: hck.hc_scan(*args))[1] for _ in range(3))[1]
     del tabs
+    if "window_lens" in inspect.signature(hck.hc_scan).parameters:
+        # 1,024 rows [64 KB prefix | 64 KB source]: 32-bit tables
+        pre = hc_prefixed_batch(cuda)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ptabs = tables(pre[0])
+        torch.cuda.synchronize()
+        res["tables_prefixed_peak_MiB"] = (torch.cuda.max_memory_allocated()
+                                           - base) / 2**20
+        res["tables_prefixed_ms"] = sorted(
+            event_ms(lambda: tables(pre[0]))[1] for _ in range(3))[1]
+        pout, polen = hck.hc_scan(*pre[:2], ptabs, 9, window_lens=pre[2])
+        res["ratio_prefixed_level9"] = int(polen.sum()) / (nrows * W)
+        res["I_prefixed_rows1024_level9"] = sorted(event_ms(
+            lambda: hck.hc_scan(*pre[:2], ptabs, 9,
+                                window_lens=pre[2]))[1] for _ in range(3))[1]
+        # slot is read only at source positions, perm in full
+        res["I_prefixed_bound_ms"] = (
+            pre[0].numel() + 4 * ptabs[0].numel() + 4 * int(pre[1].sum())
+            + 8 * nrows + int(polen.sum()) + 4 * nrows) / HBM_BYTES_PER_S * 1e3
+        del pre, ptabs, pout, polen
+    res["I_rows1024_bound_ms"] = (rows.numel() + 4 * rows.numel() + 4 * nrows
+                                  + int(olen.sum()) + 4 * nrows
+                                  ) / HBM_BYTES_PER_S * 1e3
     card, _ = make_linked_case(enc, cuda, corpus[4 << 20:8 << 20],
                                corpus[(4 << 20) - W:4 << 20], 8, zero=True)
     a_out, a_olen = enc.scan_linked(*card)
@@ -2171,6 +2472,40 @@ def api_plain_check(corpus: bytes, frames: dict, results) -> None:
             f"({time.perf_counter() - t0:.1f} s)")
 
 
+def call_times(fn, n: int, reps: int = 9, setup=None) -> dict:
+    """One call's wall (the median of ``reps`` calls after 2), the span of
+    CUDA events recorded around it, and the device time of the kernels it
+    launches (the profiler, per call over 5), in microseconds, with MB/s of
+    the wall for ``n`` bytes.  With ``setup``, each call is preceded by
+    ``setup()``, outside every timed span."""
+    import statistics
+
+    import torch
+    for _ in range(2):
+        if setup:
+            setup()
+        fn()
+    walls, spans = [], []
+    for _ in range(reps):
+        if setup:
+            setup()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        spans.append(a.elapsed_time(b))
+    wall = statistics.median(walls)
+    kernel = sum(device_ms(fn, reps=5, setup=setup).values())
+    return {"wall_us": wall * 1e6, "kernel_us": kernel * 1e3,
+            "event_us": statistics.median(spans) * 1e3,
+            "mbs": n / 1e6 / wall}
+
+
 def api_times(corpus: bytes, dev, card: str) -> dict:
     """Step 15's per-call times at 4 KB and 64 KB: each function's wall
     (the median of 9 calls after 2), the span of CUDA events recorded
@@ -2181,10 +2516,6 @@ def api_times(corpus: bytes, dev, card: str) -> dict:
     behind a window from the host (``decode_stream_runs``, what
     FrameDecompressor runs) and kernel D's linked mode behind a window on
     the device (``decode_blocks_linked``)."""
-    import statistics
-
-    import torch
-
     from lz4_tpu_torch import block as B
     from lz4_tpu_torch import device as D
     from lz4_tpu_torch import frame as F
@@ -2193,26 +2524,7 @@ def api_times(corpus: bytes, dev, card: str) -> dict:
     from lz4_tpu_torch.kernels.common import to_host
     from lz4_tpu_torch.kernels.decode_kernel import decode_blocks_linked
 
-    def timed(fn, n):
-        for _ in range(2):
-            fn()
-        walls, spans = [], []
-        for _ in range(9):
-            torch.cuda.synchronize()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            a.record()
-            fn()
-            b.record()
-            walls.append(time.perf_counter() - t0)
-            torch.cuda.synchronize()
-            spans.append(a.elapsed_time(b))
-        wall = statistics.median(walls)
-        kernel = sum(device_ms(fn, reps=5).values())
-        return {"wall_us": wall * 1e6, "kernel_us": kernel * 1e3,
-                "event_us": statistics.median(spans) * 1e3,
-                "mbs": n / 1e6 / wall}
+    timed = call_times
 
     out = {"card": card, "calls": {}, "linked_routes": {}}
     for n in API_TIMED:
@@ -4231,6 +4543,91 @@ def main() -> int:
         f"{sorted(four_ms)[1]:.3f} ms; {MESH_SG_LISTS} single-list launches "
         f"{single_ms:.3f} ms; plain version {plain_ms:.1f} ms")
     del k, p, b_card, b_rows
+    # -- 3l. kernel I behind prefixes: small cases, corpus rows, times -------
+    def cmp_hc_prefixed(what, args_h, level, serial=True):
+        """Kernel I behind prefixes against its plain version (payloads,
+        olen and tails) and the serial walk, at tolerance 0."""
+        rows_h, lens_h, wls_h = args_h
+        args = [t.to(cuda) for t in args_h]
+        cmp_tails("encode_hc", f"{what}, level {level}",
+                  hck.encode_blocks_hc(*args[:2], level, window_lens=args[2]),
+                  hck.encode_blocks_hc(*args[:2], level, tails=True,
+                                       window_lens=args[2]),
+                  hck.encode_blocks_hc(rows_h, lens_h, level, tails=True,
+                                       window_lens=wls_h))
+        if serial:
+            cmp_rows("encode_hc", f"{what}, level {level}, serial walk",
+                     *hck.encode_blocks_hc(*args[:2], level,
+                                           window_lens=args[2]),
+                     *hck.hc_scan_serial(rows_h, lens_h, level,
+                                         window_lens=wls_h))
+
+    cases = hc_prefix_cases(corpus)
+    narrow = [k for k, (p_, s_) in cases.items() if len(p_ + s_) <= W]
+    for names in (narrow, [k for k in cases if k not in narrow]):
+        args_h = ds_rows([cases[k][1] for k in names],
+                         [cases[k][0] for k in names], "cpu")
+        what = (f"{len(names)} rows behind prefixes, "
+                f"{hck.table_dtype(args_h[0].shape[1])} tables")
+        for level in HC_PREFIX_SMALL_LEVELS:
+            cmp_hc_prefixed(what, args_h, level)
+        # rows that start at any byte of their storage
+        for off in (1, 3):
+            store = torch.zeros(args_h[0].numel() + 4, dtype=torch.uint8,
+                                device=cuda)
+            view = store[off:off + args_h[0].numel()].view(args_h[0].shape)
+            view.copy_(args_h[0].to(cuda))
+            cmp_rows("encode_hc", f"{what}, at storage offset {off}, "
+                     "level 9", *hck.encode_blocks_hc(
+                         view, args_h[1].to(cuda), 9,
+                         window_lens=args_h[2].to(cuda)),
+                     *hck.encode_blocks_hc(*args_h[:2], 9,
+                                           window_lens=args_h[2]))
+    # the corpus as 1,024 rows [64 KB | 64 KB]: sampled rows at each level,
+    # the whole batch timed at level 9 beside the independent rows
+    pre_args = hc_prefixed_batch(cuda)
+    nrows = pre_args[0].shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pre_tabs = hck.hc_sorted_tables(pre_args[0])
+    torch.cuda.synchronize()
+    stats["encode_hc"]["table_peak_bytes_prefixed"] = \
+        torch.cuda.max_memory_allocated() - base
+    stats["encode_hc"]["table_ms_prefixed"] = time_card(
+        lambda: hck.hc_sorted_tables(pre_args[0]), reps=2)
+    sample = [round(i * (nrows - 1) / (HC_PREFIX_ROWS - 1))
+              for i in range(HC_PREFIX_ROWS)]
+    idx = torch.tensor(sample, device=cuda)
+    sampled = [t[idx].cpu().contiguous() for t in pre_args]
+    for level in HC_PREFIX_LEVELS:
+        cmp_hc_prefixed(f"corpus rows {sample} of {nrows} behind 64 KB "
+                        "prefixes", sampled, level, serial=level == 9)
+    k = hck.hc_scan(*pre_args[:2], pre_tabs, 9, window_lens=pre_args[2])
+    pre_ms = time_rounds(lambda: hck.hc_scan(
+        *pre_args[:2], pre_tabs, 9, window_lens=pre_args[2]))
+    stats["encode_hc"].update(ms_prefixed=sorted(pre_ms)[1],
+                              ms_prefixed_rounds=pre_ms,
+                              ratio_prefixed=int(k[1].sum()) / (nrows * W))
+    # rows, the 32-bit perm, slot at the source positions (the kernel
+    # reads slot[q] only where it parses) and the lengths in; payloads and
+    # lengths out
+    pre_in = (pre_args[0].numel() + 4 * pre_tabs[0].numel()
+              + 4 * int(pre_args[1].sum()) + 8 * nrows)
+    pre_out = int(k[1].sum()) + 4 * nrows
+    stats["encode_hc"].update(
+        bytes_in_prefixed=pre_in, bytes_out_prefixed=pre_out,
+        bound_ms_prefixed=(pre_in + pre_out) / HBM_BYTES_PER_S * 1e3)
+    log(f"[time] encode_hc (kernel I), {nrows} rows [64 KB prefix | 64 KB "
+        f"source], level 9: rounds {[round(t, 3) for t in pre_ms]} ms "
+        f"({nrows * W / 1e3 / sorted(pre_ms)[1]:.1f} MB/s, bound "
+        f"{stats['encode_hc']['bound_ms_prefixed']:.4f} ms), ratio of the "
+        f"payloads {stats['encode_hc']['ratio_prefixed']:.6f}; tables "
+        f"{stats['encode_hc']['table_ms_prefixed']:.3f} ms, "
+        f"{stats['encode_hc']['table_peak_bytes_prefixed'] / 2**20:.1f} MiB "
+        f"peak; the independent rows {stats['encode_hc']['ms']:.3f} ms")
+    del pre_args, pre_tabs, sampled, k, cases
+
     # the mesh phase's rows, encoded by one unsharded call
     mesh_ref = enc.encode_blocks(*corpus_rows(corpus, cuda))
 
@@ -4378,6 +4775,27 @@ def main() -> int:
     del api_results, api_frames
     api_record = {"walls_s": api_walls, **api_times(corpus, cuda, card_line)}
 
+    # -- 16. the HC API: hc.py and linked HC frames --------------------------
+    common.reset_counts()
+    hc_results, hc_walls = hc_api_phase(corpus, cuda)
+    counts["hc_api"] = phase_counts("hc api", [
+        "encode_hc", "decode_batch", "decode_linked", "decode_stream"])
+    frames = hc_results[-2:]
+    hc_api_plain_check(corpus, hc_results)
+    del hc_results
+    hc_api_record = {
+        "card": card_line, "walls_s": hc_walls,
+        "frames": {f"-B{b} linked level 9": {
+            "ratio": len(f) / len(corpus), "frame_bytes": len(f)}
+            for b, f in zip((4, 7), frames)},
+        "calls": hc_api_times(corpus, cuda)}
+    log("[hc-api] linked level-9 frames of the corpus: " + ", ".join(
+        f"{k} ratio {v['ratio']:.6f}"
+        for k, v in hc_api_record["frames"].items())
+        + f" (compress_frame_device_hc, independent 64 KB blocks: "
+        f"{hc_times['-9']['ratio']:.6f} as a file)")
+    del frames
+
     unbound = [k for k in KERNELS if "bound_ms" not in stats[k]]
     if unbound:
         raise SmokeFailure(f"no bound computed for {unbound}")
@@ -4390,7 +4808,7 @@ def main() -> int:
         "sg_phase": sg_times, "hc_phase": hc_times,
         "destsize_phase": ds_times, "legacy_phase": legacy_times,
         "envelope_phase": envelope_times, "mesh_phase": mesh_times,
-        "api_phase": api_record}
+        "api_phase": api_record, "hc_api_phase": hc_api_record}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,10 +6,9 @@ The twin of ``examples/compress_functions.py``: every compression entry
 point of ``lz4_tpu_torch.block`` on one buffer (kernel B for
 ``compress_default`` and ``compress_fast``, kernel H for
 ``compress_dest_size``), each round-tripped through ``decompress_safe``
-(kernel D), and HC at level 9 through ``device.compress_frame_device_hc``
-(kernel I; the port has no one-shot HC block call yet).  The default
-device is the card, and the example raises without one; ``--device cpu``
-runs the kernels' plain versions.
+(kernel D), and ``hc.compress_hc_block`` at level 9 (kernel I).  The
+default device is the card, and the example raises without one;
+``--device cpu`` runs the kernels' plain versions.
 """
 import argparse
 import sys
@@ -21,8 +20,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from lz4_tpu_torch.block import (compress_default, compress_dest_size,
                                  compress_fast, decompress_safe,
                                  decompress_safe_partial)
-from lz4_tpu_torch.device import compress_frame_device_hc
-from lz4_tpu_torch.frame import FramePreferences, decompress_frame
+from lz4_tpu_torch.hc import compress_hc_block
 from lz4_tpu_torch.kernels.common import resolve_device
 
 
@@ -52,20 +50,20 @@ def main(argv=None) -> int:
     c_ds, consumed = compress_dest_size(src, budget, device=dev)
     print(f"  {'compress_dest_size':28s} consumed {consumed} of "
           f"{len(src)} src bytes into {len(c_ds)} (budget {budget})")
-    prefs = FramePreferences(block_size_id=4, block_independent=True)
-    f_hc = run("compress_frame_device_hc(9)", lambda s:
-               compress_frame_device_hc(s, prefs, level=9, device=dev), src)
+    c_hc = run("compress_hc_block(level=9)", lambda s: compress_hc_block(
+        s, level=9, device=dev), src)
 
     checks = (decompress_safe(c_def, len(src), device=dev) == src,
               decompress_safe(c_fast, len(src), device=dev) == src,
               decompress_safe(c_ds, consumed, device=dev) == src[:consumed],
-              decompress_frame(f_hc, device=dev)[0] == src,
+              decompress_safe(c_hc, len(src), device=dev) == src,
               decompress_safe_partial(c_def, 100, device=dev) == src[:100])
     if not all(checks):
         raise RuntimeError(f"a round trip differs: {checks}")
     print("decoders:\n  decompress_safe round-trips every entry point; "
           "decompress_safe_partial(100) OK")
-    print(f"  hc frame vs default block: {len(f_hc)} vs {len(c_def)} bytes")
+    print(f"  hc vs default size: {len(c_hc)} vs {len(c_def)} "
+          f"({100 * len(c_hc) / len(c_def):.1f}%)")
     return 0
 
 

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernel of lz4_tpu/kernels/hc_kernel.py,
 // _make_hc_kernel (launched by _encode_blocks_hc, hc_kernel.py:329): one
-// independent block of at most 64 KB per row, a match finder over the
+// block of at most 64 KB per row, a match finder over the
 // 4-byte and 8-byte candidate chains, at most max_attempts candidates per
 // position, a lossless beat gate, the switch to the 8-byte chain once the
 // best score reaches 8 + p - anchor, the stop at SUFFICIENT_LEN, and an
@@ -12,10 +12,23 @@
 //
 // The chains come from one stable sort of each row's LE32 keys
 // (kernels/hc_kernel.py hc_sorted_tables: perm, the positions in key order,
-// and slot, its inverse, both 16-bit).  The 4-byte chain of p is the run of
+// and slot, its inverse).  The 4-byte chain of p is the run of
 // equal keys just before slot[p], newest first, so a warp reads 32
 // candidates with one load and chases no pointer; the 8-byte chain is that
 // run filtered on bytes 4..7.
+//
+// A row may hold a prefix, [prefix | source] (window_lens, as kernel H has
+// it): the prefix's positions are in the tables, so a candidate may lie in
+// it, but the parse starts at the source's first byte and the block is the
+// source's alone.  A prefix makes the run before slot[p] hold positions
+// more than 65,535 bytes back; the run is newest first, so the first such
+// candidate ends the chain, as the distance test ends the serial walk, and
+// the lanes that hold a candidate stay a prefix of the warp (only rows past
+// 64 KB can hold such a candidate, so only they test for it).  A 64 KB
+// prefix and a 64 KB source need 17-bit positions.  The tables keep 16
+// bits up to rows of 64 KB, so the independent rows keep their memory and
+// time, and take 32 bits past it: the kernel is a template on the tables'
+// index type, and the entry point picks the instance (`wide`).
 //
 // What bounds it on the card: the latency of the serial walk.  The TPU
 // kernel, and this kernel before, walked a chain one dependent load per
@@ -53,6 +66,7 @@ constexpr int P = 2;  // search warps of a row's CTA
 constexpr int WARP = 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int SUFFICIENT_LEN = 64;
+constexpr int MAX_DISTANCE = 65535;
 
 // A row read as aligned words: w is the word that holds the row's byte 0,
 // at byte off of it.
@@ -62,8 +76,9 @@ struct Row {
 };
 
 // The LE32 word of bytes pos..pos+3, from the two aligned words that hold
-// them.  Every caller keeps pos <= n - 5, so the second word starts at a
-// byte of the row (pos + 4 at the latest) and every word read holds one.
+// them.  Every caller keeps pos <= end - 5 (end: the source's end in the
+// row), so the second word starts at a byte of the row (pos + 4 at the
+// latest) and every word read holds one.
 __device__ __forceinline__ uint32_t ld32(Row r, int pos) {
   pos += r.off;
   const int i = pos >> 2;
@@ -83,7 +98,7 @@ __device__ __forceinline__ int low_run(uint32_t diff) {
 
 // Forward match length of (c, p), the first 4 bytes known equal, capped at
 // matchlimit - p; 8 bytes a step.  Every word read ends below
-// matchlimit + 4 = n - 1.
+// matchlimit + 4 = end - 1.
 __device__ __forceinline__ int extend(Row w, int c, int p,
                                       int matchlimit) {
   int ml = 4;
@@ -125,8 +140,9 @@ struct Hit {
 
 // The widest match at p, searched by one warp (every lane returns it).
 // s0 = slot[p]: the candidates are perm[s0 - 1], perm[s0 - 2], ... while
-// they lie before p and share its 4 bytes.
-__device__ Hit search(Row w, const uint16_t* perm, int s0, int p,
+// they lie before p, at most MAX_DISTANCE back, and share its 4 bytes.
+template <typename Idx>
+__device__ Hit search(Row w, const Idx* perm, int s0, int p,
                       int anchor, int matchlimit, int max_attempts,
                       int lane) {
   const uint32_t vp = ld32(w, p), vp4 = ld32(w, p + 4);
@@ -141,8 +157,11 @@ __device__ Hit search(Row w, const uint16_t* perm, int s0, int p,
     int c = held;
     // the next round's candidates, loaded while this round runs
     held = idx - WARP >= 0 ? (int)perm[idx - WARP] : p;
-    // a lane past the run reads at p and drops what it reads
+    // a lane past the run reads at p and drops what it reads; in a row of
+    // at most 64 KB (16-bit tables) no candidate lies farther back than
+    // MAX_DISTANCE, so only the 32-bit instance tests the distance
     bool valid = c < p;
+    if constexpr (sizeof(Idx) > 2) valid = valid && p - c <= MAX_DISTANCE;
     c = valid ? c : p;
     const uint32_t vc = ld32(w, c), vc4 = ld32(w, c + 4);
     const int g = min(max(bs - 3, 0), gmax);
@@ -193,26 +212,31 @@ __device__ Hit search(Row w, const uint16_t* perm, int s0, int p,
   return {bs, bf, bpos};
 }
 
-// Kernel I: one CTA of P warps per independent row; `tails` ([B] int32, or
-// null) takes each row's offset of its final literal run's token.
+// Kernel I: one CTA of P warps per row; `wlen` ([B] int32, or null for
+// none) gives each row's prefix, clamped to [0, NS], and the source length
+// is clamped to [0, NS - prefix]; `tails` ([B] int32, or null) takes each
+// row's offset of its final literal run's token.
+template <typename Idx>
 __global__ void __launch_bounds__(P* WARP)
-    encode_hc_kernel(const uint8_t* src, int NS, const uint16_t* perm,
-                     const uint16_t* slot, const int32_t* slen, uint8_t* out,
-                     int M, int32_t* olen, int32_t* tails, int max_attempts) {
+    encode_hc_kernel(const uint8_t* src, int NS, const Idx* perm,
+                     const Idx* slot, const int32_t* slen,
+                     const int32_t* wlen, uint8_t* out, int M, int32_t* olen,
+                     int32_t* tails, int max_attempts) {
   __shared__ Hit res[2][P];
   const int row = blockIdx.x, warp = threadIdx.x / WARP,
             lane = threadIdx.x % WARP;
-  const int n = min(max(slen[row], 0), NS);
+  const int start = wlen ? min(max(wlen[row], 0), NS) : 0;
+  const int end = start + min(max(slen[row], 0), NS - start);
   const uint8_t* buf = src + (long long)row * NS;
   const int off = (int)((uintptr_t)buf & 3);
   const Row w = {(const uint32_t*)(buf - off), off};
-  const uint16_t* pr = perm + (long long)row * NS;
-  const uint16_t* sl = slot + (long long)row * NS;
+  const Idx* pr = perm + (long long)row * NS;
+  const Idx* sl = slot + (long long)row * NS;
   uint8_t* o = out + (long long)row * M;
-  int op = 0, anchor = 0;
-  if (n >= 13) {
-    const int mflimit = n - 12, matchlimit = n - 5;
-    int ip = 0, cur = 0, t = 0;
+  int op = 0, anchor = start;
+  if (end - start >= 13) {
+    const int mflimit = end - 12, matchlimit = end - 5;
+    int ip = start, cur = start, t = 0;
     bool has = false;  // a match found at cur, waiting on the lazy test
     Hit pend = {0, 0, 0};
     while (true) {
@@ -221,7 +245,7 @@ __global__ void __launch_bounds__(P* WARP)
       if (!took) {
         const int q = q0 + warp;
         if (q <= mflimit) {
-          const Hit h = search(w, pr, sl[q], q, anchor, matchlimit,
+          const Hit h = search(w, pr, (int)sl[q], q, anchor, matchlimit,
                                max_attempts, lane);
           if (lane == 0) res[t][warp] = h;
         }
@@ -259,9 +283,9 @@ __global__ void __launch_bounds__(P* WARP)
     }
   }
   if (warp == 0) {
-    lz4tt::warp_emit_final(o, op, buf + anchor, n - anchor, lane);
+    lz4tt::warp_emit_final(o, op, buf + anchor, end - anchor, lane);
     if (lane == 0) {
-      olen[row] = op + lz4tt::final_run_size(n - anchor);
+      olen[row] = op + lz4tt::final_run_size(end - anchor);
       if (tails) tails[row] = op;
     }
   }
@@ -269,13 +293,22 @@ __global__ void __launch_bounds__(P* WARP)
 
 }  // namespace
 
-extern "C" int lz4tt_encode_hc(const uint8_t* src, int NS,
-                               const uint16_t* perm, const uint16_t* slot,
-                               const int32_t* slen, uint8_t* out, int M,
-                               int32_t* olen, int32_t* tails, int B,
-                               int max_attempts, void* cuda_stream) {
-  if (B > 0)
-    encode_hc_kernel<<<B, P * WARP, 0, (cudaStream_t)cuda_stream>>>(
-        src, NS, perm, slot, slen, out, M, olen, tails, max_attempts);
+// `perm` and `slot` are uint16_t tables (wide == 0: rows of at most 64 KB)
+// or int32_t ones (wide != 0).
+extern "C" int lz4tt_encode_hc(const uint8_t* src, int NS, const void* perm,
+                               const void* slot, int wide,
+                               const int32_t* slen, const int32_t* wlen,
+                               uint8_t* out, int M, int32_t* olen,
+                               int32_t* tails, int B, int max_attempts,
+                               void* cuda_stream) {
+  const cudaStream_t s = (cudaStream_t)cuda_stream;
+  if (B > 0 && wide)
+    encode_hc_kernel<int32_t><<<B, P * WARP, 0, s>>>(
+        src, NS, (const int32_t*)perm, (const int32_t*)slot, slen, wlen,
+        out, M, olen, tails, max_attempts);
+  else if (B > 0)
+    encode_hc_kernel<uint16_t><<<B, P * WARP, 0, s>>>(
+        src, NS, (const uint16_t*)perm, (const uint16_t*)slot, slen, wlen,
+        out, M, olen, tails, max_attempts);
   return (int)cudaGetLastError();
 }

@@ -75,7 +75,9 @@ CHUNK = 4 << 20          # DeviceFrameCompressor chunk of compress_frame_device
 CHUNKED_ABOVE = 8 << 20  # inputs larger than this are compressed in chunks
 HC_GROUP_ROWS = 1024     # 64 MiB of blocks per launch of kernel I (rows,
                          # 16-bit tables and output: about 0.4 GB; the
-                         # tables' sort peaks at 0.63 GiB per group)
+                         # tables' sort peaks at 0.63 GiB per group; rows
+                         # [64 KB | 64 KB] with 32-bit tables: about 1.3
+                         # GB, the sort's peak 1.75 GiB)
 # legacy compress: the slice each block holds (8 MB; tests shrink it, to a
 # multiple of 64 KB); and the input per launch of kernel A in
 # chain_payloads (its candidate tables take about 82 bytes of device memory
@@ -499,13 +501,12 @@ def _legacy_fast_blocks(data: bytes, acceleration: int, min_match: int,
     return [merge_payloads(views, tails) for views, tails in groups]
 
 
-def _legacy_hc_blocks(data: bytes, level: int, dev: torch.device,
-                      piece: Optional[int] = None) -> List[bytes]:
-    """Each ``piece`` (a multiple of 64 KB; LEGACY_SLICE by default) of
-    ``data`` as independent 64 KB rows through kernel I at ``level``, whole
-    pieces in groups of about HC_GROUP_ROWS rows, each piece's payloads
-    joined into one block."""
-    per_slice = (piece or LEGACY_SLICE) // BLOCK
+def _legacy_hc_blocks(data: bytes, level: int,
+                      dev: torch.device) -> List[bytes]:
+    """Each LEGACY_SLICE of ``data`` as independent 64 KB rows through
+    kernel I at ``level``, whole slices in groups of about HC_GROUP_ROWS
+    rows, each slice's payloads joined into one block."""
+    per_slice = LEGACY_SLICE // BLOCK
     group = max(1, HC_GROUP_ROWS // per_slice) * per_slice
     rows_all = _split_blocks(data, BLOCK)
     blocks = []

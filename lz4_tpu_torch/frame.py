@@ -11,9 +11,11 @@ container; every block is coded on the device:
   256 KB by kernel B, packed by kernel C; linked blocks, and blocks over
   256 KB, by kernel A (each block one chain behind the 64 KB before it,
   joined; ``device.chain_payloads``); at level 3 and up by kernel I's
-  64 KB rows, joined per block, and a linked HC request warns and is made
-  block-independent.  The payloads are the kernels' parse, not the host
-  codec's, so they differ from ``lz4_tpu``'s.
+  64 KB pieces, each behind the 64 KB before it, joined per block
+  (``hc.hc_payloads``; a linked block's first piece behind the window of
+  the blocks before it, as ``lz4_tpu``'s host HC links them).  The
+  payloads are the kernels' parse, not the host codec's, so they differ
+  from ``lz4_tpu``'s.
 * ``FrameDecompressor`` is ``lz4_tpu``'s resumable state machine
   (``LZ4F_decompress``): ``feed`` never reads past what it needs, stages
   partial units, and returns what it consumed and the bytes it decoded.
@@ -38,7 +40,6 @@ from __future__ import annotations
 
 import dataclasses
 import struct
-import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -176,6 +177,13 @@ def _device():
     return device
 
 
+def _hc():
+    """The HC module, imported on first use (it imports the device
+    module)."""
+    from . import hc
+    return hc
+
+
 # ---------------------------------------------------------------------------
 # compression
 # ---------------------------------------------------------------------------
@@ -207,11 +215,6 @@ class FrameCompressor:
         self.device = resolve_device(device)
         self.prefs = dataclasses.replace(prefs) if prefs \
             else FramePreferences()
-        if self.prefs.level >= 3 and not self.prefs.block_independent:
-            warnings.warn("device HC emits block-independent frames; "
-                          "linked HC demoted to independent blocks",
-                          stacklevel=2)
-            self.prefs.block_independent = True
         self._block_size = spec.BLOCK_SIZES[self.prefs.resolved_bsid()]
         self._buf = b""          # pending (unemitted) plaintext
         self._window = None      # last <= 64 KB emitted, on the device
@@ -231,9 +234,10 @@ class FrameCompressor:
         last), and the window after them; changes no state."""
         dev, p, bs = _device(), self.prefs, self._block_size
         linked = not p.block_independent
-        window = None
         if p.level >= 3:
-            blocks = dev._legacy_hc_blocks(data, p.level, self.device, bs)
+            groups, window = _hc().hc_payloads(data, bs, self._window, linked,
+                                               p.level, self.device)
+            blocks = [dev.merge_payloads(v, t) for v, t in groups]
         elif not linked and bs <= MAX_BLOCK:
             rows, lens = dev.byte_rows(dev._split_blocks(data, bs), bs,
                                        self.device)
@@ -482,8 +486,10 @@ class FrameDecompressor:
             self.device, window=window)
         bad = np.nonzero(olen < 0)[0]
         if len(bad):
+            # an independent block has no history before it
             self._fail(payloads[bad[0]], min(
-                spec.WINDOW_SIZE, len(window) + int(olen[:bad[0]].sum())))
+                spec.WINDOW_SIZE, len(window) + int(olen[:bad[0]].sum()))
+                if linked else 0)
         parts, at = [], 0
         for n in olen.tolist():
             parts.append(content[at:at + n])

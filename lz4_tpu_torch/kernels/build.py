@@ -47,7 +47,8 @@ _SIGNATURES = {
                             _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "lz4tt_encode": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I,
                      _P, _I, _P, _I, _I, _I, _I, _P],
-    "lz4tt_encode_hc": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P],
+    "lz4tt_encode_hc": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I,
+                        _I, _P],
     "lz4tt_pack": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                    _P],
     "lz4tt_decode_linked": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I,

@@ -28,6 +28,13 @@ popcounts and a warp maximum, and P consecutive positions are searched at
 once (every search between two taken matches has the same anchor).
 ``hc_row_rounds_plain`` models that decomposition on the CPU.
 
+A row may hold a prefix: ``[prefix | source]``, as kernel H's rows do.
+The prefix's positions are in the chain tables, so a match may reach into
+it (at most 65,535 bytes back), but none of them is parsed: the parse
+starts at the source's first byte and the block is the source's alone.
+Rows of at most 64 KB keep 16-bit tables; wider rows (a 64 KB prefix and a
+64 KB source make 128 KB) take 32-bit ones.
+
 ``hc_scan`` launches ``csrc/hc.cu`` for tensors on the card and runs
 ``hc_row_rounds_plain`` for tensors on the CPU; ``encode_blocks_hc`` builds
 the tables and calls it.
@@ -45,9 +52,11 @@ from . import build
 from .common import (LAUNCHES, PLAIN_CALLS, check, le32_lanes, on_device,
                      use_kernel)
 from .encode_kernel import (_common_run, _emit_final, _emit_seq, _fill_rows,
-                            out_width)
+                            _final_run_size, _seq_size, out_width)
 
-MAX_BLOCK = 1 << 16           # one independent 64 KB block per row
+MAX_BLOCK = 1 << 16           # the widest row with 16-bit tables
+MAX_ROW = 2 * MAX_BLOCK       # the widest row: a 64 KB prefix, 64 KB source
+MAX_DISTANCE = 65535          # the farthest a match reaches back
 DEFAULT_LEVEL = 9
 SUFFICIENT_LEN = 64           # the walk stops once the best score reaches it
 LANES = 32                    # candidates per round: a warp's lanes
@@ -97,9 +106,15 @@ def _u16(t: torch.Tensor) -> torch.Tensor:
     return (t - ((t >> 15) << 16)).to(torch.int16)
 
 
+def table_dtype(ns: int) -> torch.dtype:
+    """The dtype of kernel I's tables for rows of ``ns`` bytes: int16
+    holding unsigned 16-bit positions up to 64 KB, int32 past it."""
+    return torch.int16 if ns <= MAX_BLOCK else torch.int32
+
+
 def hc_sorted_tables(rows: torch.Tensor):
     """Kernel I's tables for [B, NS] uint8 rows: ``(perm, slot)``, both
-    [B, NS] int16 holding unsigned 16-bit positions (NS <= 65536).
+    [B, NS] of ``table_dtype(NS)``.
 
     ``perm[b]`` is one stable sort of row b's val32 lanes (wrapping at the
     row end): the positions in key order, equal keys in position order.
@@ -109,83 +124,106 @@ def hc_sorted_tables(rows: torch.Tensor):
     sort's temporaries."""
     B, NS = rows.shape
     dev = rows.device
-    perm = torch.empty((B, NS), dtype=torch.int16, device=dev)
-    slot = torch.empty((B, NS), dtype=torch.int16, device=dev)
+    dtype = table_dtype(NS)
+    narrow = _u16 if dtype == torch.int16 else (lambda t: t)
+    perm = torch.empty((B, NS), dtype=dtype, device=dev)
+    slot = torch.empty((B, NS), dtype=dtype, device=dev)
     for g in range(0, B, TABLE_ROWS):
         r = rows[g:g + TABLE_ROWS]
         _, p = torch.sort(_val32_rows(r), dim=1, stable=True)
         pos = torch.arange(NS, device=dev).expand_as(p)
-        perm[g:g + TABLE_ROWS] = _u16(p)
-        slot[g:g + TABLE_ROWS] = _u16(torch.empty_like(p).scatter_(1, p,
-                                                                   pos))
+        perm[g:g + TABLE_ROWS] = narrow(p)
+        slot[g:g + TABLE_ROWS] = narrow(torch.empty_like(p).scatter_(1, p,
+                                                                     pos))
     return perm, slot
 
 
 def encode_blocks_hc(rows: torch.Tensor, src_lens: torch.Tensor,
-                     level: int = DEFAULT_LEVEL, tails: bool = False):
-    """HC-compress a batch of independent blocks.
+                     level: int = DEFAULT_LEVEL, tails: bool = False,
+                     window_lens: Optional[torch.Tensor] = None):
+    """HC-compress a batch of blocks, each behind an optional prefix.
 
     Args:
-      rows: [B, NS] uint8 rows, zero padded; NS <= 65536, a multiple of 128.
-      src_lens: [B] int32 source lengths (each <= NS).
+      rows: [B, NS] uint8 rows ``[prefix | source]``, zero padded; NS a
+        multiple of 128, at most MAX_ROW (128 KB).
+      src_lens: [B] int32 source lengths.
       level: clamped to 1..16; a walk tries at most 1 << (level - 1)
         candidates.
       tails: also return each row's offset of the token of its final
         literal-only sequence ([B] int32), as ``encode_blocks_linked``
         does.
+      window_lens: optional [B] int32 prefix lengths (none when absent):
+        row b's source starts at byte ``window_lens[b]``, and its matches
+        may reach into the bytes before it, at most 65,535 back.  Clamped
+        to the row as kernel H clamps them: window_lens to [0, NS],
+        src_lens to [0, NS - window_lens].
 
     Returns (out [B, M] uint8, olen [B] int32), M = 128-aligned
-    compress_bound(NS), and the tails when asked; only ``out[b, :olen[b]]``
-    is meaningful.  A row of length 0 still gets its one-byte block.
+    compress_bound(NS), and the tails when asked; ``out[b, :olen[b]]`` is
+    the source's block alone, which decodes with the prefix as its
+    dictionary.  A row of length 0 still gets its one-byte block.
     """
-    _check_rows(rows, src_lens)
-    return _scan(rows, src_lens, hc_sorted_tables(rows), level, tails)
+    _check_rows(rows, src_lens, window_lens)
+    return _scan(rows, src_lens, hc_sorted_tables(rows), level, tails,
+                 window_lens)
 
 
-def _check_rows(rows, src_lens) -> None:
+def _check_rows(rows, src_lens, window_lens=None) -> None:
     check(rows, "rows", torch.uint8, 2)
-    check(src_lens, "src_lens", torch.int32, 1)
     B, NS = rows.shape
     if NS % 128:
         raise ValueError("NS must be a multiple of 128")
-    if NS > MAX_BLOCK:
+    if NS > MAX_ROW:
         raise ValueError(f"block too large for the HC kernel ({NS})")
-    if src_lens.shape[0] != B:
-        raise ValueError("src_lens must be [B]")
+    for t, name in ((src_lens, "src_lens"), (window_lens, "window_lens")):
+        if t is not None:
+            check(t, name, torch.int32, 1)
+            if t.shape[0] != B:
+                raise ValueError(f"{name} must be [B]")
 
 
 def hc_scan(rows: torch.Tensor, src_lens: torch.Tensor, tables,
-            level: int = DEFAULT_LEVEL, tails: bool = False):
+            level: int = DEFAULT_LEVEL, tails: bool = False,
+            window_lens: Optional[torch.Tensor] = None):
     """Kernel I proper: the parse of ``encode_blocks_hc`` over the
     ``(perm, slot)`` tables of ``hc_sorted_tables``.  Launches csrc/hc.cu
     for tensors on the card, runs ``hc_row_rounds_plain`` for tensors on the
     CPU.  Returns as ``encode_blocks_hc`` does."""
-    _check_rows(rows, src_lens)
+    _check_rows(rows, src_lens, window_lens)
     perm, slot = tables
-    check(perm, "perm", torch.int16, 2)
-    check(slot, "slot", torch.int16, 2)
+    dtype = table_dtype(rows.shape[1])
+    check(perm, "perm", dtype, 2)
+    check(slot, "slot", dtype, 2)
     if perm.shape != rows.shape or slot.shape != rows.shape:
         raise ValueError("perm and slot must be [B, NS]")
-    return _scan(rows, src_lens, (perm, slot), level, tails)
+    return _scan(rows, src_lens, (perm, slot), level, tails, window_lens)
 
 
-def _scan(rows, src_lens, tables, level, tails=False):
+def _spans(src_lens, window_lens, NS):
+    """Each row's (prefix length, source length), clamped to the row."""
+    lens = src_lens.tolist()
+    wls = [0] * len(lens) if window_lens is None else window_lens.tolist()
+    return [(w, min(max(n, 0), NS - w))
+            for w, n in zip((min(max(w, 0), NS) for w in wls), lens)]
+
+
+def _scan(rows, src_lens, tables, level, tails=False, window_lens=None):
     """hc_scan on checked arguments."""
     perm, slot = tables
     B, NS = rows.shape
     M = out_width(NS)
     max_attempts = 1 << (max(1, min(int(level), 16)) - 1)
-    if not use_kernel(rows, src_lens, perm, slot):
+    extra = () if window_lens is None else (window_lens,)
+    if not use_kernel(rows, src_lens, perm, slot, *extra):
         PLAIN_CALLS["encode_hc"] += 1
         out = torch.zeros((B, M), dtype=torch.uint8)
         olen = torch.zeros((B,), dtype=torch.int32)
-        lens = src_lens.tolist()
         tail = []
         _fill_rows(out, olen, [
-            hc_row_rounds_plain(rows[b].numpy().tobytes(),
-                                min(max(lens[b], 0), NS), perm[b].numpy(),
-                                slot[b].numpy(), max_attempts, tails=tail)
-            for b in range(B)])
+            hc_row_rounds_plain(rows[b].numpy().tobytes(), n, perm[b].numpy(),
+                                slot[b].numpy(), max_attempts, tails=tail,
+                                start=w)
+            for b, (w, n) in enumerate(_spans(src_lens, window_lens, NS))])
         if tails:
             return out, olen, torch.tensor(tail, dtype=torch.int32)
         return out, olen
@@ -196,7 +234,9 @@ def _scan(rows, src_lens, tables, level, tails=False):
     with on_device(rows.device):
         err = build.kernels_lib().lz4tt_encode_hc(
             rows.data_ptr(), NS, perm.data_ptr(), slot.data_ptr(),
-            src_lens.data_ptr(), out.data_ptr(), M, olen.data_ptr(),
+            int(perm.dtype == torch.int32), src_lens.data_ptr(),
+            window_lens.data_ptr() if window_lens is not None else None,
+            out.data_ptr(), M, olen.data_ptr(),
             tail.data_ptr() if tails else None, B, max_attempts,
             torch.cuda.current_stream(rows.device).cuda_stream)
     build.check_launch("encode_hc", err)
@@ -208,21 +248,30 @@ def _scan(rows, src_lens, tables, level, tails=False):
 # plain versions of the parse (CPU tensors)
 # ---------------------------------------------------------------------------
 
-def _hc_row_plain(buf: bytes, n: int, d48: np.ndarray,
-                  max_attempts: int) -> bytearray:
+def _hc_row_plain(buf: bytes, n: int, d48: np.ndarray, max_attempts: int,
+                  start: int = 0, capacity: Optional[int] = None):
     """One row's HC parse, the serial walk over the d48 table: the same
     decisions as the JAX kernel.  Forward lengths come from byte runs
     instead of the kernels' words and XOR tail; every candidate shares its
-    first 4 bytes with p, so both give min(common run, matchlimit - p)."""
+    first 4 bytes with p, so both give min(common run, matchlimit - p).
+
+    The source is ``buf[start:start + n]``, behind the prefix
+    ``buf[:start]``.  With ``capacity``, the walk stops before the first
+    sequence that does not fit with a final run of its tail (at most 5
+    literals), as ``lz4_tpu.hc.compress_hc_dest_size`` does, and returns
+    (the sequences, the anchor) without a final run."""
     out = bytearray()
+    end = start + n
     if n < 13:
-        _emit_final(out, buf, 0, n)
+        if capacity is not None:
+            return out, start
+        _emit_final(out, buf, start, end)
         return out
     u = np.frombuffer(buf, np.uint8).astype(np.uint32)
     u = np.concatenate([u, u[:3]])
     val = memoryview(u[:-3] | (u[1:-2] << 8) | (u[2:-1] << 16) | (u[3:] << 24))
     d = memoryview(d48.astype(np.int64))
-    mflimit, matchlimit = n - 12, n - 5
+    mflimit, matchlimit = end - 12, end - 5
 
     def search(p: int, anchor: int):
         """Walk p's chain for the widest match: (score, forward length,
@@ -235,7 +284,7 @@ def _hc_row_plain(buf: bytes, n: int, d48: np.ndarray,
         room = matchlimit - p - 4
         att, bs, bf, bp = max_attempts, 0, 0, 0
         while att > 0 and bs < SUFFICIENT_LEN and 0 <= cand < p \
-                and p - cand <= 65535:
+                and p - cand <= MAX_DISTANCE:
             # beat-gate: extend only a candidate that can exceed the best
             g = min(max(bs - 3, 0), gmax)
             if val[cand + g] == val[p + g] or (
@@ -256,7 +305,7 @@ def _hc_row_plain(buf: bytes, n: int, d48: np.ndarray,
             att -= 1
         return bs, bf, bp
 
-    ip = anchor = 0
+    ip = anchor = start
     while ip <= mflimit:
         sc, ml, mpos = search(ip, anchor)
         if sc < 4:
@@ -274,28 +323,35 @@ def _hc_row_plain(buf: bytes, n: int, d48: np.ndarray,
             mp -= 1
             q -= 1
         ml += cur - mp
+        if capacity is not None and len(out) + _seq_size(
+                mp - anchor, ml - 4) + _final_run_size(
+                    min(5, end - (mp + ml))) > capacity:
+            return out, anchor
         _emit_seq(out, buf, anchor, mp - anchor, cur - mpos, ml - 4)
         ip = anchor = mp + ml
-    _emit_final(out, buf, anchor, n)
+    if capacity is not None:
+        return out, anchor
+    _emit_final(out, buf, anchor, end)
     return out
 
 
 def hc_scan_serial(rows: torch.Tensor, src_lens: torch.Tensor,
-                   level: int = DEFAULT_LEVEL):
+                   level: int = DEFAULT_LEVEL,
+                   window_lens: Optional[torch.Tensor] = None):
     """The parse of ``encode_blocks_hc`` by the serial walk
     ``_hc_row_plain`` over the d48 table of ``hc_tables``, for rows on the
     CPU: the reference that ``hc_row_rounds_plain`` and kernel I are held
     against.  Returns (out, olen) as ``hc_scan`` does."""
-    _check_rows(rows, src_lens)
+    _check_rows(rows, src_lens, window_lens)
     B, NS = rows.shape
     d48 = hc_tables(rows).numpy()
     max_attempts = 1 << (max(1, min(int(level), 16)) - 1)
     out = torch.zeros((B, out_width(NS)), dtype=torch.uint8)
     olen = torch.zeros((B,), dtype=torch.int32)
-    lens = src_lens.tolist()
     _fill_rows(out, olen, [
-        _hc_row_plain(rows[b].numpy().tobytes(), min(max(lens[b], 0), NS),
-                      d48[b], max_attempts) for b in range(B)])
+        _hc_row_plain(rows[b].numpy().tobytes(), n, d48[b], max_attempts,
+                      start=w)
+        for b, (w, n) in enumerate(_spans(src_lens, window_lens, NS))])
     return out, olen
 
 
@@ -303,14 +359,17 @@ def hc_row_rounds_plain(buf: bytes, n: int, perm: np.ndarray,
                         slot: np.ndarray, max_attempts: int,
                         lanes: int = LANES, positions: int = POSITIONS,
                         stats: Optional[collections.Counter] = None,
-                        tails: Optional[list] = None) -> bytearray:
+                        tails: Optional[list] = None,
+                        start: int = 0) -> bytearray:
     """One row's HC parse as csrc/hc.cu decomposes it; the same bytes as
     ``_hc_row_plain``.  ``perm`` and ``slot`` are the row's tables from
-    ``hc_sorted_tables``.
+    ``hc_sorted_tables``; the source is ``buf[start:start + n]``, behind
+    the prefix ``buf[:start]``.
 
     A search reads the 4-byte chain of p as the run before p's slot, in
     rounds of ``lanes`` candidates; a lane holds a candidate while it lies
-    before p and shares p's 4 bytes.  Every lane scores its candidate
+    before p, at most MAX_DISTANCE back, and shares p's 4 bytes (the run
+    is newest first, so the first lane too far back ends the chain).  Every lane scores its candidate
     (forward plus backward run) unless the beat gate, against the best at
     the round's start, shows it cannot win.  The round then makes the
     serial walk's decisions at once: the best after lane i is the prefix
@@ -336,17 +395,19 @@ def hc_row_rounds_plain(buf: bytes, n: int, perm: np.ndarray,
     their first nor their last (``switch_mid_round``).  ``tails``, when
     given, gets the offset of the final literal run's token."""
     out = bytearray()
+    end = start + n
     if n < 13:
         if tails is not None:
             tails.append(0)
-        _emit_final(out, buf, 0, n)
+        _emit_final(out, buf, start, end)
         return out
     u = np.frombuffer(buf, np.uint8).astype(np.int64)
     u = np.concatenate([u, u[:3]])
     val = (u[:-3] | (u[1:-2] << 8) | (u[2:-1] << 16) | (u[3:] << 24)).tolist()
-    perm = (perm.astype(np.int64) & 0xFFFF).tolist()
-    slot = (slot.astype(np.int64) & 0xFFFF).tolist()
-    mflimit, matchlimit = n - 12, n - 5
+    mask = 0xFFFF if perm.dtype == np.int16 else -1
+    perm = (perm.astype(np.int64) & mask).tolist()
+    slot = (slot.astype(np.int64) & mask).tolist()
+    mflimit, matchlimit = end - 12, end - 5
 
     def search(p: int, anchor: int):
         """(score, forward length, candidate position) of p's widest
@@ -365,7 +426,7 @@ def hc_row_rounds_plain(buf: bytes, n: int, perm: np.ndarray,
             pm, cnt, sw = bs, 0, switched
             for k in range(lanes):
                 c = perm[i - k] if i - k >= 0 else p
-                if c >= p or val[c] != vp:
+                if c >= p or p - c > MAX_DISTANCE or val[c] != vp:
                     return pm, bf, bp   # the run ends: so does the chain
                 if val[c + g] == val[p + g] or (
                         p > anchor and c > 0 and buf[c - 1] == buf[p - 1]):
@@ -394,7 +455,7 @@ def hc_row_rounds_plain(buf: bytes, n: int, perm: np.ndarray,
             i -= lanes
 
     rounds = [0]                         # the last search's rounds
-    ip = anchor = 0
+    ip = anchor = start
     pending = None                       # (score, fwd, pos, cur)
     while True:
         q0 = pending[3] + 1 if pending else ip
@@ -434,5 +495,5 @@ def hc_row_rounds_plain(buf: bytes, n: int, perm: np.ndarray,
             pending = None
     if tails is not None:
         tails.append(len(out))
-    _emit_final(out, buf, anchor, n)
+    _emit_final(out, buf, anchor, end)
     return out

@@ -20,6 +20,7 @@ TWINS = {
     "block_streaming_ring_buffer_torch.py": "round-trip OK",
     "frame_compress_torch.py": "round-trip OK",
     "chunked_file_io_torch.py": "round-trip OK",
+    "hc_streaming_torch.py": "round-trip OK",
 }
 
 

@@ -225,6 +225,26 @@ def test_errors_come_in_the_same_call():
             outcome(jframe.decompress_frame, frame), what
 
 
+def test_independent_blocks_reach_before_no_block():
+    """A block of an independent frame whose match reaches before the
+    block's start: lz4_tpu's error and message at every block size (kernel
+    D's batch route at 64 KB, kernel E's past it), fed whole and in
+    slices."""
+    payloads = [block_np.compress_block(b"abcdefgh" * 4000),
+                b"\x00\x01\x00" + lz4_seq(b"tail!")]
+    for bsid in (4, 5, 6, 7):
+        frame = jframe.encode_frame_header(jprefs(
+            block_size_id=bsid, block_independent=True)) + b"".join(
+                struct.pack("<I", len(p)) + p for p in payloads) + \
+            b"\0\0\0\0"
+        want = ("error", "block decode failed: offset beyond window")
+        assert outcome(jframe.decompress_frame, frame) == want
+        assert outcome(tframe.decompress_frame, frame, CPU) == want, bsid
+        for steps in (iter([len(frame)] * 2), random_steps(13, 9_000),
+                      ones()):
+            assert lockstep(frame, steps) == want, bsid
+
+
 def test_skippable_and_concatenated_frames():
     f1 = tframe.compress_frame(SMALL, tprefs(), device=CPU)
     sk = tframe.make_skippable_frame(b"user-metadata" * 10, sub_id=3)
@@ -364,13 +384,20 @@ def test_compressor_moves_no_state_when_a_call_raises(monkeypatch, indep):
     assert raised == ["update", "update", "flush"] * 2 + ["end"], raised
 
 
-def test_hc_frames_warn_on_linked_and_decode():
+def test_hc_frames_link_their_blocks_and_decode():
+    """At level 3 and up a linked request stays linked, without a warning:
+    each block's first 64 KB piece sits behind the window of the blocks
+    before it, as lz4_tpu's host HC links them."""
     data = real_text_corpus(150_000)
-    with pytest.warns(UserWarning, match="linked HC"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         frame = tframe.compress_frame(data, tprefs(block_size_id=4, level=9),
                                       device=CPU)
-    assert tframe.get_frame_info(frame).block_independent
+    assert not tframe.get_frame_info(frame).block_independent
     assert jframe.decompress_frame(frame)[0] == data
+    assert lockstep(frame, random_steps(12, 30_000)) == data
+    host = jframe.compress_frame(data, jprefs(block_size_id=4, level=9))
+    assert len(frame) <= RATIO_BOUND * len(host), (len(frame), len(host))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         frame = tframe.compress_frame(data, tprefs(

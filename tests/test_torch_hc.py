@@ -132,7 +132,8 @@ def test_encode_blocks_hc_counts_and_checks():
         thc.encode_blocks_hc(rows[:, :100].contiguous(),
                              torch.from_numpy(lens), 9)
     with pytest.raises(ValueError, match="too large"):
-        thc.encode_blocks_hc(torch.zeros((1, W + 128), dtype=torch.uint8),
+        thc.encode_blocks_hc(torch.zeros((1, 2 * W + 128),
+                                         dtype=torch.uint8),
                              torch.zeros((1,), dtype=torch.int32), 9)
     with pytest.raises(TypeError):
         thc.encode_blocks_hc(rows, torch.from_numpy(lens).long(), 9)

@@ -31,7 +31,8 @@ assert {"lz4_tpu_torch.device", "lz4_tpu_torch.kernels.encode_kernel",
         "lz4_tpu_torch.io", "lz4_tpu_torch.cli",
         "lz4_tpu_torch.sg", "lz4_tpu_torch.parallel.mesh",
         "lz4_tpu_torch.parallel.multihost", "lz4_tpu_torch.stream",
-        "lz4_tpu_torch.frame", "lz4_tpu_torch.utils.datagen",
+        "lz4_tpu_torch.frame", "lz4_tpu_torch.hc",
+        "lz4_tpu_torch.utils.datagen",
         "lz4_tpu_torch.utils.datagencli"} <= set(names), names
 
 import torch
@@ -179,6 +180,18 @@ while not d.finished:
     used, out = d.feed(frame[pos:pos + 7_001])
     pos, got = pos + used, got + out
 assert (got, pos) == (gen, len(frame))
+
+# the HC API: a stream session at level 3, decoded by the port's stream
+# decoder, and a destSize block
+from lz4_tpu_torch import hc as thc
+hstream = thc.HcCompressStream(3, device="cpu")
+hdec = tstream.BlockDecompressStream(device="cpu")
+for i in range(0, 30_000, 10_000):
+    blk = hstream.compress_continue(gen[i:i + 10_000])
+    assert hdec.decompress_continue(blk, 10_000) == gen[i:i + 10_000]
+took, blk = thc.compress_hc_dest_size(gen[:8_000], 2_000, 3, device="cpu")
+assert len(blk) <= 2_000 and tblock.decompress_safe(
+    blk, took, device="cpu") == gen[:took]
 
 assert sys.modules["jax"] is None
 bad = [m for m in sys.modules
