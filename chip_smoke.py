@@ -226,6 +226,24 @@
    the one-shot calls on 4 KB and 64 KB and the first three blocks of the
    double-buffer session run through the plain route on this host's CPU,
    equal to the card's; each call is timed at 4 KB and 64 KB.
+17. Kernel A's adaptive mode (a min_match per block, ``mm_rows``): on the
+   main path's chunk (64 linked blocks behind their window) with mm_rows
+   cycling (4, 6, 8, 12), the per-block tables built on the card must equal
+   the CPU's (also at all 8 and all 4), the card's bytes and lengths its
+   plain version's, and uniform mm_rows of 4 and of 8 the static kernel A's
+   bytes at min_match 4 and 8; the scan is timed at static mm=8, mm_rows
+   all 8 and the mixed cycle (alternating rounds), the tables apart, and
+   ``cand_frac8_rows`` on the corpus's 1,024 rows (8 of them against the
+   CPU's, exactly).  Then, with its own counter reset and read, the whole
+   corpus goes through ``encode_blocks_linked(..., mm_rows=)`` in 16 chunks
+   and back through ``decode_blocks_linked`` byte-exact.  Kernels A and
+   linked D must launch, and no plain version run.
+18. ``fullbench_torch.py --mb 16`` on the card, with its own counter reset
+   and read: one MB/s line per cell, every round trip checked.  Every
+   kernel but G's list axis must launch, and no plain version run.
+19. The example twins of ``tpu_batch.py``, ``mesh_frame.py``,
+   ``scatter_gather.py`` and ``print_version.py``, each once without
+   ``--device`` (on the card).
 
 Prints a JSON line of the kernels (each with the launch count of the phase
 that drives it, every phase's counts, its time on the card, its plain
@@ -3308,6 +3326,86 @@ def pack_guard_check(build, comp, olen, src, blen) -> int:
     return PACK_GUARD
 
 
+# -- kernel A's adaptive mode, fullbench_torch.py and the example twins -------
+ADAPTIVE_CYCLE = (4, 6, 8, 12)     # the per-block min_match, block by block
+ADAPTIVE_CHUNK = 4 << 20           # the main path's chunk: 64 linked blocks
+FULLBENCH_MB = 16                  # fullbench_torch.py's corpus on the card
+EXAMPLE_TWINS = ("tpu_batch_torch.py", "mesh_frame_torch.py",
+                 "scatter_gather_torch.py", "print_version_torch.py")
+
+
+def load_script(path: Path):
+    """The module of a script of the repo, loaded in this process."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def adaptive_mm(nb: int):
+    """[1, nb] int32 mm_rows cycling through ADAPTIVE_CYCLE."""
+    import torch
+    return torch.tensor([[ADAPTIVE_CYCLE[k % len(ADAPTIVE_CYCLE)]
+                          for k in range(nb)]], dtype=torch.int32)
+
+
+def adaptive_stream(corpus: bytes, lo: int):
+    """Kernel A's input for the chunk at corpus[lo:lo + ADAPTIVE_CHUNK]
+    behind the 64 KB before it: (stream [1, (nb+1)*W], lens [1, nb],
+    prefix_lens [1]) on the CPU."""
+    import torch
+
+    chunk = corpus[lo:lo + ADAPTIVE_CHUNK]
+    window = corpus[max(0, lo - W):lo]
+    nb = -(-len(chunk) // W)
+    stream = torch.zeros((1, (nb + 1) * W), dtype=torch.uint8)
+    if window:
+        stream[0, W - len(window):W] = torch.frombuffer(bytearray(window),
+                                                        dtype=torch.uint8)
+    stream[0, W:W + len(chunk)] = torch.frombuffer(bytearray(chunk),
+                                                   dtype=torch.uint8)
+    lens = torch.tensor([[min(W, len(chunk) - k * W) for k in range(nb)]],
+                        dtype=torch.int32)
+    return stream, lens, torch.tensor([len(window)], dtype=torch.int32)
+
+
+def adaptive_round_trip(enc, dec, corpus: bytes, dev) -> dict:
+    """The corpus through ``encode_blocks_linked(..., mm_rows=)`` (mm_rows
+    cycling through ADAPTIVE_CYCLE) chunk by chunk, each chunk behind the
+    64 KB before it, and back through ``decode_blocks_linked`` (kernel D on
+    the card) behind the same window; the decoded chunks must be the
+    corpus.  Returns the payload bytes and the walls."""
+    import torch
+
+    payload, t_enc, t_dec = 0, 0.0, 0.0
+    for lo in range(0, len(corpus), ADAPTIVE_CHUNK):
+        stream, lens, pre = (t.to(dev) for t in adaptive_stream(corpus, lo))
+        nb = lens.shape[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, olen = enc.encode_blocks_linked(
+            stream, lens, prefix_lens=pre, mm_rows=adaptive_mm(nb).to(dev))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        window = stream[0, :W] if lo else None
+        got, glen = dec.decode_blocks_linked(out[0], olen[0], W,
+                                             init_window=window,
+                                             init_window_len=W if lo else 0)
+        torch.cuda.synchronize()
+        t_enc, t_dec = t_enc + t1 - t0, t_dec + time.perf_counter() - t1
+        n = int(lens.sum())
+        if not torch.equal(glen, lens[0]) or not torch.equal(
+                got.reshape(-1)[:n], stream[0, W:W + n]):
+            raise SmokeFailure(f"adaptive round trip differs in the chunk at "
+                               f"{lo}")
+        payload += int(olen.sum())
+    return {"payload_bytes": payload, "content_bytes": len(corpus),
+            "ratio": payload / len(corpus), "encode_s": t_enc,
+            "decode_s": t_dec}
+
+
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 rate (NVIDIA data sheet)
 
 
@@ -4796,6 +4894,126 @@ def main() -> int:
         f"{hc_times['-9']['ratio']:.6f} as a file)")
     del frames
 
+    # -- 17. kernel A's adaptive mode: a min_match per block ----------------
+    # the main path's chunk behind its window, mm_rows cycling (4, 6, 8, 12)
+    host = adaptive_stream(corpus, 4 << 20)
+    card = tuple(t.to(cuda) for t in host)
+    nb = host[1].shape[1]
+
+    def mm_all(v):
+        return torch.full((1, nb), v, dtype=torch.int32)
+
+    tabs = {}
+    for what, mmr in (("mixed", adaptive_mm(nb)), ("all 8", mm_all(8)),
+                      ("all 4", mm_all(4))):
+        d_c, j_c = enc.linked_tables(card[0], nb, 4, None, mmr.to(cuda))
+        d_p, j_p = enc.linked_tables(host[0], nb, 4, None, mmr)
+        if not (torch.equal(d_c.cpu(), d_p) and torch.equal(j_c.cpu(), j_p)):
+            raise SmokeFailure(f"kernel A's per-block tables ({what}) on the "
+                               f"card differ from the CPU's")
+        tabs[what] = (d_c, j_c, d_p, j_p, mmr.to(cuda), mmr)
+    static = {v: enc.linked_tables(card[0], nb, v) for v in (4, 8, 12)}
+    apart = int((static[8][0] != tabs["all 8"][0]).sum())
+    log(f"[adaptive] per-block tables of {nb} blocks (mixed, all 8, all 4) "
+        f"on the card equal the CPU's; all 8 against the static mm=8 "
+        f"tables: {apart} lanes apart")
+    d_c, j_c, d_p, j_p, mm_d, mm_h = tabs["mixed"]
+    k = enc.scan_linked(*card, d_c, j_c, mm_rows=mm_d)
+    p, plain_ms = time_host(
+        lambda: enc.scan_linked(*host, d_p, j_p, mm_rows=mm_h))
+    cmp_rows("encode_linked", f"{nb} blocks, mm_rows cycling "
+             f"{ADAPTIVE_CYCLE} (adaptive)", *k, *p)
+    mixed_out = int(k[1].sum())
+    for v in (4, 8):
+        u = enc.scan_linked(*card, *tabs[f"all {v}"][:2],
+                            mm_rows=tabs[f"all {v}"][4])
+        st = enc.scan_linked(*card, *static[v], 1, v)
+        torch.cuda.synchronize()
+        same = torch.equal(u[1], st[1]) and all(
+            torch.equal(u[0][0, r, :n], st[0][0, r, :n])
+            for r, n in enumerate(st[1][0].tolist()))
+        log(f"[adaptive] mm_rows all {v} against static mm={v}: "
+            f"{int(st[1].sum())} bytes, {'equal' if same else 'DIFFER'}")
+        if not same:
+            raise SmokeFailure(f"uniform mm_rows of {v} differ from the "
+                               f"static kernel A at min_match={v}")
+    # one call: the scan at static 4, 8 and 12, at mm_rows all 8 and mixed,
+    # rounds alternating; the tables apart
+    scans = {f"static mm={v}": functools.partial(
+        enc.scan_linked, *card, *static[v], 1, v) for v in (4, 8, 12)}
+    scans.update({
+        "mm_rows all 8": lambda: enc.scan_linked(
+            *card, *tabs["all 8"][:2], mm_rows=tabs["all 8"][4]),
+        "mm_rows mixed": lambda: enc.scan_linked(*card, d_c, j_c,
+                                                 mm_rows=mm_d)})
+    scan_ms = {kname: [] for kname in scans}
+    for order in (list(scans), list(scans)[::-1]):
+        for kname in order:
+            scan_ms[kname].append(time_card(scans[kname]))
+    table_ms = {
+        "static mm=8": time_card(lambda: enc.linked_tables(card[0], nb, 8)),
+        "mm_rows all 8": time_card(lambda: enc.linked_tables(
+            card[0], nb, 4, None, tabs["all 8"][4])),
+        "mm_rows mixed": time_card(lambda: enc.linked_tables(
+            card[0], nb, 4, None, mm_d))}
+    rows_d = corpus_rows(corpus, cuda)[0]
+    frac = enc.cand_frac8_rows(rows_d)
+    pick = torch.linspace(0, rows_d.shape[0] - 1, 8).long()
+    if not torch.equal(frac[pick.to(cuda)].cpu(),
+                       enc.cand_frac8_rows(rows_d[pick.to(cuda)].cpu())):
+        raise SmokeFailure("cand_frac8_rows on the card differs from the "
+                           "CPU's")
+    frac_ms = time_card(lambda: enc.cand_frac8_rows(rows_d))
+    fq = torch.quantile(frac.float().cpu(), torch.tensor([0, .5, 1.])).tolist()
+    bound_in = card[0].numel() + 4 * (d_c.numel() + j_c.numel()
+                                      + card[1].numel() + 1 + mm_d.numel())
+    adaptive = {
+        "card": card_line, "blocks": nb, "cycle": list(ADAPTIVE_CYCLE),
+        "scan_ms": scan_ms, "table_ms": table_ms, "plain_ms": plain_ms,
+        "bound_ms": (bound_in + mixed_out) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "mixed_payload_bytes": mixed_out,
+        "lanes_apart_all8_static8": apart,
+        "cand_frac8_ms": frac_ms, "cand_frac8_rows": rows_d.shape[0],
+        "cand_frac8_min_median_max": fq}
+    del tabs, static, rows_d, frac, card, host, k, p, scans
+    log(f"[time] adaptive kernel A, {nb} blocks: scan ms "
+        + ", ".join(f"{kn} {v}" for kn, v in scan_ms.items())
+        + "; tables ms " + ", ".join(f"{kn} {v:.3f}"
+                                     for kn, v in table_ms.items())
+        + f"; plain {plain_ms:.1f} ms; bound {adaptive['bound_ms']:.4f} ms; "
+        f"cand_frac8_rows on {adaptive['cand_frac8_rows']} rows "
+        f"{frac_ms:.3f} ms (min, median, max {fq})")
+    # the counted run: the whole corpus in 16 chunks, kernel A adaptive,
+    # kernel D linked back
+    common.reset_counts()
+    adaptive["round_trip"] = adaptive_round_trip(enc, dec, corpus, cuda)
+    counts["adaptive"] = phase_counts("adaptive", ["encode_linked",
+                                                   "decode_linked"])
+    rt = adaptive["round_trip"]
+    log(f"[adaptive] {len(corpus) >> 20} MiB corpus, mm_rows cycling "
+        f"{ADAPTIVE_CYCLE}: ratio {rt['ratio']:.6f}, encode_blocks_linked "
+        f"{rt['encode_s']:.3f} s, decode_blocks_linked {rt['decode_s']:.3f} "
+        f"s, byte-exact")
+    stats["encode_linked"]["adaptive"] = adaptive
+
+    # -- 18. fullbench_torch.py on the card ----------------------------------
+    common.reset_counts()
+    t0 = time.perf_counter()
+    if load_script(REPO / "fullbench_torch.py").main(
+            ["--mb", str(FULLBENCH_MB)]) != 0:
+        raise SmokeFailure("fullbench_torch.py failed")
+    fullbench_s = time.perf_counter() - t0
+    counts["fullbench"] = phase_counts("fullbench", [
+        k for k in KERNELS if k != "sg_encode_chain_batch"])
+    log(f"[fullbench] fullbench_torch.py --mb {FULLBENCH_MB}: "
+        f"{fullbench_s:.1f} s, every round trip byte-exact")
+
+    # -- 19. the example twins, without --device -----------------------------
+    for script in EXAMPLE_TWINS:
+        if load_script(REPO / "examples" / "torch_port" / script).main(
+                []) != 0:
+            raise SmokeFailure(f"examples/torch_port/{script} failed")
+
     unbound = [k for k in KERNELS if "bound_ms" not in stats[k]]
     if unbound:
         raise SmokeFailure(f"no bound computed for {unbound}")
@@ -4808,7 +5026,8 @@ def main() -> int:
         "sg_phase": sg_times, "hc_phase": hc_times,
         "destsize_phase": ds_times, "legacy_phase": legacy_times,
         "envelope_phase": envelope_times, "mesh_phase": mesh_times,
-        "api_phase": api_record, "hc_api_phase": hc_api_record}
+        "api_phase": api_record, "hc_api_phase": hc_api_record,
+        "fullbench_s": fullbench_s}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

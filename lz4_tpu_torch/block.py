@@ -50,9 +50,8 @@ from .kernels import destsize_kernel as dsk
 from .kernels.common import resolve_device, to_device, to_host
 from .kernels.decode_kernel import decode_blocks, decode_blocks_dest_size
 from .kernels.encode_kernel import MAX_BLOCK
-from .spec import compress_bound  # noqa: F401  (re-export)
+from .spec import MINMATCH, compress_bound  # noqa: F401  (re-export)
 
-MINMATCH = 4
 # the longest output row kernel D takes (int32 lengths)
 MAX_DECODED = (1 << 31) - 1
 

@@ -3,6 +3,7 @@
 // Replaces the Pallas kernels of lz4_tpu/kernels/encode_kernel.py:
 //   A  _make_encode_linked_kernel (launched by _encode_blocks_linked):
 //      linked 64 KB blocks, each matching into its predecessor or a prefix;
+//      its dynamic_mm variant too (a min_match per block, `mm_rows`);
 //   B  _make_encode_kernel (launched by _encode_blocks): independent rows.
 // The parse is the same decision for decision, so payloads are
 // bit-identical to the JAX package's.
@@ -323,6 +324,10 @@ __device__ int lane_backward_start(const uint8_t* buf, int mp, int d,
 // takes a match that a later walker also took (or ends where one started):
 // the parse then follows the walkers again, and so on to the block's end.
 //
+// min_match is the block's own (kernel A's adaptive mode gives each block
+// one, `mm_rows`): every walk and every join lies inside one block, so the
+// joins only ever compare decisions taken at that one min_match.
+//
 // Writes the block's records (mp, end, d, op), op being the sequence's
 // output offset, then the final literal run, their count and the block's
 // output length, and, when `tail` is set, the offset of the final literal
@@ -635,7 +640,8 @@ __global__ void walk_linked_kernel(const uint8_t* stream, long long L,
                                    const int32_t* words, const int32_t* jump,
                                    const int32_t* slen, const int32_t* prefix,
                                    int NB, int row0, int acceleration,
-                                   int min_match, int reject_step,
+                                   int min_match, const int32_t* mm_rows,
+                                   int reject_step,
                                    int4* lrec, int lcap, int4* rec,
                                    int rec_cap, int32_t* nrec,
                                    int32_t* olen, int32_t* tails) {
@@ -650,7 +656,7 @@ __global__ void walk_linked_kernel(const uint8_t* stream, long long L,
   }
   walk<true>(b, words + (long long)g * WINDOW,
              jump + (long long)row * (WINDOW / 4), WINDOW, acceleration,
-             min_match, reject_step, lrec + (long long)g * lcap * WALKERS,
+             mm_rows ? mm_rows[row] : min_match, reject_step, lrec + (long long)g * lcap * WALKERS,
              rec + (long long)g * rec_cap, nrec + g, olen + row,
              tails ? tails + row : nullptr);
 }
@@ -713,7 +719,9 @@ __global__ void emit_rows_kernel(const uint8_t* src, int NS,
 // [group, lcap, 128] int4 with lcap >= (65536 / 128 + OVERLAP) / 4 + 2;
 // rec [group, rec_cap] int4 with rec_cap >= 16385; nrec [group] int32.
 // `tails` ([S * NB] int32, or null) takes each block's offset of its final
-// literal run's token.
+// literal run's token.  `mm_rows` ([S * NB] int32, or null for `min_match`
+// everywhere) gives each block its own min_match (adaptive mode); only the
+// walk reads it, the probe words and the emission do not depend on it.
 extern "C" int lz4tt_encode_linked(const uint8_t* stream, long long L,
                                    const int32_t* delta, const int32_t* jump,
                                    const int32_t* slen, const int32_t* prefix,
@@ -722,8 +730,8 @@ extern "C" int lz4tt_encode_linked(const uint8_t* stream, long long L,
                                    int32_t* nrec, int group, uint8_t* out,
                                    int M, int32_t* olen, int32_t* tails,
                                    int S, int NB, int acceleration,
-                                   int min_match, int reject_step,
-                                   void* cuda_stream) {
+                                   int min_match, const int32_t* mm_rows,
+                                   int reject_step, void* cuda_stream) {
   const int rows = S * NB;
   cudaStream_t cs = (cudaStream_t)cuda_stream;
   int4* r4 = reinterpret_cast<int4*>(rec);
@@ -736,7 +744,8 @@ extern "C" int lz4tt_encode_linked(const uint8_t* stream, long long L,
     if (err != cudaSuccess) return (int)err;
     walk_linked_kernel<<<g, WALKERS, 0, cs>>>(
         stream, L, words, jump, slen, prefix, NB, row0, acceleration,
-        min_match, reject_step, l4, lcap, r4, rec_cap, nrec, olen, tails);
+        min_match, mm_rows, reject_step, l4, lcap, r4, rec_cap, nrec, olen,
+        tails);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     emit_linked_kernel<<<dim3(g, EMIT_CTAS), 256, 0, cs>>>(

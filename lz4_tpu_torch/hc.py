@@ -59,7 +59,6 @@ DEFAULT_CLEVEL = 9
 MAX_CLEVEL = 16
 PIECE = MAX_BLOCK           # source bytes of one row of kernel I
 WINDOW = spec.WINDOW_SIZE
-LASTLITERALS = 5            # the literals a block ends with, at least
 
 
 def _level(level) -> int:
@@ -205,7 +204,7 @@ def _capacity_cut(block: bytes, src: bytes, capacity: int):
                  else (block[t] & 15, i + 2))
         mp, ml = anchor + lit, ml + 4
         # the sequence (it ends at i) and a final run of its tail
-        if i + _final_run_size(min(LASTLITERALS, n - (mp + ml))) \
+        if i + _final_run_size(min(spec.LASTLITERALS, n - (mp + ml))) \
                 > capacity:
             break
         anchor, kept = mp + ml, i
@@ -213,7 +212,7 @@ def _capacity_cut(block: bytes, src: bytes, capacity: int):
     lit = _max_final_literals(capacity - kept, avail)
     if lit < 0:
         return 0, b""
-    if anchor > 0 and avail > lit and lit < LASTLITERALS:
+    if anchor > 0 and avail > lit and lit < spec.LASTLITERALS:
         return None, anchor + max(lit, 0)
     return anchor + lit, (block[:kept] + literal_head(lit)
                           + src[anchor:anchor + lit])

@@ -44,7 +44,8 @@ _U64 = ctypes.c_uint64
 # C signatures of the kernel entry points (csrc/*.cu); all return cudaError_t
 _SIGNATURES = {
     "lz4tt_encode_linked": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _P, _I,
-                            _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+                            _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _I,
+                            _P],
     "lz4tt_encode": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I,
                      _P, _I, _P, _I, _I, _I, _I, _P],
     "lz4tt_encode_hc": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I,

@@ -11,7 +11,9 @@ jumps barren runs through a jump table.
   blocks of one or more streams, each block matching into its predecessor
   (or a dictionary prefix for block 0).  The candidate table is built over
   ``[window | 6 blocks]`` tiles exactly as the JAX package builds it, and
-  its jump table is 4-granular.
+  its jump table is 4-granular.  Its adaptive mode (``mm_rows``) gives each
+  block its own min_match; ``cand_frac8_rows`` is the long-match density
+  such a choice can read.
 * ``encode_blocks`` (kernel B): independent rows of up to 256 KB, with a
   full-resolution jump table.
 
@@ -55,6 +57,11 @@ def cand_delta_rows(val: torch.Tensor, filter_mm=None) -> torch.Tensor:
     rows with mm >= 6, candidates that the scan would provably reject: the
     val32 lanes at +4 and -4 ride the sort, and the byte runs they share
     with the sort neighbour bound the match length (see the JAX package).
+    It may also be a function of the sorted positions' (query, candidate)
+    pairs, both [B, N-1] int64, that returns the min_match of each query,
+    a mask and the -4 lanes to take for the candidates where the mask is
+    set, all [B, N-1] (``linked_tables``' per-block filter).  The filter
+    only zeroes a delta; it never moves one to an earlier candidate.
     """
     B, N = val.shape
     if N > 1 << 19:
@@ -70,8 +77,15 @@ def cand_delta_rows(val: torch.Tensor, filter_mm=None) -> torch.Tensor:
     if filter_mm is not None:
         sv4 = torch.roll(val, -4, dims=1).gather(1, perm)
         svm4 = torch.roll(val, 4, dims=1).gather(1, perm)
+        cand_m4 = svm4[:, :-1]
+        if callable(filter_mm):
+            mm_row, fix, lanes = filter_mm(sp[:, 1:], sp[:, :-1])
+            cand_m4 = torch.where(fix, lanes, cand_m4)
+        else:
+            mm_row = torch.as_tensor(filter_mm, dtype=torch.int32,
+                                     device=val.device).reshape(-1, 1)
         tf = sv4[:, 1:] ^ sv4[:, :-1]       # bytes +4..+7 (byte +4 = key)
-        tb = svm4[:, 1:] ^ svm4[:, :-1]     # bytes -4..-1
+        tb = svm4[:, 1:] ^ cand_m4          # bytes -4..-1
         m5 = (tf & 0x00FF00) == 0
         m6 = (tf & 0xFFFF00) == 0
         m7 = tf == 0
@@ -80,8 +94,6 @@ def cand_delta_rows(val: torch.Tensor, filter_mm=None) -> torch.Tensor:
         bwd = ((((tb >> 24) & 0xFF) == 0).int()
                + (((tb >> 16) & 0xFFFF) == 0).int()
                + (((tb >> 8) & 0xFFFFFF) == 0).int() + n4.int())
-        mm_row = torch.as_tensor(filter_mm, dtype=torch.int32,
-                                 device=val.device).reshape(-1, 1)
         same &= m7 | n4 | (fwd + bwd >= mm_row)
     d = torch.where(same, sp[:, 1:] - sp[:, :-1], 0)
     d = torch.where(d <= 65535, d, 0)
@@ -89,6 +101,36 @@ def cand_delta_rows(val: torch.Tensor, filter_mm=None) -> torch.Tensor:
     out[:, 1:] = d
     # un-permute: the delta found for sorted slot i belongs to position sp[i]
     return torch.zeros_like(out).scatter_(1, sp, out).to(torch.int32)
+
+
+def cand_frac8_rows(rows: torch.Tensor) -> torch.Tensor:
+    """[B, N] uint8 rows -> [B] float32: the share of sorted neighbour pairs
+    whose later position's nearest earlier 5-byte-equal candidate within
+    65535 also matches the 8 bytes from the position (val32 lanes wrapping
+    at the row end), i.e. would survive any min_match pre-filter.  The
+    long-match density that adaptive mode's per-block min_match can be
+    chosen by; the JAX package's ``cand_frac8_rows`` on the same lanes,
+    equal to it exactly (positions in 18 bits, as there; rows of up to
+    2^18 bytes).  One sort, the +4 lane riding it; PyTorch ops on either
+    device (the JAX package computes it outside its kernels too)."""
+    check(rows, "rows", torch.uint8, 2)
+    B, N = rows.shape
+    val = le32_lanes(torch.cat([rows, rows[:, :3]], dim=1))
+    pos = torch.arange(N, dtype=torch.int64, device=rows.device).expand(B, N)
+    v4 = torch.roll(val, -4, dims=1)
+    k2 = ((v4.to(torch.int64) & 0xFF) << 18) | pos
+    skey, perm = torch.sort((val.to(torch.int64) << 32) | k2, dim=1)
+    sk2 = skey & 0xFFFFFFFF
+    sp = sk2 & ((1 << 18) - 1)
+    sv4 = v4.gather(1, perm)
+    same = ((skey[:, 1:] >> 32) == (skey[:, :-1] >> 32)) & (
+        (sk2[:, 1:] >> 18) == (sk2[:, :-1] >> 18))
+    near = (sp[:, 1:] - sp[:, :-1]) <= 65535
+    m8 = same & near & (sv4[:, 1:] == sv4[:, :-1])
+    count = m8.sum(dim=1).to(torch.float32)
+    # a divisor tensor of the count's shape: a scalar divisor may be taken
+    # as a product with its reciprocal, which rounds differently
+    return count / torch.full_like(count, N - 1)
 
 
 def _next_candidate(d: torch.Tensor) -> torch.Tensor:
@@ -101,7 +143,8 @@ def _next_candidate(d: torch.Tensor) -> torch.Tensor:
 
 
 def linked_tables(stream: torch.Tensor, nb: int, min_match: int = 4,
-                  zero_window_lanes: Optional[torch.Tensor] = None):
+                  zero_window_lanes: Optional[torch.Tensor] = None,
+                  mm_rows: Optional[torch.Tensor] = None):
     """Candidate and jump tables of kernel A for ``nb`` linked 64 KB blocks.
 
     ``stream`` is [S, L] uint8: row s holds stream s's 64 KB window, then
@@ -112,6 +155,12 @@ def linked_tables(stream: torch.Tensor, nb: int, min_match: int = 4,
     ``zero_window_lanes`` ([S] int32, optional) zeroes block 0's window lanes
     below ``WINDOW - zero_window_lanes[s]``, as the JAX package's chunked
     window builder does.
+
+    ``mm_rows`` ([S, nb] int32, optional) filters each block's candidates
+    at its own min_match (adaptive mode) in place of ``min_match``.  The
+    JAX package sorts per-block ``[window | block]`` rows there; the tiles
+    give the same deltas with each sorted slot's threshold taken from the
+    block of its position (see ``_per_block_filter``).
 
     Returns (delta [S*nb, 65536] int32, jump [S*nb, 16384] int32): jump[k]
     is the block-relative position of the next candidate at or after lane
@@ -141,7 +190,10 @@ def linked_tables(stream: torch.Tensor, nb: int, min_match: int = 4,
             WINDOW - zero_window_lanes.to(stream.device)[:, None])
         lanes[:, :WINDOW] = torch.where(keep, lanes[:, :WINDOW], 0)
     tiles = lanes.unfold(1, (K + 1) * WINDOW, K * WINDOW)   # [S, T, W+K*64K]
-    filt = min_match if min_match >= 6 else None
+    if mm_rows is not None:
+        filt = _per_block_filter(u, mm_rows, nb, K, T)
+    else:
+        filt = min_match if min_match >= 6 else None
     d_tiles = cand_delta_rows(tiles.reshape(S * T, (K + 1) * WINDOW), filt)
     delta = d_tiles[:, WINDOW:].reshape(S, T * K, WINDOW)[:, :nb]
     delta = delta.reshape(S * nb, WINDOW).clone()
@@ -150,6 +202,41 @@ def linked_tables(stream: torch.Tensor, nb: int, min_match: int = 4,
     delta[:, WINDOW - 12:] = 0
     jump = _next_candidate(delta)[:, ::4].contiguous()
     return delta, jump
+
+
+def _per_block_filter(u: torch.Tensor, mm_rows: torch.Tensor, nb: int,
+                      K: int, T: int):
+    """The ``filter_mm`` function of ``cand_delta_rows`` that makes the
+    tiles of ``linked_tables`` give the JAX package's per-block deltas.
+
+    Each query q (a tile position) takes the min_match of its block.  The
+    two layouts read the same bytes for every pair but one kind: a query
+    in its block's first 3 lanes whose candidate lies in lanes 1-3 of the
+    block's window (65,533-65,535 back).  In a per-block row the
+    candidate's -4 lane wraps to that row's last 3 lanes (the block's last
+    bytes, then the window's first); in a tile it reads the bytes before
+    the window.  For those pairs the function hands over the wrapped
+    lanes.  ``u`` is the zero-padded stream, [S, (T*K+1)*65536 + 3]."""
+    S = u.shape[0]
+    dev = u.device
+    mm = torch.zeros((S, T * K), dtype=torch.int32, device=dev)
+    mm[:, :nb] = mm_rows
+    mm = mm.reshape(S * T, K).to(torch.int64)
+    # each block's [window | block] row's last 3 lanes, wrapped to its start
+    g = torch.arange(T * K, device=dev)[:, None] * WINDOW
+    i = torch.arange(3, device=dev)
+    at = torch.cat([g + 2 * WINDOW - 3 + i, g + i], 1).reshape(-1)
+    wrap = le32_lanes(u[:, at].reshape(S * T * K, 6)).reshape(S * T, K * 3)
+
+    def filt(q, c):
+        blk = ((q - WINDOW) >> 16).clamp(0, K - 1)
+        w = c - blk * WINDOW                # the candidate in q's window
+        fix = ((q >= WINDOW) & (((q - WINDOW) & 0xFFFF) < 3) & (w >= 1)
+               & (w <= 3))
+        lane = blk * 3 + (w - 1).clamp(0, 2)
+        return mm.gather(1, blk), fix, wrap.gather(1, lane)
+
+    return filt
 
 
 def independent_tables(rows: torch.Tensor, min_match: int = 4):
@@ -635,7 +722,8 @@ def encode_blocks_linked(stream: torch.Tensor, src_lens: torch.Tensor,
                          prefix_lens: Optional[torch.Tensor] = None,
                          min_match: int = 4, reject_step: int = 1,
                          zero_window_lanes: bool = False,
-                         tails: bool = False):
+                         tails: bool = False,
+                         mm_rows: Optional[torch.Tensor] = None):
     """Compress streams of linked 64 KB blocks.
 
     Args:
@@ -652,6 +740,10 @@ def encode_blocks_linked(stream: torch.Tensor, src_lens: torch.Tensor,
         literal-only sequence ([S, NB] int32; 0 for a padding row), which
         lets consecutive payloads be joined into one block without a walk
         over their tokens (``lz4_tpu_torch.legacy.merge_payloads``).
+      mm_rows: optional [S, NB] int32 per-block min_match (adaptive mode),
+        on the stream's device; overrides ``min_match`` in the tables and
+        the scan, as in the JAX package (a value of 4 or less takes every
+        match, as 4 does).
 
     Returns (out [S, NB, M] uint8, olen [S, NB] int32), and the tails when
     asked; only ``out[s, k, :olen[s, k]]`` is meaningful.
@@ -659,14 +751,15 @@ def encode_blocks_linked(stream: torch.Tensor, src_lens: torch.Tensor,
     if prefix_lens is None:
         prefix_lens = torch.zeros((src_lens.shape[0],), dtype=torch.int32,
                                   device=stream.device)
-    _check_linked(stream, src_lens, prefix_lens)
+    _check_linked(stream, src_lens, prefix_lens, mm_rows)
     delta, jump = linked_tables(stream, src_lens.shape[1], min_match,
-                                prefix_lens if zero_window_lanes else None)
+                                prefix_lens if zero_window_lanes else None,
+                                mm_rows)
     return scan_linked(stream, src_lens, prefix_lens, delta, jump,
-                       acceleration, min_match, reject_step, tails)
+                       acceleration, min_match, reject_step, tails, mm_rows)
 
 
-def _check_linked(stream, src_lens, prefix_lens) -> None:
+def _check_linked(stream, src_lens, prefix_lens, mm_rows=None) -> None:
     check(stream, "stream", torch.uint8, 2)
     check(src_lens, "src_lens", torch.int32, 2)
     check(prefix_lens, "prefix_lens", torch.int32, 1)
@@ -678,18 +771,27 @@ def _check_linked(stream, src_lens, prefix_lens) -> None:
                          "positions: at most 32766 blocks per stream")
     if prefix_lens.shape[0] != S:
         raise ValueError("prefix_lens must be [S]")
+    if mm_rows is not None:
+        check(mm_rows, "mm_rows", torch.int32, 2)
+        if tuple(mm_rows.shape) != (S, NB):
+            raise ValueError("mm_rows must be [S, NB]")
+        if mm_rows.device != stream.device:
+            raise ValueError(f"mm_rows on {mm_rows.device}, the stream on "
+                             f"{stream.device}")
 
 
 def scan_linked(stream: torch.Tensor, src_lens: torch.Tensor,
                 prefix_lens: torch.Tensor, delta: torch.Tensor,
                 jump: torch.Tensor, acceleration: int = 1,
                 min_match: int = 4, reject_step: int = 1,
-                tails: bool = False):
+                tails: bool = False,
+                mm_rows: Optional[torch.Tensor] = None):
     """Kernel A proper: the scan of ``encode_blocks_linked`` over tables
     from ``linked_tables``.  Launches csrc/encode.cu for tensors on the
     card, runs the plain scan for tensors on the CPU.  With ``tails``,
-    returns (out, olen, tails) as ``encode_blocks_linked`` does."""
-    _check_linked(stream, src_lens, prefix_lens)
+    returns (out, olen, tails) as ``encode_blocks_linked`` does; with
+    ``mm_rows``, each block's scan takes its own min_match."""
+    _check_linked(stream, src_lens, prefix_lens, mm_rows)
     S, NB = src_lens.shape
     check(delta, "delta", torch.int32, 2)
     check(jump, "jump", torch.int32, 2)
@@ -700,7 +802,7 @@ def scan_linked(stream: torch.Tensor, src_lens: torch.Tensor,
     if not use_kernel(stream, src_lens, prefix_lens, delta, jump):
         return _encode_linked_plain(stream, src_lens, prefix_lens, delta,
                                     jump, M, acceleration, min_match,
-                                    reject_step, tails)
+                                    reject_step, tails, mm_rows)
     dev = stream.device
     out = torch.empty((S, NB, M), dtype=torch.uint8, device=dev)
     olen = torch.empty((S, NB), dtype=torch.int32, device=dev)
@@ -715,19 +817,23 @@ def scan_linked(stream: torch.Tensor, src_lens: torch.Tensor,
             rec.shape[1], nrec.data_ptr(), group,
             out.data_ptr(), M, olen.data_ptr(),
             tail.data_ptr() if tails else None, S, NB, int(acceleration),
-            int(min_match), int(reject_step),
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(min_match),
+            mm_rows.data_ptr() if mm_rows is not None else None,
+            int(reject_step), torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("encode_linked", err)
     LAUNCHES["encode_linked"] += 1
     return (out, olen, tail) if tails else (out, olen)
 
 
 def _encode_linked_plain(stream, src_lens, prefix_lens, delta, jump, M,
-                         acceleration, min_match, reject_step, tails):
+                         acceleration, min_match, reject_step, tails,
+                         mm_rows=None):
     PLAIN_CALLS["encode_linked"] += 1
     S, NB = src_lens.shape
     lens = src_lens.tolist()
     prefix = prefix_lens.tolist()
+    mms = (mm_rows.tolist() if mm_rows is not None
+           else [[min_match] * NB] * S)
     out = torch.zeros((S, NB, M), dtype=torch.uint8)
     olen = torch.zeros((S, NB), dtype=torch.int32)
     tail = []
@@ -746,7 +852,7 @@ def _encode_linked_plain(stream, src_lens, prefix_lens, delta, jump, M,
             rows.append(_scan_plain(
                 buf, start, n, start - pre, start + (0 if pre > 0 else 1),
                 delta[r].tolist(), jump[r].tolist(), True, acceleration,
-                min_match, reject_step, tail))
+                mms[s][k], reject_step, tail))
         _fill_rows(out[s], olen[s], rows)
     if tails:
         return out, olen, torch.tensor(tail, dtype=torch.int32).view(S, NB)

@@ -4,6 +4,19 @@ Counterpart of ``lz4_tpu/spec.py``: only format facts (the public LZ4 block
 and frame specifications), no algorithm state.
 """
 
+# Block format (lz4_Block_format.md)
+MINMATCH = 4                 # shortest match a token encodes (low nibble 0)
+ML_BITS = 4                  # match-length bits of a token
+ML_MASK = (1 << ML_BITS) - 1  # 15
+RUN_BITS = 8 - ML_BITS       # literal-length bits of a token
+RUN_MASK = (1 << RUN_BITS) - 1  # 15
+MAX_DISTANCE = 65535         # largest match offset (2 bytes LE; 0 is invalid)
+# parsing restrictions: a block ends with at least 5 literals, and its last
+# match starts at least 12 bytes before its end
+LASTLITERALS = 5
+MFLIMIT = 12
+LZ4_MINLENGTH = MFLIMIT + 1  # blocks shorter than 13 bytes are all literals
+
 
 def compress_bound(n: int) -> int:
     """Largest compressed size of an ``n``-byte block (0 if n is too large)."""

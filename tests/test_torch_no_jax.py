@@ -220,6 +220,67 @@ def test_port_imports_no_jax_and_round_trips_on_cpu():
     assert res.stdout.strip().endswith("ok")
 
 
+TOOLING = r"""
+import contextlib, importlib.util, io, sys
+sys.modules["jax"] = None             # any "import jax" now raises
+from pathlib import Path
+import torch
+
+# kernel A's adaptive mode and its statistic
+from lz4_tpu_torch.kernels import decode_kernel as dec, encode_kernel as enc
+from lz4_tpu_torch.utils.datagen import gen_buffer
+data = gen_buffer(3 * 65536 - 999, 0.8, 123)
+stream = torch.zeros((1, 4 * 65536), dtype=torch.uint8)
+stream[0, 65536:65536 + len(data)] = torch.frombuffer(bytearray(data),
+                                                     dtype=torch.uint8)
+lens = torch.tensor([[65536, 65536, 65536 - 999]], dtype=torch.int32)
+out, olen = enc.encode_blocks_linked(
+    stream, lens, mm_rows=torch.tensor([[4, 12, 8]], dtype=torch.int32))
+got, glen = dec.decode_blocks_linked(out[0], olen[0], 65536)
+assert b"".join(got[k, :n].numpy().tobytes()
+                for k, n in enumerate(glen.tolist())) == data
+frac = enc.cand_frac8_rows(stream[0, 65536:].reshape(3, 65536))
+assert frac.shape == (3,) and bool(((frac > 0) & (frac < 1)).all())
+
+def load(path):
+    spec = importlib.util.spec_from_file_location(Path(path).stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    assert load("fullbench_torch.py").main(["--device", "cpu", "--kb",
+                                            "64"]) == 0
+    for name in ("tpu_batch", "mesh_frame", "scatter_gather",
+                 "print_version"):
+        assert load(f"examples/torch_port/{name}_torch.py").main(
+            ["--device", "cpu"]) == 0
+text = printed.getvalue()
+assert "device.compress_frame_device " in text and "round-trip" in text, text
+
+assert sys.modules["jax"] is None
+bad = [m for m in sys.modules
+       if m.startswith("jax.") or m == "lz4_tpu" or m.startswith("lz4_tpu.")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_tooling_and_adaptive_mode_run_without_jax():
+    """``fullbench_torch.py``, the twins of ``tpu_batch.py``,
+    ``mesh_frame.py``, ``scatter_gather.py`` and ``print_version.py``, and
+    kernel A's adaptive mode import and run with ``import jax`` failing."""
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run([sys.executable, "-c", TOOLING], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_port_builds_nothing_outside_its_tree(monkeypatch):
     """Every source the port compiles lies in lz4_tpu_torch/, and every
     file it writes in build/: the kernel library and the host XXH32."""

@@ -474,7 +474,8 @@ def test_every_wrapper_launches_under_its_tensors_device(monkeypatch):
     i32 = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
     tenc.encode_blocks(rows, lens)
     stream = torch.zeros((1, 3 * W), dtype=torch.uint8)
-    tenc.encode_blocks_linked(stream, i32(W, W).reshape(1, 2))
+    tenc.encode_blocks_linked(stream, i32(W, W).reshape(1, 2),
+                              mm_rows=i32(4, 8).reshape(1, 2))
     tpack.pack_frame_payloads(rows, i32(10, 10), rows, lens)
     tdec.decode_blocks_linked(rows, i32(10, 10), 4096)
     tdec.decode_blocks(rows, i32(10, 10), 4096)
