@@ -1,0 +1,8 @@
+"""The share of the compress calls' device-idle time in which no step span
+of the port was open (``codecbench/portspans.py``)."""
+
+from codecbench import portspans
+
+
+def read(run):
+    return portspans.unnamed_frac(run, "compress")

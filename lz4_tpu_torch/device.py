@@ -39,6 +39,11 @@ layout outside every kernel's envelope, raise ``DeviceLayoutUnsupported``.
 Every function takes a ``device``; the default ``"cuda"`` raises on a
 machine without a card.  The tests pass ``device="cpu"``, which runs the
 kernels' plain versions.
+
+While a ``torch.profiler`` session records, each call of the three frame
+entry points is a root span and the host's steps inside it are spans
+(``lz4_tpu_torch.trace``): ``walk``, ``copy``, ``launch``, ``link`` and
+``xxh32``.  The counters of ``trace.COUNTS`` are always on.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from . import spec
 from .frame import (FramePreferences, Lz4FrameError, decode_frame_header,
                     encode_frame_header)
 from .kernels import decode_kernel
-from .kernels.common import resolve_device, to_device, to_host
+from .kernels.common import ints_to_device, resolve_device, to_device, to_host
 from .kernels.decode_kernel import (decode_blocks, decode_blocks_linked,
                                     decode_stream_raw)
 from .kernels.encode_kernel import encode_blocks, encode_blocks_linked
@@ -63,6 +68,7 @@ from .kernels.hc_kernel import encode_blocks_hc
 from .kernels.pack_kernel import body_length, pack_frame_payloads
 from .legacy import merge_payloads
 from .ops.xxhash import XXH32State, xxh32
+from .trace import COUNTS, copied, entry, span
 
 BLOCK = 65536  # device-path block granularity
 WINDOW = spec.WINDOW_SIZE
@@ -97,19 +103,39 @@ class DeviceLayoutUnsupported(Lz4FrameError):
 def _split_blocks(data: bytes, block_size: int) -> List[bytes]:
     if not data:
         return [b""]
-    return [data[i:i + block_size] for i in range(0, len(data), block_size)]
+    with span("copy"):
+        blocks = [data[i:i + block_size]
+                  for i in range(0, len(data), block_size)]
+        if blocks[0] is not data:
+            COUNTS["host_copy_bytes"] += len(data)
+        return blocks
+
+
+def _piece(data: bytes, start: int, n: int) -> bytes:
+    """``data[start:start + n]``, a counted copy."""
+    with span("copy"):
+        return copied(data[start:start + n], data)
+
+
+def _join(parts: list) -> bytes:
+    """``b"".join(parts)``, a counted copy (a join of one part hands the
+    part back)."""
+    with span("copy"):
+        return copied(b"".join(parts), *parts[:1])
 
 
 def byte_rows(buffers: List[bytes], width: int, dev):
     """Byte strings -> ([B, width] uint8 rows, zero padded; [B] int32
     lengths), both on ``dev``."""
-    arr = np.zeros((len(buffers), max(width, 1)), np.uint8)
-    lens = np.zeros((len(buffers),), np.int32)
-    for i, b in enumerate(buffers):
-        arr[i, :len(b)] = np.frombuffer(b, np.uint8)
-        lens[i] = len(b)
+    with span("copy"):
+        arr = np.zeros((len(buffers), max(width, 1)), np.uint8)
+        lens = np.zeros((len(buffers),), np.int32)
+        for i, b in enumerate(buffers):
+            arr[i, :len(b)] = np.frombuffer(b, np.uint8)
+            lens[i] = len(b)
+        COUNTS["host_copy_bytes"] += int(lens.sum())
     rows = to_device(arr, dev).reshape(arr.shape)
-    return rows, torch.from_numpy(lens).to(dev)
+    return rows, ints_to_device(lens, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -140,14 +166,18 @@ def decode_batch(comp_list: List[bytes], out_cap: int,
                                              default=1), dev)
     caps = None
     if out_lens is not None:
-        caps = torch.as_tensor(out_lens, dtype=torch.int32).to(dev)
-    out, olen = decode_blocks(rows, lens, out_cap, out_caps=caps)
+        caps = ints_to_device(out_lens, dev)
+    with span("launch"):
+        out, olen = decode_blocks(rows, lens, out_cap, out_caps=caps)
     olen_h = to_host(olen)
     if (olen_h < 0).any():
         bad = int(np.nonzero(olen_h < 0)[0][0])
         raise Lz4FrameError(f"device decode failed on block {bad}")
     out_h = to_host(out[:, :int(olen_h.max(initial=0))])
-    return [out_h[i, :olen_h[i]].tobytes() for i in range(len(comp_list))]
+    with span("copy"):
+        COUNTS["host_copy_bytes"] += int(olen_h.sum())
+        return [out_h[i, :olen_h[i]].tobytes()
+                for i in range(len(comp_list))]
 
 
 # ---------------------------------------------------------------------------
@@ -161,10 +191,13 @@ def linked_stream(data: bytes, prefix: bytes = b"", device="cuda"):
     Block k's window is simply the 64 KB before it in the same buffer, so
     nothing is duplicated.  Returns (stream, lens numpy [1, nb])."""
     nb = max(1, -(-len(data) // WINDOW))
-    host = np.zeros(((nb + 1) * WINDOW,), np.uint8)
-    if prefix:
-        host[WINDOW - len(prefix):WINDOW] = np.frombuffer(prefix, np.uint8)
-    host[WINDOW:WINDOW + len(data)] = np.frombuffer(data, np.uint8)
+    with span("copy"):
+        host = np.zeros(((nb + 1) * WINDOW,), np.uint8)
+        if prefix:
+            host[WINDOW - len(prefix):WINDOW] = np.frombuffer(prefix,
+                                                              np.uint8)
+        host[WINDOW:WINDOW + len(data)] = np.frombuffer(data, np.uint8)
+        COUNTS["host_copy_bytes"] += len(prefix) + len(data)
     lens = np.zeros((1, nb), np.int32)
     for k in range(nb):
         lens[0, k] = max(0, min(WINDOW, len(data) - k * WINDOW))
@@ -180,17 +213,21 @@ def _fetch_body(flat: torch.Tensor, total, block_checksum: bool) -> bytes:
     """The body kernel C packed, as bytes; with block checksums, the XXH32
     of each record's payload is inserted after the record.  Reading the
     total raises ValueError if kernel C found a length outside its row."""
-    body = to_host(flat[:body_length(total)]).tobytes()
+    n = body_length(total)
+    with span("copy"):
+        body = copied(to_host(flat[:n]).tobytes())
     if not block_checksum:
         return body
-    parts, pos = [], 0
-    while pos < len(body):
-        end = pos + 4 + (struct.unpack_from("<I", body, pos)[0]
-                         & ~spec.UNCOMPRESSED_BIT)
-        parts.append(body[pos:end])
-        parts.append(struct.pack("<I", xxh32(body[pos + 4:end], 0)))
-        pos = end
-    return b"".join(parts)
+    with span("walk"):
+        parts, pos = [], 0
+        while pos < len(body):
+            end = pos + 4 + (struct.unpack_from("<I", body, pos)[0]
+                             & ~spec.UNCOMPRESSED_BIT)
+            parts.append(copied(body[pos:end], body))
+            parts.append(struct.pack("<I", xxh32(copied(body[pos + 4:end]),
+                                                 0)))
+            pos = end
+    return _join(parts)
 
 
 def assemble_linked_frame(data: bytes, prefs: FramePreferences,
@@ -201,27 +238,29 @@ def assemble_linked_frame(data: bytes, prefs: FramePreferences,
     (stored block); empty blocks write nothing."""
     parts = []
     pos = 0
-    for payload, blen in zip(payloads, block_lens):
-        if blen == 0:
-            continue
-        if len(payload) >= blen:
-            payload = data[pos:pos + blen]
-            parts.append(struct.pack("<I", blen | spec.UNCOMPRESSED_BIT))
-        else:
-            parts.append(struct.pack("<I", len(payload)))
-        parts.append(payload)
-        if prefs.block_checksum:
-            parts.append(struct.pack("<I", xxh32(payload, 0)))
-        pos += blen
-    return _frame(prefs, data, b"".join(parts))
+    with span("walk"):
+        for payload, blen in zip(payloads, block_lens):
+            if blen == 0:
+                continue
+            if len(payload) >= blen:
+                payload = copied(data[pos:pos + blen], data)
+                parts.append(struct.pack("<I", blen | spec.UNCOMPRESSED_BIT))
+            else:
+                parts.append(struct.pack("<I", len(payload)))
+            parts.append(payload)
+            if prefs.block_checksum:
+                parts.append(struct.pack("<I", xxh32(payload, 0)))
+            pos += blen
+    return _frame(prefs, data, _join(parts))
 
 
 def _frame(prefs: FramePreferences, data: bytes, body: bytes) -> bytes:
     """Header + block records + endmark + optional content checksum."""
-    parts = [encode_frame_header(prefs), body, struct.pack("<I", 0)]
+    with span("walk"):
+        parts = [encode_frame_header(prefs), body, struct.pack("<I", 0)]
     if prefs.content_checksum:
         parts.append(struct.pack("<I", xxh32(data, 0)))
-    return b"".join(parts)
+    return _join(parts)
 
 
 def encode_stream_linked(data: bytes, acceleration: int = 1,
@@ -247,6 +286,7 @@ def encode_stream_linked(data: bytes, acceleration: int = 1,
     return payloads, [int(x) for x in lens[0]]
 
 
+@entry("compress")
 def compress_frame_device(data: bytes,
                           prefs: Optional[FramePreferences] = None,
                           block_size: int = BLOCK,
@@ -261,7 +301,8 @@ def compress_frame_device(data: bytes,
     block-independent through kernel B.  Parity: LZ4F_compressFrame."""
     prefs = dataclasses.replace(prefs) if prefs else FramePreferences()
     dev = resolve_device(device)
-    data = bytes(data)
+    with span("copy"):
+        data = copied(bytes(data), data)
     if prefs.content_size is not None and prefs.content_size != len(data):
         raise Lz4FrameError("content_size does not match data")
     linked = (not prefs.block_independent and len(data) > WINDOW
@@ -276,9 +317,9 @@ def compress_frame_device(data: bytes,
                                          reject_step, device=dev)
             parts = [comp.begin()]
             for i in range(0, len(data), CHUNK):
-                parts.append(comp.update(data[i:i + CHUNK]))
+                parts.append(comp.update(_piece(data, i, CHUNK)))
             parts.append(comp.end())
-            return b"".join(parts)
+            return _join(parts)
         return _compress_frame_device_linked(data, prefs, acceleration,
                                              min_match, reject_step, dev)
     # A linked frame whose data fits one block (or whose block size is not
@@ -289,9 +330,12 @@ def compress_frame_device(data: bytes,
     if block_size > spec.BLOCK_SIZES[prefs.resolved_bsid()]:
         raise Lz4FrameError("block_size exceeds frame block maximum")
     rows, lens = byte_rows(_split_blocks(data, block_size), block_size, dev)
-    out, olen = encode_blocks(rows, lens, acceleration, min_match=min_match,
-                              reject_step=reject_step)
-    flat, total, _stored = pack_frame_payloads(out, olen, rows, lens)
+    with span("launch"):
+        out, olen = encode_blocks(rows, lens, acceleration,
+                                  min_match=min_match,
+                                  reject_step=reject_step)
+    with span("launch"):
+        flat, total, _stored = pack_frame_payloads(out, olen, rows, lens)
     return _frame(prefs, data, _fetch_body(flat, total, prefs.block_checksum))
 
 
@@ -304,15 +348,16 @@ def dispatch_linked(data: bytes, prefix: bytes, acceleration: int,
     records, for ``_fetch_body``."""
     nb = max(1, -(-len(data) // WINDOW))
     stream, lens = linked_stream(data, prefix, dev)
-    lens_d = torch.from_numpy(lens).to(dev)
-    out, olen = encode_blocks_linked(
-        stream, lens_d, acceleration,
-        prefix_lens=torch.tensor([len(prefix)], dtype=torch.int32,
-                                 device=dev),
-        min_match=min_match, reject_step=reject_step)
-    flat, total, _stored = pack_frame_payloads(
-        out.reshape(nb, -1), olen.reshape(nb), _block_view(stream, nb),
-        lens_d.reshape(nb))
+    lens_d = ints_to_device(lens, dev)
+    prefix_d = ints_to_device([len(prefix)], dev)
+    with span("launch"):
+        out, olen = encode_blocks_linked(
+            stream, lens_d, acceleration, prefix_lens=prefix_d,
+            min_match=min_match, reject_step=reject_step)
+    with span("launch"):
+        flat, total, _stored = pack_frame_payloads(
+            out.reshape(nb, -1), olen.reshape(nb), _block_view(stream, nb),
+            lens_d.reshape(nb))
     return flat, total
 
 
@@ -326,6 +371,7 @@ def _compress_frame_device_linked(data: bytes, prefs: FramePreferences,
     return _frame(prefs, data, _fetch_body(flat, total, prefs.block_checksum))
 
 
+@entry("compress")
 def compress_frame_device_hc(data: bytes,
                              prefs: Optional[FramePreferences] = None,
                              level: int = 9, device="cuda") -> bytes:
@@ -341,21 +387,24 @@ def compress_frame_device_hc(data: bytes,
     if not prefs.block_independent:
         warnings.warn("device HC emits block-independent frames; "
                       "linked (-BD) HC demoted to independent blocks",
-                      stacklevel=2)
+                      stacklevel=3)      # past trace.entry's wrapper
     prefs.block_independent = True
     if prefs.block_size_id == 0:
         prefs.block_size_id = 4
     if prefs.content_size is not None and prefs.content_size != len(data):
         raise Lz4FrameError("content_size does not match data")
-    data = bytes(data)
+    with span("copy"):
+        data = copied(bytes(data), data)
     blocks = _split_blocks(data, BLOCK)
     bodies = []
     for g in range(0, len(blocks), HC_GROUP_ROWS):
         rows, lens = byte_rows(blocks[g:g + HC_GROUP_ROWS], BLOCK, dev)
-        out, olen = encode_blocks_hc(rows, lens, level)
-        flat, total, _stored = pack_frame_payloads(out, olen, rows, lens)
+        with span("launch"):
+            out, olen = encode_blocks_hc(rows, lens, level)
+        with span("launch"):
+            flat, total, _stored = pack_frame_payloads(out, olen, rows, lens)
         bodies.append(_fetch_body(flat, total, prefs.block_checksum))
-    return _frame(prefs, data, b"".join(bodies))
+    return _frame(prefs, data, _join(bodies))
 
 
 def _fetch_payloads(out: torch.Tensor, olen: torch.Tensor,
@@ -585,7 +634,8 @@ class DeviceFrameCompressor:
 
     def begin(self) -> bytes:
         self._begun = True
-        return encode_frame_header(self.prefs)
+        with span("walk"):
+            return encode_frame_header(self.prefs)
 
     def _require_begun(self) -> None:
         if not self._begun:
@@ -597,7 +647,9 @@ class DeviceFrameCompressor:
         if self._pending is None:
             return
         flat, total = self._pending
-        self._owed += _fetch_body(flat, total, self.prefs.block_checksum)
+        body = _fetch_body(flat, total, self.prefs.block_checksum)
+        with span("copy"):
+            self._owed = copied(self._owed + body, body)
         self._pending = None
 
     def _take_owed(self) -> bytes:
@@ -614,19 +666,22 @@ class DeviceFrameCompressor:
         if data and len(data) % WINDOW == 0:
             # whole blocks: the chunk crosses the link once; the window is
             # the previous chunk's last block, already on the device
-            stream = torch.empty((1, (nb + 1) * WINDOW), dtype=torch.uint8,
-                                 device=dev)
-            if self._tail_dev is not None:
-                stream[0, :WINDOW] = self._tail_dev
-                plen = WINDOW
-            else:
-                window = np.zeros((WINDOW,), np.uint8)
-                if prefix:
-                    window[WINDOW - len(prefix):] = np.frombuffer(prefix,
-                                                                  np.uint8)
-                stream[0, :WINDOW] = to_device(window, dev)
-                plen = len(prefix)
-            stream[0, WINDOW:] = to_device(data, dev)
+            with span("launch"):            # the stream, staged on the card
+                stream = torch.empty((1, (nb + 1) * WINDOW),
+                                     dtype=torch.uint8, device=dev)
+                if self._tail_dev is not None:
+                    stream[0, :WINDOW] = self._tail_dev
+                    plen = WINDOW
+                else:
+                    with span("copy"):
+                        window = np.zeros((WINDOW,), np.uint8)
+                        if prefix:
+                            window[WINDOW - len(prefix):] = np.frombuffer(
+                                prefix, np.uint8)
+                        COUNTS["host_copy_bytes"] += len(prefix)
+                    stream[0, :WINDOW] = to_device(window, dev)
+                    plen = len(prefix)
+                stream[0, WINDOW:] = to_device(data, dev)
             lens = [WINDOW] * nb
             tail_dev = stream[0, nb * WINDOW:]
             zero_lanes = True
@@ -636,15 +691,17 @@ class DeviceFrameCompressor:
             plen = len(prefix)
             tail_dev = None
             zero_lanes = False
-        lens_d = torch.tensor([lens], dtype=torch.int32, device=dev)
-        prefix_d = torch.tensor([plen], dtype=torch.int32, device=dev)
-        out, olen = encode_blocks_linked(
-            stream, lens_d, self.acceleration, prefix_lens=prefix_d,
-            min_match=self.min_match, reject_step=self.reject_step,
-            zero_window_lanes=zero_lanes)
-        flat, total, _stored = pack_frame_payloads(
-            out.reshape(nb, -1), olen.reshape(nb), _block_view(stream, nb),
-            lens_d.reshape(nb))
+        lens_d = ints_to_device([lens], dev)
+        prefix_d = ints_to_device([plen], dev)
+        with span("launch"):
+            out, olen = encode_blocks_linked(
+                stream, lens_d, self.acceleration, prefix_lens=prefix_d,
+                min_match=self.min_match, reject_step=self.reject_step,
+                zero_window_lanes=zero_lanes)
+        with span("launch"):
+            flat, total, _stored = pack_frame_payloads(
+                out.reshape(nb, -1), olen.reshape(nb),
+                _block_view(stream, nb), lens_d.reshape(nb))
         return (flat, total), tail_dev
 
     def _advance(self, data: bytes, tail_dev) -> None:
@@ -653,20 +710,24 @@ class DeviceFrameCompressor:
         self._total += len(data)
         if self.prefs.content_checksum:
             self._xxh.update(data)
-        self._tail = (self._tail + data)[-WINDOW:]
+        with span("copy"):
+            joined = copied(self._tail + data, data)
+            self._tail = copied(joined[-WINDOW:], joined)
         self._tail_dev = tail_dev
 
     def update(self, chunk: bytes) -> bytes:
         self._require_begun()
-        data = self._buf + bytes(chunk)
-        whole = (len(data) // WINDOW) * WINDOW
+        with span("copy"):
+            chunk = copied(bytes(chunk), chunk)
+            data = copied(self._buf + chunk, chunk)
+            whole = (len(data) // WINDOW) * WINDOW
+            body = copied(data[:whole], data) if whole else b""
         if not whole:
             self._buf = data
             return self._take_owed()
-        body = data[:whole]
         cur, tail_dev = self._dispatch(body, self._tail)
         self._emit_pending()                # the previous chunk
-        self._buf = data[whole:]
+        self._buf = copied(data[whole:], data)
         self._advance(body, tail_dev)
         self._pending = cur
         return self._take_owed()
@@ -678,7 +739,8 @@ class DeviceFrameCompressor:
         body = _fetch_body(flat, total, self.prefs.block_checksum)
         self._advance(data, tail_dev)
         self._buf = b""
-        self._owed += body
+        with span("copy"):
+            self._owed = copied(self._owed + body, body)
 
     def flush(self) -> bytes:
         """Emit the buffered sub-block remainder now as a (possibly short)
@@ -702,7 +764,7 @@ class DeviceFrameCompressor:
         parts = [self._take_owed(), struct.pack("<I", 0)]
         if self.prefs.content_checksum:
             parts.append(struct.pack("<I", self._xxh.digest()))
-        return b"".join(parts)
+        return _join(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -715,14 +777,14 @@ def _literal_block(payload: bytes) -> bytes:
     keeps the window contract intact."""
     n = len(payload)
     if n < 15:
-        return bytes([n << 4]) + payload
+        return copied(bytes([n << 4]) + payload)
     ext = n - 15
     out = bytearray([0xF0])
     while ext >= 255:
         out.append(255)
         ext -= 255
     out.append(ext)
-    return bytes(out) + payload
+    return copied(bytes(out) + payload)
 
 
 def _read_blocks(frame: bytes, pos: int, info):
@@ -755,7 +817,7 @@ def _read_blocks(frame: bytes, pos: int, info):
             if pos + 4 > len(frame):
                 raise Lz4FrameError("truncated block checksum")
             want = struct.unpack_from("<I", frame, pos)[0]
-            if xxh32(frame[pos - size:pos], 0) != want:
+            if xxh32(copied(frame[pos - size:pos]), 0) != want:
                 raise Lz4FrameError("block checksum mismatch")
             pos += 4
 
@@ -812,21 +874,23 @@ def decode_stream_runs(buf, starts: Sequence[int], sizes: Sequence[int],
             continue
         base = starts[i] - lead
         run = buf[starts[i]:starts[j - 1] + sizes[j - 1]]
-        flat = b"".join((tail, run)) if lead else run
+        flat = _join([tail, run]) if lead else run
         head = [lead] if lead else []
-        out, ol = decode_stream_raw(
-            to_device(flat, dev),
-            [0] * len(head) + [s - base for s in starts[i:j]],
-            head + list(sizes[i:j]), [True] * len(head) + stored[i:j],
-            block_size, 0, linked, out_caps=head + list(caps[i:j]))
+        with span("launch"):
+            out, ol = decode_stream_raw(
+                to_device(flat, dev),
+                [0] * len(head) + [s - base for s in starts[i:j]],
+                head + list(sizes[i:j]), [True] * len(head) + stored[i:j],
+                block_size, 0, linked, out_caps=head + list(caps[i:j]))
         ol = to_host(ol).astype(np.int64)[len(head):]
         olen[i:j] = ol
         got = int(ol[ol > 0].sum())
         if got:
-            parts.append(to_host(out[lead:lead + got]).tobytes())
-            if linked:
-                tail = (tail + parts[-1][-WINDOW:])[-WINDOW:]
-    return b"".join(parts), olen
+            with span("copy"):
+                parts.append(copied(to_host(out[lead:lead + got]).tobytes()))
+                if linked:
+                    tail = copied((tail + parts[-1][-WINDOW:])[-WINDOW:])
+    return _join(parts), olen
 
 
 def _decode_stream_blocks(buf, starts: List[int], sizes: List[int],
@@ -854,8 +918,10 @@ def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
     short, the successors' one-block window is wrong, so the whole chain is
     decoded again by kernel E in linked mode, with caps of ``bs``."""
     G = DEC_GROUP_BLOCKS
-    payloads = [_literal_block(frame[s:s + n]) if st else frame[s:s + n]
-                for s, n, st in zip(starts, sizes, stored)]
+    with span("copy"):
+        payloads = [_literal_block(frame[s:s + n]) if st else frame[s:s + n]
+                    for s, n, st in zip(starts, sizes, stored)]
+        COUNTS["host_copy_bytes"] += sum(sizes)
     nblocks = len(payloads)
     win = None
     pending: List[Tuple] = []
@@ -866,22 +932,26 @@ def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
         out_d, olen_d, first = pending.pop(0)
         olen = to_host(olen_d)
         out = to_host(out_d)
-        for i, n in enumerate(olen.tolist()):
-            g = first + i
-            if n < 0:
-                raise Lz4FrameError(f"device decode failed on block {g}")
-            if n != bs and g != nblocks - 1:
-                return False
-            chunks.append(out[i, :n].tobytes())
+        with span("copy"):
+            for i, n in enumerate(olen.tolist()):
+                g = first + i
+                if n < 0:
+                    raise Lz4FrameError(f"device decode failed on block {g}")
+                if n != bs and g != nblocks - 1:
+                    COUNTS["host_copy_bytes"] += int(olen[:i].sum())
+                    return False
+                chunks.append(out[i, :n].tobytes())
+            COUNTS["host_copy_bytes"] += int(olen.sum())
         return True
 
     full = True
     for first in range(0, nblocks, G):
         grp = payloads[first:first + G]
         rows, lens = byte_rows(grp, max(len(c) for c in grp), dev)
-        out_d, olen_d = decode_blocks_linked(
-            rows, lens, bs, init_window=win,
-            init_window_len=bs if win is not None else 0)
+        with span("launch"):
+            out_d, olen_d = decode_blocks_linked(
+                rows, lens, bs, init_window=win,
+                init_window_len=bs if win is not None else 0)
         win = out_d[len(grp) - 1]
         pending.append((out_d, olen_d, first))
         if len(pending) > 1 and not drain():
@@ -892,9 +962,10 @@ def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
     if not full:
         return _decode_stream_blocks(frame, starts, sizes, stored,
                                      [bs] * nblocks, bs, True, dev)
-    return b"".join(chunks)
+    return _join(chunks)
 
 
+@entry("decompress")
 def decompress_frame_device(frame: bytes, device="cuda") -> Tuple[bytes, int]:
     """One-shot frame decompression with all block work on the device.
 
@@ -903,9 +974,12 @@ def decompress_frame_device(frame: bytes, device="cuda") -> Tuple[bytes, int]:
     frame, in runs (``decode_stream_runs``), so a frame of any length
     decodes.  Returns (content, bytes_consumed)."""
     dev = resolve_device(device)
-    frame = bytes(frame)
-    info = decode_frame_header(frame)
-    starts, sizes, stored, pos = _read_blocks(frame, info.header_size, info)
+    with span("copy"):
+        frame = copied(bytes(frame), frame)
+    with span("walk"):
+        info = decode_frame_header(frame)
+        starts, sizes, stored, pos = _read_blocks(frame, info.header_size,
+                                                  info)
     bs = info.block_size
     if not starts:
         content = b""
@@ -915,11 +989,15 @@ def decompress_frame_device(frame: bytes, device="cuda") -> Tuple[bytes, int]:
         content = _decode_stream_blocks(frame, starts, sizes, stored, caps,
                                         bs, not info.block_independent, dev)
     elif info.block_independent:
-        todo = [frame[s:s + n] for s, n, st in zip(starts, sizes, stored)
-                if not st]
+        with span("copy"):
+            todo = [frame[s:s + n] for s, n, st in zip(starts, sizes, stored)
+                    if not st]
+            # every payload is sliced once: here, or in the join if stored
+            COUNTS["host_copy_bytes"] += sum(sizes)
         decoded = iter(decode_batch(todo, bs, device=dev) if todo else [])
-        content = b"".join(frame[s:s + n] if st else next(decoded)
-                           for s, n, st in zip(starts, sizes, stored))
+        with span("copy"):
+            content = _join([frame[s:s + n] if st else next(decoded)
+                             for s, n, st in zip(starts, sizes, stored)])
     else:
         if bs < WINDOW:
             raise DeviceLayoutUnsupported(

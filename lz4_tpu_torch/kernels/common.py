@@ -7,24 +7,20 @@ the ``from_jax_lanes``/``to_jax_lanes`` boundary that the tests use.
 
 Every kernel wrapper counts its launches in ``LAUNCHES`` (one per launch on
 the card) and the calls of its plain PyTorch version in ``PLAIN_CALLS``, so
-a run can show which path it took.
+a run can show which path it took.  The counters live in
+``lz4_tpu_torch.trace`` beside ``COUNTS``; ``to_device``, ``ints_to_device``
+and ``to_host`` count their bytes and waits there, each a ``link`` span.
 """
 
 from __future__ import annotations
 
-import collections
 import warnings
 
 import numpy as np
 import torch
 
-LAUNCHES: collections.Counter = collections.Counter()
-PLAIN_CALLS: collections.Counter = collections.Counter()
-
-
-def reset_counts() -> None:
-    LAUNCHES.clear()
-    PLAIN_CALLS.clear()
+from ..trace import (COUNTS, LAUNCHES, PLAIN_CALLS,  # noqa: F401
+                     reset_counts, span)
 
 
 def resolve_device(device) -> torch.device:
@@ -69,26 +65,45 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _copy_to(t: torch.Tensor, dev) -> torch.Tensor:
+    """A blocking copy of host tensor ``t`` to ``dev``, counted: a blocking
+    copy waits for the device's stream first."""
+    COUNTS["h2d_bytes"] += t.numel() * t.element_size()
+    COUNTS["syncs"] += 1
+    return t.to(dev, copy=True)
+
+
 def to_device(data, device) -> torch.Tensor:
     """bytes / uint8 numpy array -> 1-D uint8 tensor on ``device`` (always
     a copy, never a view of the caller's buffer)."""
-    dev = resolve_device(device)
-    with warnings.catch_warnings():
-        # read-only buffers are copied right below, never written
-        warnings.simplefilter("ignore", UserWarning)
-        if isinstance(data, np.ndarray):
-            view = torch.from_numpy(
-                np.ascontiguousarray(data, dtype=np.uint8).reshape(-1))
-        elif len(data):
-            view = torch.frombuffer(data, dtype=torch.uint8)
-        else:
-            view = torch.empty((0,), dtype=torch.uint8)
-    return view.to(dev, copy=True)
+    with span("link"):
+        dev = resolve_device(device)
+        with warnings.catch_warnings():
+            # read-only buffers are copied right below, never written
+            warnings.simplefilter("ignore", UserWarning)
+            if isinstance(data, np.ndarray):
+                view = torch.from_numpy(
+                    np.ascontiguousarray(data, dtype=np.uint8).reshape(-1))
+            elif len(data):
+                view = torch.frombuffer(data, dtype=torch.uint8)
+            else:
+                view = torch.empty((0,), dtype=torch.uint8)
+        return _copy_to(view, dev)
+
+
+def ints_to_device(values, dev, dtype=torch.int32) -> torch.Tensor:
+    """Host integers (nested lists or a numpy array) -> a ``dtype`` tensor
+    on ``dev``, copied and counted as ``to_device`` copies."""
+    with span("link"):
+        return _copy_to(torch.as_tensor(values, dtype=dtype), dev)
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """uint8 tensor -> numpy array on the host."""
-    return t.detach().to("cpu").numpy()
+    with span("link"):
+        COUNTS["d2h_bytes"] += t.numel() * t.element_size()
+        COUNTS["syncs"] += 1
+        return t.detach().to("cpu").numpy()
 
 
 def le32_lanes(u8: torch.Tensor) -> torch.Tensor:

@@ -47,8 +47,8 @@ import numpy as np
 import torch
 
 from . import build
-from .common import (LAUNCHES, PLAIN_CALLS, check, to_device, on_device,
-                     use_kernel)
+from .common import (LAUNCHES, PLAIN_CALLS, check, ints_to_device,
+                     on_device, to_device, use_kernel)
 
 ERR_MALFORMED = -1
 MAX_OFFSET = 65535                # the largest LZ4 match offset
@@ -580,8 +580,7 @@ def decode_stream_raw(flat: torch.Tensor, bstart, clen, stored,
     olen = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return out, olen
-    meta = torch.from_numpy(np.stack([bstart, clen, caps, stored])
-                            .astype(np.int32)).to(dev)
+    meta = ints_to_device(np.stack([bstart, clen, caps, stored]), dev)
     dst = torch.empty((B,), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = build.kernels_lib()
@@ -606,7 +605,7 @@ def decode_stream_raw(flat: torch.Tensor, bstart, clen, stored,
         def i32(n):
             return torch.empty((n,), dtype=torch.int32, device=dev)
 
-        spans = torch.from_numpy(lay["spans"]).to(dev)
+        spans = ints_to_device(lay["spans"], dev, torch.int64)
         pbuf = torch.empty((pmax,), dtype=torch.uint8, device=dev)
         parse, slots = i32(4 * pmax), i32(2 * smax)
         tiles = i32(2 * -(-pmax // SPAN_TILE))

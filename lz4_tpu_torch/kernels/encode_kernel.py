@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from .. import spec
+from .. import spec, trace
 from . import build
 from .common import (LAUNCHES, PLAIN_CALLS, check, le32_lanes, on_device,
                      use_kernel)
@@ -142,6 +142,7 @@ def _next_candidate(d: torch.Tensor) -> torch.Tensor:
     return torch.cummin(cand, dim=1).values.flip(1)
 
 
+@trace.timed("tables")
 def linked_tables(stream: torch.Tensor, nb: int, min_match: int = 4,
                   zero_window_lanes: Optional[torch.Tensor] = None,
                   mm_rows: Optional[torch.Tensor] = None):

@@ -48,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from . import build
 from .common import (LAUNCHES, PLAIN_CALLS, check, le32_lanes, on_device,
                      use_kernel)
@@ -112,6 +113,7 @@ def table_dtype(ns: int) -> torch.dtype:
     return torch.int16 if ns <= MAX_BLOCK else torch.int32
 
 
+@trace.timed("tables")
 def hc_sorted_tables(rows: torch.Tensor):
     """Kernel I's tables for [B, NS] uint8 rows: ``(perm, slot)``, both
     [B, NS] of ``table_dtype(NS)``.

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from .. import spec
+from ..trace import COUNTS, span
 from . import build
 from .common import LAUNCHES, PLAIN_CALLS, check, on_device, use_kernel
 
@@ -52,8 +53,12 @@ def pack_prologue_plain(olen: torch.Tensor, blen: torch.Tensor, M: int,
 
 def body_length(total: torch.Tensor) -> int:
     """The body's byte count from ``pack_frame_payloads``' ``total``, read
-    with its fault flag in one copy; raises ValueError on a fault."""
-    n, fault = total.tolist()
+    with its fault flag in one copy (a ``link`` span, counted as a wait);
+    raises ValueError on a fault."""
+    with span("link"):
+        COUNTS["d2h_bytes"] += total.numel() * total.element_size()
+        COUNTS["syncs"] += 1
+        n, fault = total.tolist()
     if fault:
         raise ValueError(ROW_FAULT)
     return n

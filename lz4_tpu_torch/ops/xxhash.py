@@ -5,7 +5,8 @@ Counterpart of ``lz4_tpu/ops/xxhash_np.py`` and ``xxhash_native.py``.  The
 one-shot hash and the stripe rounds of the streaming state come from the
 port's own ``csrc/xxh32_stream.c``, compiled with ``cc`` into a library in
 the port's build directory at first use; without a compiler both fall back
-to the pure-Python code below.
+to the pure-Python code below.  Each call is an ``xxh32`` span and counts
+its input in ``COUNTS["xxh32_bytes"]``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import ctypes
 import shutil
 
 from ..kernels import build
+from ..trace import COUNTS, copied, span
 
 M32 = 0xFFFFFFFF
 P32_1 = 2654435761
@@ -88,7 +90,14 @@ class XXH32State:
         self.total = 0
 
     def update(self, data: bytes) -> None:
-        data = self.buf + bytes(data) if self.buf else bytes(data)
+        with span("xxh32"):
+            COUNTS["xxh32_bytes"] += len(data)
+            self._update(data)
+
+    def _update(self, data: bytes) -> None:
+        data = copied(bytes(data), data)
+        if self.buf:
+            data = copied(self.buf + data)
         self.total += len(data) - len(self.buf)
         lib = _load_native()
         if lib is not None:
@@ -107,9 +116,13 @@ class XXH32State:
                                                  "little"))
                 i += 16
             self.v = [v1, v2, v3, v4]
-        self.buf = data[i:]
+        self.buf = copied(data[i:], data)
 
     def digest(self) -> int:
+        with span("xxh32"):
+            return self._digest()
+
+    def _digest(self) -> int:
         if self.total >= 16:
             v1, v2, v3, v4 = self.v
             h = (_rotl32(v1, 1) + _rotl32(v2, 7) + _rotl32(v3, 12)
@@ -121,10 +134,12 @@ class XXH32State:
 
 def xxh32(data: bytes, seed: int = 0) -> int:
     """One-shot XXH32 of ``data``."""
-    data = bytes(data)
-    lib = _load_native()
-    if lib is not None:
-        return lib.lz4tt_xxh32(data, len(data), seed & M32)
-    st = XXH32State(seed)
-    st.update(data)
-    return st.digest()
+    with span("xxh32"):
+        COUNTS["xxh32_bytes"] += len(data)
+        data = copied(bytes(data), data)
+        lib = _load_native()
+        if lib is not None:
+            return lib.lz4tt_xxh32(data, len(data), seed & M32)
+        st = XXH32State(seed)
+        st._update(data)
+        return st._digest()
