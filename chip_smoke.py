@@ -9,6 +9,7 @@
                                                 # (I behind prefixes too)
     python3 chip_smoke.py --xxh-times ROOT      # kernels J and K of ROOT
     python3 chip_smoke.py --parallel-only       # steps 13 and 14 alone
+    python3 chip_smoke.py --landing-only        # step 20 alone
 
 1. Checks for a card and prints its name and power limit.
 2. Builds the kernels from lz4_tpu_torch/csrc (nvcc, sm_90a).
@@ -244,6 +245,16 @@
 19. The example twins of ``tpu_batch.py``, ``mesh_frame.py``,
    ``scatter_gather.py`` and ``print_version.py``, each once without
    ``--device`` (on the card).
+20. The decompress landing, with its own counter reset and read: the
+   corpus as an hc9 frame (kernel D batch) and a 64 MiB object of 1 MiB
+   segments, half of them noise, as a linked -BD frame (kernel D linked,
+   stored blocks), each decoded 3 times through decompress_frame_device,
+   every output ``bytes`` equal to its input and ``pinned_d2h_bytes``
+   equal to its length; no pinned memory allocated after a frame's first
+   call (where PyTorch's host allocator reports its count); then both
+   frames decoded at once in two threads, twice each, byte-exact.  Batch
+   and linked D must launch, and no plain version run.  --landing-only
+   runs steps 1, 2 and 20 alone.
 
 Prints a JSON line of the kernels (each with the launch count of the phase
 that drives it, every phase's counts, its time on the card, its plain
@@ -3241,6 +3252,147 @@ def parallel_phases(corpus: bytes, mesh_ref, card_line: str,
     return counts, {**mesh_times, "multihost": mh_times}
 
 
+# -- the decompress landing (step 20) -----------------------------------------
+LANDING_CALLS = 3                  # decodes of each frame, one after another
+
+
+def half_noise(text: bytes, seed: int) -> bytes:
+    """``text``'s length in 1 MiB segments, exactly half of them seeded
+    noise, in a seeded order; the others are the text's segments there."""
+    import numpy as np
+
+    seg = 1 << 20
+    kinds = np.random.default_rng(seed).permutation(
+        [0, 1] * (len(text) // seg // 2))
+    return b"".join(noise_bytes(seg, seed + i) if kind
+                    else text[i * seg:(i + 1) * seg]
+                    for i, kind in enumerate(kinds))
+
+
+def host_allocs(torch):
+    """The pinned allocations PyTorch's caching host allocator has made, or
+    None where it reports no such count."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    return stats().get("num_host_alloc") if stats else None
+
+
+def landing_phase(corpus: bytes, dev) -> dict:
+    """``decompress_frame_device``'s landing on the card: the corpus as an
+    hc9 frame (independent 64 KB blocks, kernel D batch) and a half-noise
+    object as a linked -BD frame (kernel D linked, stored blocks), each
+    decoded LANDING_CALLS times, every output ``bytes`` equal to its input
+    and ``pinned_d2h_bytes`` equal to its content, with no pinned memory
+    allocated after each frame's first call; then both decoded at once in
+    two threads.  Returns the walls, counts and allocations."""
+    import threading
+
+    import torch
+
+    from lz4_tpu_torch import device as D
+    from lz4_tpu_torch import trace
+    from lz4_tpu_torch.frame import FramePreferences
+
+    mixed = half_noise(corpus, 7)
+    frames = {
+        "hc9": (corpus, D.compress_frame_device_hc(corpus, FramePreferences(
+            block_size_id=4, block_independent=True, content_checksum=True),
+            level=9, device=dev)),
+        "mixed linked": (mixed, D.compress_frame_device(
+            mixed, FramePreferences(block_size_id=4, content_checksum=True),
+            device=dev))}
+    record = {"calls": LANDING_CALLS}
+    for what, (data, frame) in frames.items():
+        walls, allocs = [], []
+        for _ in range(LANDING_CALLS):
+            trace.reset_counts()
+            t0 = time.perf_counter()
+            content, used = D.decompress_frame_device(frame, device=dev)
+            walls.append(time.perf_counter() - t0)
+            allocs.append(host_allocs(torch))
+            if type(content) is not bytes or content != data \
+                    or used != len(frame):
+                raise SmokeFailure(f"landing phase: the {what} frame does "
+                                   f"not decode to its input")
+            if trace.COUNTS["pinned_d2h_bytes"] != len(data):
+                raise SmokeFailure(
+                    f"landing phase: {what}: pinned_d2h_bytes "
+                    f"{trace.COUNTS['pinned_d2h_bytes']}, content "
+                    f"{len(data)}")
+        if allocs[0] is not None and len(set(allocs)) != 1:
+            raise SmokeFailure(f"landing phase: {what}: pinned allocations "
+                               f"after the first call: {allocs}")
+        record[what] = {"walls_s": walls, "host_allocs": allocs,
+                        "frame_bytes": len(frame),
+                        "counts": dict(trace.COUNTS)}
+        log(f"[landing] {what}: {len(frame)} B frame, {LANDING_CALLS} "
+            f"decodes byte-exact, walls {[round(w, 4) for w in walls]} s, "
+            f"pinned_d2h_bytes = content, host allocations after each call "
+            f"{allocs}")
+    errors, outs = [], {}
+
+    def decode(what):
+        try:
+            for _ in range(2):
+                outs[what] = D.decompress_frame_device(frames[what][1],
+                                                       device=dev)[0]
+                if outs[what] != frames[what][0]:
+                    errors.append(what)
+        except Exception as e:                  # noqa: BLE001
+            errors.append(f"{what}: {e!r}")
+
+    threads = [threading.Thread(target=decode, args=(what,))
+               for what in frames]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors or len(outs) != len(frames):
+        raise SmokeFailure(f"landing phase: two threads at once: {errors}")
+    record["threads"] = "both byte-exact, twice each"
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    record["host_memory_stats"] = dict(stats()) if stats else None
+    log(f"[landing] two threads decoding both frames at once, twice each: "
+        f"byte-exact; host allocator {record['host_memory_stats']}")
+    return record
+
+
+def landing_only() -> int:
+    """Steps 1, 2 and 20 alone: the card line, the build, the corpus, then
+    the landing phase; prints its JSON line and the last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from lz4_tpu_torch.kernels import build, common
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card_line = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+                 else f"nvidia-smi: {smi.stderr.strip()}")
+    log(card_line)
+    name = torch.cuda.get_device_name(0)
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {name}")
+    build.kernels_lib()
+    common.reset_counts()
+    record = landing_phase(real_text_corpus(CORPUS_BYTES),
+                           torch.device("cuda"))
+    if common.PLAIN_CALLS or not (common.LAUNCHES["decode_batch"]
+                                  and common.LAUNCHES["decode_linked"]):
+        raise SmokeFailure(f"landing phase: launches "
+                           f"{dict(common.LAUNCHES)}, plain calls "
+                           f"{dict(common.PLAIN_CALLS)}")
+    log(json.dumps({"card": card_line, "landing_phase": record}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def parallel_only() -> int:
     """Steps 1, 2, 13 and 14 alone (the four-card check): the card line,
     the build, the corpus, one unsharded encode_blocks call of its rows,
@@ -5014,6 +5166,12 @@ def main() -> int:
                 []) != 0:
             raise SmokeFailure(f"examples/torch_port/{script} failed")
 
+    # -- 20. the decompress landing -----------------------------------------
+    common.reset_counts()
+    landing_record = landing_phase(corpus, cuda)
+    counts["landing"] = phase_counts("landing", ["decode_batch",
+                                                 "decode_linked"])
+
     unbound = [k for k in KERNELS if "bound_ms" not in stats[k]]
     if unbound:
         raise SmokeFailure(f"no bound computed for {unbound}")
@@ -5027,7 +5185,7 @@ def main() -> int:
         "destsize_phase": ds_times, "legacy_phase": legacy_times,
         "envelope_phase": envelope_times, "mesh_phase": mesh_times,
         "api_phase": api_record, "hc_api_phase": hc_api_record,
-        "fullbench_s": fullbench_s}
+        "fullbench_s": fullbench_s, "landing_phase": landing_record}
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -5048,6 +5206,8 @@ if __name__ == "__main__":
         sys.exit(xxh_times(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--parallel-only"] and len(sys.argv) == 2:
         sys.exit(parallel_only())
+    if sys.argv[1:2] == ["--landing-only"] and len(sys.argv) == 2:
+        sys.exit(landing_only())
     if sys.argv[1:2] == ["--multihost-worker"] and len(sys.argv) == 7:
         sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]),
                                   *sys.argv[4:7]))

@@ -15,7 +15,9 @@ container (a few bytes per 64 KB block); the kernels do the block work:
 * decompress: ``decompress_frame_device`` -> ``decode_blocks_linked``
   (kernel D, linked mode) in groups of ``DEC_GROUP_BLOCKS`` blocks, the
   window handed from group to group on the device; independent frames of
-  64 KB blocks take ``decode_blocks`` (kernel D, batch mode).  Frames of
+  64 KB blocks take ``decode_blocks`` (kernel D, batch mode).  Both fetch
+  the decoded rows into one pinned host buffer and copy the content out of
+  it once (``_Landing``).  Frames of
   larger blocks (the ``lz4`` CLI writes 4 MB blocks by default) take
   ``decode_stream_raw`` (kernel E) over the raw frame, and so do legacy
   files (``decompress_legacy_device``, 8 MB blocks).  A linked chain with a
@@ -787,6 +789,65 @@ def _literal_block(payload: bytes) -> bytes:
     return copied(bytes(out) + payload)
 
 
+class _Landing:
+    """Decoded content on its way to the host, gathered for one copy out.
+
+    On the card each run of decoded rows is fetched with one non-blocking
+    D2H into its place in one pinned host buffer of ``size`` bytes
+    (``torch.empty(..., pin_memory=True)``).  PyTorch's caching host
+    allocator hands the buffer out and takes it back when the call drops
+    it, so a caller in a steady state allocates no pinned memory and two
+    callers at once never share one.  The cache keeps each buffer it has
+    handed out, rounded up to a power of two (64 MiB per caller decoding
+    objects of 64 MiB), until the process ends or the host cache is
+    emptied.  On the CPU the rows are
+    host memory already and are read where they lie.  ``content`` waits
+    once for the stream, then joins the runs and the stored blocks, which
+    come straight from the frame, in one host copy: a new ``bytes``, never
+    a view of the landing."""
+
+    def __init__(self, size: int, dev: torch.device):
+        self.dev = dev
+        self.pinned = None
+        if dev.type == "cuda" and size > 0:
+            self.pinned = torch.empty((size,), dtype=torch.uint8,
+                                      pin_memory=True)
+        self.used = 0
+        self.fetched = False
+        self.parts: list = []
+
+    def fetch(self, flat: torch.Tensor, start: int, n: int) -> None:
+        """Fetch ``flat[start:start + n]`` of 1-D decoded rows, next in
+        the content."""
+        if n <= 0:
+            return
+        with span("link"):
+            COUNTS["d2h_bytes"] += n
+            COUNTS["pinned_d2h_bytes"] += n
+            self.fetched = True
+            src = flat[start:start + n]
+            if self.pinned is None:
+                self.parts.append(src.numpy())
+                return
+            dst = self.pinned[self.used:self.used + n]
+            dst.copy_(src, non_blocking=True)
+            self.used += n
+            self.parts.append(dst.numpy())
+
+    def stored(self, frame: memoryview, start: int, n: int) -> None:
+        """A stored block's bytes, next in the content."""
+        self.parts.append(frame[start:start + n])
+
+    def content(self) -> bytes:
+        if self.fetched:
+            with span("link"):
+                COUNTS["syncs"] += 1
+                if self.pinned is not None:
+                    torch.cuda.current_stream(self.dev).synchronize()
+        with span("copy"):
+            return copied(b"".join(self.parts))
+
+
 def _read_blocks(frame: bytes, pos: int, info):
     """Walk the block records: (payload offsets, payload sizes, stored
     flags, position after the endmark)."""
@@ -908,6 +969,48 @@ def _decode_stream_blocks(buf, starts: List[int], sizes: List[int],
     return content
 
 
+def _decode_independent(frame: bytes, starts: List[int], sizes: List[int],
+                        stored: List[bool], bs: int,
+                        dev: torch.device) -> bytes:
+    """Decode an independent frame of blocks of at most 64 KB: the
+    compressed blocks in one batch through kernel D, each run of rows that
+    lies in the content as it lies in the rows (every row but the run's
+    last decoded to the full ``bs``) fetched at once, stored blocks taken
+    from the frame (``_Landing``).  Raises Lz4FrameError naming the first
+    block the kernel rejects."""
+    todo = [i for i, st in enumerate(stored) if not st]
+    flat, olen = None, []
+    if todo:
+        with span("copy"):
+            payloads = [frame[starts[i]:starts[i] + sizes[i]] for i in todo]
+            COUNTS["host_copy_bytes"] += sum(sizes[i] for i in todo)
+        rows, lens = byte_rows(payloads, max(len(p) for p in payloads), dev)
+        with span("launch"):
+            out, olen_d = decode_blocks(rows, lens, bs)
+        olen = to_host(olen_d)
+        if (olen < 0).any():
+            bad = todo[int(np.nonzero(olen < 0)[0][0])]
+            raise Lz4FrameError(f"device decode failed on block {bad}")
+        flat, olen = out.reshape(-1), olen.tolist()
+    landing = _Landing(sum(olen), dev)
+    view = memoryview(frame)
+    lo = hi = k = 0              # flat[lo:hi]: decoded rows not yet fetched
+    with span("walk"):
+        for st, s, n in zip(stored, starts, sizes):
+            if st:
+                landing.fetch(flat, lo, hi - lo)
+                lo = hi
+                landing.stored(view, s, n)
+                continue
+            if k * bs != hi:     # the row before decoded short
+                landing.fetch(flat, lo, hi - lo)
+                lo = k * bs
+            hi = k * bs + olen[k]
+            k += 1
+        landing.fetch(flat, lo, hi - lo)
+    return landing.content()
+
+
 def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
                          stored: List[bool], bs: int,
                          dev: torch.device) -> bytes:
@@ -923,25 +1026,21 @@ def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
                     for s, n, st in zip(starts, sizes, stored)]
         COUNTS["host_copy_bytes"] += sum(sizes)
     nblocks = len(payloads)
+    landing = _Landing(nblocks * bs, dev)
     win = None
     pending: List[Tuple] = []
-    chunks: List[bytes] = []
 
     def drain() -> bool:
         """Fetch the oldest group; False at a short non-final block."""
         out_d, olen_d, first = pending.pop(0)
-        olen = to_host(olen_d)
-        out = to_host(out_d)
-        with span("copy"):
-            for i, n in enumerate(olen.tolist()):
-                g = first + i
-                if n < 0:
-                    raise Lz4FrameError(f"device decode failed on block {g}")
-                if n != bs and g != nblocks - 1:
-                    COUNTS["host_copy_bytes"] += int(olen[:i].sum())
-                    return False
-                chunks.append(out[i, :n].tobytes())
-            COUNTS["host_copy_bytes"] += int(olen.sum())
+        olen = to_host(olen_d).tolist()
+        for i, n in enumerate(olen):
+            g = first + i
+            if n < 0:
+                raise Lz4FrameError(f"device decode failed on block {g}")
+            if n != bs and g != nblocks - 1:
+                return False
+        landing.fetch(out_d.reshape(-1), 0, sum(olen))
         return True
 
     full = True
@@ -962,7 +1061,7 @@ def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
     if not full:
         return _decode_stream_blocks(frame, starts, sizes, stored,
                                      [bs] * nblocks, bs, True, dev)
-    return _join(chunks)
+    return landing.content()
 
 
 @entry("decompress")
@@ -989,15 +1088,7 @@ def decompress_frame_device(frame: bytes, device="cuda") -> Tuple[bytes, int]:
         content = _decode_stream_blocks(frame, starts, sizes, stored, caps,
                                         bs, not info.block_independent, dev)
     elif info.block_independent:
-        with span("copy"):
-            todo = [frame[s:s + n] for s, n, st in zip(starts, sizes, stored)
-                    if not st]
-            # every payload is sliced once: here, or in the join if stored
-            COUNTS["host_copy_bytes"] += sum(sizes)
-        decoded = iter(decode_batch(todo, bs, device=dev) if todo else [])
-        with span("copy"):
-            content = _join([frame[s:s + n] if st else next(decoded)
-                             for s, n, st in zip(starts, sizes, stored)])
+        content = _decode_independent(frame, starts, sizes, stored, bs, dev)
     else:
         if bs < WINDOW:
             raise DeviceLayoutUnsupported(

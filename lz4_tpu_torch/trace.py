@@ -13,9 +13,12 @@ Counters are always on:
   copy either way, since PyTorch's blocking host-to-device copy waits for
   the stream too, and every read of a card value), ``host_copy_bytes``
   (bytes the frame path writes on the host when it copies content or frame
-  bytes; zero fills and objects handed back whole do not count) and
-  ``xxh32_bytes`` (bytes hashed on the host).  They count on the CPU too,
-  where a "sync" is the wait the call would make on the card.
+  bytes; zero fills and objects handed back whole do not count),
+  ``xxh32_bytes`` (bytes hashed on the host) and ``pinned_d2h_bytes``
+  (the part of ``d2h_bytes`` fetched into pinned host memory: decoded
+  content on its way to one copy out, bumped where each fetch is
+  issued).  They count on the CPU too, where a "sync" is the wait the
+  call would make on the card, and a fetch the one it would issue.
 
 Spans are recorded only while a ``torch.profiler`` session records.
 Otherwise ``span`` returns ``OFF``, one shared ``contextlib.nullcontext``:
@@ -55,7 +58,7 @@ from torch.autograd import profiler as _profiler
 LAUNCHES: collections.Counter = collections.Counter()
 PLAIN_CALLS: collections.Counter = collections.Counter()
 COUNT_KEYS = ("h2d_bytes", "d2h_bytes", "syncs", "host_copy_bytes",
-              "xxh32_bytes")
+              "xxh32_bytes", "pinned_d2h_bytes")
 COUNTS: dict = dict.fromkeys(COUNT_KEYS, 0)
 STEPS = ("walk", "copy", "launch", "tables", "link", "xxh32")
 MAX_SPANS = 1 << 18

@@ -137,8 +137,13 @@ def test_on_decompress(big_frame):
     assert root.attrs["counts"] == counts
     assert counts["d2h_bytes"] >= len(data)
     assert counts["xxh32_bytes"] >= len(data)
-    # each block fetched out of its row, then joined
-    assert counts["host_copy_bytes"] >= 2 * len(data)
+    # the payloads sliced out of the frame and written into rows, then the
+    # decoded rows fetched into the landing and copied out of it once
+    info = device.decode_frame_header(frame)
+    _, sizes, stored, _ = device._read_blocks(frame, info.header_size, info)
+    assert not any(stored)
+    assert counts["host_copy_bytes"] == 2 * sum(sizes) + len(data)
+    assert counts["pinned_d2h_bytes"] == len(data)
 
 
 def test_stored_blocks_never_cross_the_link_on_decompress():
@@ -171,6 +176,7 @@ def test_counts_are_the_same_with_and_without_the_profiler():
     assert len([s for s in spans if s.parent is None]) == 2
     assert off == on
     assert on["syncs"] > 0
+    assert on["pinned_d2h_bytes"] == len(data)
 
 
 def test_port_spans_share_kinetos_clock():
@@ -207,6 +213,7 @@ def test_reset_counts_clears_every_counter():
     common.LAUNCHES["encode"] += 1
     common.PLAIN_CALLS["pack"] += 1
     trace.COUNTS["syncs"] += 1
+    trace.COUNTS["pinned_d2h_bytes"] += 1
     common.reset_counts()
     assert not common.LAUNCHES and not common.PLAIN_CALLS
     assert trace.COUNTS == dict.fromkeys(trace.COUNT_KEYS, 0)
