@@ -10,6 +10,11 @@ container (a few bytes per 64 KB block); the kernels do the block work:
   or less and block-independent frames take ``encode_blocks`` (kernel B),
   then kernel C.  Every frame body is packed on the device and fetched
   once; block checksums are inserted on the host while it is walked.
+  Blocks over kernel B's 256 KB rows (the ``lz4`` CLI's default is 4 MB)
+  take ``chain_records``: each block one chain of 64 KB pieces through
+  kernel A without a prefix, 64 MiB of input a launch, its payloads joined
+  into the block on the host (``join_block``), stored where the join does
+  not shrink.
   ``compress_frame_device_hc`` writes independent 64 KB blocks through
   ``encode_blocks_hc`` (kernel I), then kernel C.
 * decompress: ``decompress_frame_device`` -> ``decode_blocks_linked``
@@ -44,8 +49,8 @@ kernels' plain versions.
 
 While a ``torch.profiler`` session records, each call of the three frame
 entry points is a root span and the host's steps inside it are spans
-(``lz4_tpu_torch.trace``): ``walk``, ``copy``, ``launch``, ``link`` and
-``xxh32``.  The counters of ``trace.COUNTS`` are always on.
+(``lz4_tpu_torch.trace``): ``walk``, ``copy``, ``launch``, ``link``,
+``xxh32`` and ``merge``.  The counters of ``trace.COUNTS`` are always on.
 """
 
 from __future__ import annotations
@@ -65,7 +70,8 @@ from .kernels import decode_kernel
 from .kernels.common import ints_to_device, resolve_device, to_device, to_host
 from .kernels.decode_kernel import (decode_blocks, decode_blocks_linked,
                                     decode_stream_raw)
-from .kernels.encode_kernel import encode_blocks, encode_blocks_linked
+from .kernels.encode_kernel import (MAX_BLOCK, encode_blocks,
+                                    encode_blocks_linked)
 from .kernels.hc_kernel import encode_blocks_hc
 from .kernels.pack_kernel import body_length, pack_frame_payloads
 from .legacy import merge_payloads
@@ -300,7 +306,10 @@ def compress_frame_device(data: bytes,
 
     Linked frames (``prefs.block_independent=False``, 64 KB blocks, input
     over 64 KB) chain their blocks through kernel A; everything else is
-    block-independent through kernel B.  Parity: LZ4F_compressFrame."""
+    block-independent: through kernel B up to its 256 KB rows, larger
+    blocks through ``chain_records`` (kernel A, each block's payloads
+    joined on the host).  Every block holds ``block_size`` content bytes
+    but the last.  Parity: LZ4F_compressFrame."""
     prefs = dataclasses.replace(prefs) if prefs else FramePreferences()
     dev = resolve_device(device)
     with span("copy"):
@@ -331,6 +340,11 @@ def compress_frame_device(data: bytes,
         prefs.block_size_id = spec.optimal_block_size_id(block_size)
     if block_size > spec.BLOCK_SIZES[prefs.resolved_bsid()]:
         raise Lz4FrameError("block_size exceeds frame block maximum")
+    if block_size > MAX_BLOCK:
+        body, _ = chain_records(data, block_size, None, False, acceleration,
+                                min_match, reject_step, prefs.block_checksum,
+                                dev)
+        return _frame(prefs, data, body)
     rows, lens = byte_rows(_split_blocks(data, block_size), block_size, dev)
     with span("launch"):
         out, olen = encode_blocks(rows, lens, acceleration,
@@ -416,8 +430,9 @@ def _fetch_payloads(out: torch.Tensor, olen: torch.Tensor,
     memoryview, olen and tails as int64 numpy [R])."""
     olen_h = to_host(olen).astype(np.int64)
     mx = int(olen_h.max(initial=0))
-    cols = torch.arange(mx, dtype=torch.int32, device=out.device)
-    flat = out[:, :mx][cols[None, :] < olen[:, None]]
+    with span("launch"):
+        cols = torch.arange(mx, dtype=torch.int32, device=out.device)
+        flat = out[:, :mx][cols[None, :] < olen[:, None]]
     return (memoryview(to_host(flat)), olen_h,
             to_host(tails).astype(np.int64))
 
@@ -427,22 +442,72 @@ def _row_payloads(out, olen, tails, per_block: int):
     copy: a list per group of (payload views, tails) of its rows of nonzero
     length (rows of length 0 are padding)."""
     flat, olen_h, tails_h = _fetch_payloads(out, olen, tails)
-    ends = np.cumsum(olen_h)
-    groups = []
-    for r0 in range(0, len(olen_h), per_block):
-        rows = [r for r in range(r0, min(r0 + per_block, len(olen_h)))
-                if olen_h[r] > 0]
-        groups.append(([flat[ends[r] - olen_h[r]:ends[r]] for r in rows],
-                       [tails_h[r] for r in rows]))
+    with span("walk"):
+        ends = np.cumsum(olen_h)
+        groups = []
+        for r0 in range(0, len(olen_h), per_block):
+            rows = [r for r in range(r0, min(r0 + per_block, len(olen_h)))
+                    if olen_h[r] > 0]
+            groups.append(([flat[ends[r] - olen_h[r]:ends[r]] for r in rows],
+                           [tails_h[r] for r in rows]))
     return groups
 
 
 def _joined_blocks(out, olen, tails, per_block: int) -> List[bytes]:
     """Join every ``per_block`` consecutive rows' payloads into one block;
     rows of length 0 (padding) take no part."""
-    return [merge_payloads(views, tl)
+    return [join_block(views, tl)
             for views, tl in _row_payloads(out, olen, tails, per_block)
             if views]
+
+
+def join_block(views, tails) -> bytes:
+    """One block joined on the host from consecutive kernel payloads
+    (``legacy.merge_payloads``): a ``merge`` step, its bytes counted as
+    merged and as a host copy."""
+    with span("merge"):
+        block = merge_payloads(views, tails)
+        COUNTS["merged_bytes"] += len(block)
+        COUNTS["host_copy_bytes"] += len(block)
+    return block
+
+
+def joined_records(data: bytes, block_size: int, groups,
+                   block_checksum: bool) -> bytes:
+    """The block records of ``data`` cut into blocks of ``block_size`` (the
+    last may be shorter), block k joined from ``groups[k]`` (its payload
+    views and tails, as ``chain_payloads`` and ``hc.hc_payloads`` return
+    them): a block whose join is not smaller than its content is stored;
+    then, when asked, the XXH32 of the bytes written."""
+    parts = []
+    for k, (views, tails) in enumerate(groups):
+        block = join_block(views, tails)
+        with span("walk"):
+            n = min(block_size, len(data) - k * block_size)
+            if len(block) >= n:
+                block = _piece(data, k * block_size, n)
+                parts.append(struct.pack("<I", n | spec.UNCOMPRESSED_BIT))
+            else:
+                parts.append(struct.pack("<I", len(block)))
+            parts.append(block)
+            if block_checksum:
+                parts.append(struct.pack("<I", xxh32(block, 0)))
+    return _join(parts)
+
+
+def chain_records(data: bytes, block_size: int,
+                  window: Optional[torch.Tensor], linked: bool,
+                  acceleration: int = 1, min_match: int = 4,
+                  reject_step: int = 1, block_checksum: bool = False,
+                  device="cuda"):
+    """The block records of ``data`` in blocks of ``block_size``, each block
+    one chain of kernel A (``chain_payloads``) joined on the host
+    (``joined_records``).  Returns (records, the window after them with
+    ``linked``, else None)."""
+    groups, window = chain_payloads(data, block_size, window, linked,
+                                    acceleration, min_match, device,
+                                    reject_step)
+    return joined_records(data, block_size, groups, block_checksum), window
 
 
 def window_tensor(history, dev) -> torch.Tensor:
@@ -463,7 +528,7 @@ def next_window(window: Optional[torch.Tensor],
 def chain_payloads(data: bytes, piece: int,
                    window: Optional[torch.Tensor], linked: bool,
                    acceleration: int = 1, min_match: int = 4,
-                   device="cuda"):
+                   device="cuda", reject_step: int = 1):
     """Kernel A over ``data`` cut into pieces of ``piece`` bytes (the last
     may be shorter), each piece one stream of linked 64 KB blocks, S pieces
     (CHAIN_GROUP_BYTES of input) a launch, each launch's input uploaded and
@@ -474,7 +539,7 @@ def chain_payloads(data: bytes, piece: int,
     prefix (legacy slices, independent frame blocks).
 
     Returns (a list per piece of (payload views, tails), which
-    ``merge_payloads`` joins into the piece's block; with ``linked``, the
+    ``join_block`` joins into the piece's block; with ``linked``, the
     last 64 KB of ``window`` and ``data`` as a tensor on the device, else
     None)."""
     dev = resolve_device(device)
@@ -495,34 +560,38 @@ def chain_payloads(data: bytes, piece: int,
         sizes = [min(piece, n - s) for s in st]
         lo = max(st[0] - WINDOW, 0) if linked else st[0]
         flat = to_device(data[lo:st[-1] + sizes[-1]], dev)
-        stream = torch.zeros((S, (nb + 1) * WINDOW), dtype=torch.uint8,
-                             device=dev)
-        full = sum(1 for z in sizes if z == piece)
-        if full:
-            stream[:full, WINDOW:WINDOW + piece] = \
-                flat[st[0] - lo:st[0] - lo + full * piece].view(full, piece)
-        if full < S:
-            stream[S - 1, WINDOW:WINDOW + sizes[-1]] = flat[st[-1] - lo:]
         plens = [0] * S
-        if linked:
-            back = [r for r in range(S) if st[r] > 0]
-            if back:
-                idx = (torch.tensor([st[r] - lo - WINDOW for r in back],
-                                    device=dev)[:, None]
-                       + torch.arange(WINDOW, device=dev)[None, :])
-                stream[back, :WINDOW] = flat[idx]
-                for r in back:
-                    plens[r] = WINDOW
-            if st[0] == 0 and window is not None and window.numel():
-                plens[0] = window.numel()
-                stream[0, WINDOW - plens[0]:WINDOW] = window
+        back = [r for r in range(S) if linked and st[r] > 0]
+        for r in back:
+            plens[r] = WINDOW
+        if linked and st[0] == 0 and window is not None and window.numel():
+            plens[0] = window.numel()
         lens = np.clip(np.asarray(sizes)[:, None]
                        - WINDOW * np.arange(nb)[None, :], 0, WINDOW)
-        out, olen, tails = encode_blocks_linked(
-            stream, torch.from_numpy(lens.astype(np.int32)).to(dev),
-            acceleration,
-            prefix_lens=torch.tensor(plens, dtype=torch.int32, device=dev),
-            min_match=min_match, zero_window_lanes=any(plens), tails=True)
+        lens_d = ints_to_device(lens, dev)
+        plens_d = ints_to_device(plens, dev)
+        back_d = ints_to_device([st[r] - lo - WINDOW for r in back], dev,
+                                torch.int64) if back else None
+        with span("launch"):            # the streams, staged on the card
+            stream = torch.zeros((S, (nb + 1) * WINDOW), dtype=torch.uint8,
+                                 device=dev)
+            full = sum(1 for z in sizes if z == piece)
+            if full:
+                stream[:full, WINDOW:WINDOW + piece] = \
+                    flat[st[0] - lo:st[0] - lo + full * piece].view(full,
+                                                                    piece)
+            if full < S:
+                stream[S - 1, WINDOW:WINDOW + sizes[-1]] = flat[st[-1] - lo:]
+            if back:
+                idx = back_d[:, None] + torch.arange(WINDOW, device=dev)[None]
+                stream[back, :WINDOW] = flat[idx]
+            if plens[0] and st[0] == 0:
+                stream[0, WINDOW - plens[0]:WINDOW] = window
+        with span("launch"):
+            out, olen, tails = encode_blocks_linked(
+                stream, lens_d, acceleration, prefix_lens=plens_d,
+                min_match=min_match, reject_step=reject_step,
+                zero_window_lanes=any(plens), tails=True)
         groups += _row_payloads(out.reshape(S * nb, -1), olen.reshape(-1),
                                 tails.reshape(-1), nb)
     return groups, next_window(window, flat) if linked else None
@@ -538,7 +607,7 @@ def chain_block(data: bytes, window: Optional[torch.Tensor] = None,
                                  acceleration, min_match, device)
     views = [v for vs, _ in groups for v in vs]
     tails = [t for _, ts in groups for t in ts]
-    return (merge_payloads(views, tails) if views else b"\x00"), win
+    return (join_block(views, tails) if views else b"\x00"), win
 
 
 def _legacy_fast_blocks(data: bytes, acceleration: int, min_match: int,
@@ -549,7 +618,7 @@ def _legacy_fast_blocks(data: bytes, acceleration: int, min_match: int,
     before the slice, so it stays valid in the joined block."""
     groups, _ = chain_payloads(data, LEGACY_SLICE, None, False, acceleration,
                                min_match, dev)
-    return [merge_payloads(views, tails) for views, tails in groups]
+    return [join_block(views, tails) for views, tails in groups]
 
 
 def _legacy_hc_blocks(data: bytes, level: int,

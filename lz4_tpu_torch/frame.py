@@ -10,7 +10,8 @@ container; every block is coded on the device:
   ``update`` completes are coded together: independent blocks up to
   256 KB by kernel B, packed by kernel C; linked blocks, and blocks over
   256 KB, by kernel A (each block one chain behind the 64 KB before it,
-  joined; ``device.chain_payloads``); at level 3 and up by kernel I's
+  joined; ``device.chain_records``, the route ``compress_frame_device``
+  takes for independent blocks over 256 KB); at level 3 and up by kernel I's
   64 KB pieces, each behind the 64 KB before it, joined per block
   (``hc.hc_payloads``; a linked block's first piece behind the window of
   the blocks before it, as ``lz4_tpu``'s host HC links them).  The
@@ -188,18 +189,6 @@ def _hc():
 # compression
 # ---------------------------------------------------------------------------
 
-def _record(payload: bytes, block: bytes, block_checksum: bool) -> bytes:
-    """One block record: the compressed payload, or the block stored when
-    the payload is not smaller; then its checksum."""
-    if len(payload) >= len(block):
-        parts = [struct.pack("<I", len(block) | spec.UNCOMPRESSED_BIT), block]
-    else:
-        parts = [struct.pack("<I", len(payload)), payload]
-    if block_checksum:
-        parts.append(struct.pack("<I", xxh32(parts[1], 0)))
-    return b"".join(parts)
-
-
 class FrameCompressor:
     """Incremental frame compression with the block work on the device.
 
@@ -237,7 +226,7 @@ class FrameCompressor:
         if p.level >= 3:
             groups, window = _hc().hc_payloads(data, bs, self._window, linked,
                                                p.level, self.device)
-            blocks = [dev.merge_payloads(v, t) for v, t in groups]
+            records = dev.joined_records(data, bs, groups, p.block_checksum)
         elif not linked and bs <= MAX_BLOCK:
             rows, lens = dev.byte_rows(dev._split_blocks(data, bs), bs,
                                        self.device)
@@ -245,14 +234,10 @@ class FrameCompressor:
             flat, total, _ = dev.pack_frame_payloads(out, olen, rows, lens)
             return dev._fetch_body(flat, total, p.block_checksum), None
         else:
-            groups, window = dev.chain_payloads(
+            records, window = dev.chain_records(
                 data, bs, self._window, linked, p.acceleration,
-                device=self.device)
-            blocks = [dev.merge_payloads(v, t) for v, t in groups]
-        return b"".join(_record(b, data[i * bs:(i + 1) * bs],
-                                p.block_checksum)
-                        for i, b in enumerate(blocks)), \
-            (window if linked else None)
+                block_checksum=p.block_checksum, device=self.device)
+        return records, (window if linked else None)
 
     def _emit(self, data: bytes, rest: bytes, taken: bytes) -> bytes:
         """Code ``data``, then account ``taken`` as input and keep

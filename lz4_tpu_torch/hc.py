@@ -45,12 +45,12 @@ import numpy as np
 import torch
 
 from . import spec
-from .device import HC_GROUP_ROWS, _fetch_payloads, window_tensor
+from .device import HC_GROUP_ROWS, _fetch_payloads, join_block, window_tensor
 from .kernels.common import resolve_device, to_device, to_host
 from .kernels.destsize_kernel import _max_final_literals
 from .kernels.encode_kernel import _final_run_size
 from .kernels.hc_kernel import MAX_BLOCK, TABLE_ROWS, encode_blocks_hc
-from .legacy import _ext, _literal_run, literal_head, merge_payloads
+from .legacy import _ext, _literal_run, literal_head
 
 __all__ = ["DEFAULT_CLEVEL", "MAX_CLEVEL", "compress_hc_block",
            "compress_hc_dest_size", "HcCompressStream"]
@@ -113,7 +113,7 @@ def hc_payloads(data: bytes, block: int, window: Optional[torch.Tensor],
     its payloads fetched in one copy.
 
     Returns (a list per block of (payload views, tails), which
-    ``merge_payloads`` joins into the block; with ``linked``, the last
+    ``device.join_block`` joins into the block; with ``linked``, the last
     64 KB of ``window`` and ``data`` as a tensor on the device, else
     None)."""
     dev = resolve_device(device)
@@ -165,7 +165,7 @@ def _hc_block(src: bytes, window: Optional[torch.Tensor], level: int,
     groups, win = hc_payloads(src, max(len(src), 1), window, True, level,
                               dev)
     views, tails = groups[0]
-    return merge_payloads(views, tails), win
+    return join_block(views, tails), win
 
 
 def _dict_window(dict_: bytes, dev) -> Optional[torch.Tensor]:

@@ -14,10 +14,12 @@ Counters are always on:
   the stream too, and every read of a card value), ``host_copy_bytes``
   (bytes the frame path writes on the host when it copies content or frame
   bytes; zero fills and objects handed back whole do not count),
-  ``xxh32_bytes`` (bytes hashed on the host) and ``pinned_d2h_bytes``
+  ``xxh32_bytes`` (bytes hashed on the host), ``pinned_d2h_bytes``
   (the part of ``d2h_bytes`` fetched into pinned host memory: decoded
   content on its way to one copy out, bumped where each fetch is
-  issued).  They count on the CPU too, where a "sync" is the wait the
+  issued) and ``merged_bytes`` (the bytes of the blocks the host joins
+  from kernel payloads, ``device.join_block``, bumped where each join
+  returns; each is a host copy too).  They count on the CPU too, where a "sync" is the wait the
   call would make on the card, and a fetch the one it would issue.
 
 Spans are recorded only while a ``torch.profiler`` session records.
@@ -34,7 +36,8 @@ content and frame bytes), ``launch`` (work queued on the card: a call into
 a kernel wrapper, or the tensor ops that stage a kernel's input there),
 ``tables`` (the candidate tables of kernels A and I in PyTorch ops, inside
 ``launch``), ``link`` (copies between host and card, and every wait on
-the card) and ``xxh32`` (the host XXH32).  On the card a ``tables`` span
+the card), ``xxh32`` (the host XXH32) and ``merge`` (the host's join of
+kernel payloads into one block).  On the card a ``tables`` span
 also records a pair of CUDA events on the current stream; their time is
 read in ``take_spans``, long after the call's last fetch has waited for
 the stream, so no span makes the host wait.
@@ -58,9 +61,9 @@ from torch.autograd import profiler as _profiler
 LAUNCHES: collections.Counter = collections.Counter()
 PLAIN_CALLS: collections.Counter = collections.Counter()
 COUNT_KEYS = ("h2d_bytes", "d2h_bytes", "syncs", "host_copy_bytes",
-              "xxh32_bytes", "pinned_d2h_bytes")
+              "xxh32_bytes", "pinned_d2h_bytes", "merged_bytes")
 COUNTS: dict = dict.fromkeys(COUNT_KEYS, 0)
-STEPS = ("walk", "copy", "launch", "tables", "link", "xxh32")
+STEPS = ("walk", "copy", "launch", "tables", "link", "xxh32", "merge")
 MAX_SPANS = 1 << 18
 
 _spans: List["Span"] = []

@@ -19,9 +19,11 @@ from lz4_tpu_torch.kernels import common
 
 CPU = "cpu"
 MIB = 1 << 20
-CALL_STEPS = {"compress_frame_device": set(trace.STEPS),
-              "compress_frame_device_hc": set(trace.STEPS),
-              "decompress_frame_device": set(trace.STEPS) - {"tables"}}
+# the steps of the routes below: none joins payloads on the host
+CALL_STEPS = {"compress_frame_device": set(trace.STEPS) - {"merge"},
+              "compress_frame_device_hc": set(trace.STEPS) - {"merge"},
+              "decompress_frame_device": set(trace.STEPS) - {"tables",
+                                                            "merge"}}
 
 
 def corpus(n: int) -> bytes:
@@ -50,9 +52,10 @@ def recorded(fn):
     return out, spans, {k: trace.COUNTS[k] for k in trace.COUNT_KEYS}
 
 
-def check_tree(spans, entry: str) -> trace.Span:
+def check_tree(spans, entry: str, steps=None) -> trace.Span:
     """One root ``call`` of ``entry``; every other span nested inside its
-    parent, in the root's call."""
+    parent, in the root's call; the steps recorded are ``steps`` (by
+    default those of ``entry``'s routes above)."""
     roots = [s for s in spans if s.parent is None]
     assert [(r.name, r.attrs["entry"]) for r in roots] == [("call", entry)]
     root = roots[0]
@@ -65,7 +68,8 @@ def check_tree(spans, entry: str) -> trace.Span:
             assert s.name in trace.STEPS
             if s.name == "tables":
                 assert up.name == "launch"
-    assert {s.name for s in spans if s is not root} == CALL_STEPS[entry]
+    assert {s.name for s in spans if s is not root} == \
+        (CALL_STEPS[entry] if steps is None else steps)
     return root
 
 
@@ -110,6 +114,7 @@ def test_on_chunked_compress(big_frame):
         == {}
     # kernel A's tables: the whole blocks of 3 chunks, then the remainder
     assert sum(s.name == "tables" for s in spans) == 4
+    assert counts["merged_bytes"] == 0
 
 
 def test_on_hc_compress():
@@ -124,6 +129,7 @@ def test_on_hc_compress():
     assert counts["xxh32_bytes"] >= len(data)
     # the 64 KB slices and the rows they are written into
     assert counts["host_copy_bytes"] >= 2 * len(data)
+    assert counts["merged_bytes"] == 0
 
 
 def test_on_decompress(big_frame):
@@ -144,6 +150,58 @@ def test_on_decompress(big_frame):
     assert not any(stored)
     assert counts["host_copy_bytes"] == 2 * sum(sizes) + len(data)
     assert counts["pinned_d2h_bytes"] == len(data)
+    assert counts["merged_bytes"] == 0
+
+
+def test_on_long_block_compress():
+    """A ``-B7`` frame: each 4 MB block one chain of kernel A, its payloads
+    joined on the host in a ``merge`` step; ``merged_bytes`` counts the
+    joined blocks' bytes, each a host copy too."""
+    data = corpus(4 * MIB + 300_000)
+    p = prefs(block_independent=True)
+    p.block_size_id = 7
+    out, spans, counts = recorded(lambda: device.compress_frame_device(
+        data, p, block_size=4 * MIB, device=CPU))
+    root = check_tree(spans, "compress_frame_device", set(trace.STEPS))
+    assert root.attrs["counts"] == counts
+    merges = [s for s in spans if s.name == "merge"]
+    assert len(merges) == 2 and all(s.parent == root.id for s in merges)
+    groups, _ = device.chain_payloads(data, 4 * MIB, None, False,
+                                      device=CPU)
+    joined = [len(device.merge_payloads(v, t)) for v, t in groups]
+    assert counts["merged_bytes"] == sum(joined)
+    # neither block is stored: each record holds the join
+    info = device.decode_frame_header(out)
+    _, sizes, stored, _ = device._read_blocks(out, info.header_size, info)
+    assert sizes == joined and not any(stored)
+    assert counts["host_copy_bytes"] >= sum(joined)
+    assert counts["h2d_bytes"] >= len(data)
+    assert sum(s.name == "tables" for s in spans) == 1    # one launch
+
+
+@pytest.mark.parametrize("route", ["independent", "linked", "hc",
+                                   "decompress_long"])
+def test_merged_bytes_stay_zero_off_the_long_block_route(route):
+    data = corpus(300_000)
+    if route == "decompress_long":
+        p = prefs(block_independent=True)
+        p.block_size_id = 6
+        frame = device.compress_frame_device(data, p, block_size=MIB,
+                                             device=CPU)
+    trace.reset_counts()
+    if route == "independent":
+        device.compress_frame_device(data, prefs(block_independent=True),
+                                     device=CPU)
+    elif route == "linked":
+        device.compress_frame_device(data, prefs(block_independent=False),
+                                     device=CPU)
+    elif route == "hc":
+        device.compress_frame_device_hc(data, prefs(block_independent=True),
+                                        device=CPU)
+    else:
+        assert device.decompress_frame_device(frame, device=CPU)[0] == data
+    assert trace.COUNTS["merged_bytes"] == 0
+    assert trace.COUNTS["h2d_bytes"] > 0
 
 
 def test_stored_blocks_never_cross_the_link_on_decompress():
