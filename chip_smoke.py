@@ -246,15 +246,16 @@
    ``scatter_gather.py`` and ``print_version.py``, each once without
    ``--device`` (on the card).
 20. The decompress landing, with its own counter reset and read: the
-   corpus as an hc9 frame (kernel D batch) and a 64 MiB object of 1 MiB
+   corpus as an hc9 frame (kernel D batch), a 64 MiB object of 1 MiB
    segments, half of them noise, as a linked -BD frame (kernel D linked,
-   stored blocks), each decoded 3 times through decompress_frame_device,
-   every output ``bytes`` equal to its input and ``pinned_d2h_bytes``
-   equal to its length; no pinned memory allocated after a frame's first
-   call (where PyTorch's host allocator reports its count); then both
-   frames decoded at once in two threads, twice each, byte-exact.  Batch
-   and linked D must launch, and no plain version run.  --landing-only
-   runs steps 1, 2 and 20 alone.
+   stored blocks), and the corpus at ``lz4 -1``'s defaults, independent
+   4 MB blocks (kernel E), each decoded 3 times through
+   decompress_frame_device, every output ``bytes`` equal to its input and
+   ``pinned_d2h_bytes`` equal to its length; no pinned memory allocated
+   after a frame's first call (where PyTorch's host allocator reports its
+   count); then the frames decoded at once in three threads, twice each,
+   byte-exact.  Batch and linked D and E must launch, and no plain
+   version run.  --landing-only runs steps 1, 2 and 20 alone.
 
 Prints a JSON line of the kernels (each with the launch count of the phase
 that drives it, every phase's counts, its time on the card, its plain
@@ -3278,12 +3279,13 @@ def host_allocs(torch):
 
 def landing_phase(corpus: bytes, dev) -> dict:
     """``decompress_frame_device``'s landing on the card: the corpus as an
-    hc9 frame (independent 64 KB blocks, kernel D batch) and a half-noise
-    object as a linked -BD frame (kernel D linked, stored blocks), each
+    hc9 frame (independent 64 KB blocks, kernel D batch), a half-noise
+    object as a linked -BD frame (kernel D linked, stored blocks) and the
+    corpus as a -B7 frame (independent 4 MB blocks, kernel E), each
     decoded LANDING_CALLS times, every output ``bytes`` equal to its input
     and ``pinned_d2h_bytes`` equal to its content, with no pinned memory
-    allocated after each frame's first call; then both decoded at once in
-    two threads.  Returns the walls, counts and allocations."""
+    allocated after each frame's first call; then all decoded at once, a
+    thread each.  Returns the walls, counts and allocations."""
     import threading
 
     import torch
@@ -3299,7 +3301,11 @@ def landing_phase(corpus: bytes, dev) -> dict:
             level=9, device=dev)),
         "mixed linked": (mixed, D.compress_frame_device(
             mixed, FramePreferences(block_size_id=4, content_checksum=True),
-            device=dev))}
+            device=dev)),
+        "cli-default": (corpus, D.compress_frame_device(
+            corpus, FramePreferences(block_size_id=7, block_independent=True,
+                                     content_checksum=True),
+            block_size=4 << 20, device=dev))}
     record = {"calls": LANDING_CALLS}
     for what, (data, frame) in frames.items():
         walls, allocs = [], []
@@ -3347,11 +3353,11 @@ def landing_phase(corpus: bytes, dev) -> dict:
     for t in threads:
         t.join()
     if errors or len(outs) != len(frames):
-        raise SmokeFailure(f"landing phase: two threads at once: {errors}")
-    record["threads"] = "both byte-exact, twice each"
+        raise SmokeFailure(f"landing phase: threads at once: {errors}")
+    record["threads"] = "all byte-exact, twice each"
     stats = getattr(torch.cuda, "host_memory_stats", None)
     record["host_memory_stats"] = dict(stats()) if stats else None
-    log(f"[landing] two threads decoding both frames at once, twice each: "
+    log(f"[landing] a thread per frame, all at once, twice each: "
         f"byte-exact; host allocator {record['host_memory_stats']}")
     return record
 
@@ -3382,7 +3388,8 @@ def landing_only() -> int:
     record = landing_phase(real_text_corpus(CORPUS_BYTES),
                            torch.device("cuda"))
     if common.PLAIN_CALLS or not (common.LAUNCHES["decode_batch"]
-                                  and common.LAUNCHES["decode_linked"]):
+                                  and common.LAUNCHES["decode_linked"]
+                                  and common.LAUNCHES["decode_stream"]):
         raise SmokeFailure(f"landing phase: launches "
                            f"{dict(common.LAUNCHES)}, plain calls "
                            f"{dict(common.PLAIN_CALLS)}")
@@ -5170,7 +5177,8 @@ def main() -> int:
     common.reset_counts()
     landing_record = landing_phase(corpus, cuda)
     counts["landing"] = phase_counts("landing", ["decode_batch",
-                                                 "decode_linked"])
+                                                 "decode_linked",
+                                                 "decode_stream"])
 
     unbound = [k for k in KERNELS if "bound_ms" not in stats[k]]
     if unbound:

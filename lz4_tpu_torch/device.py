@@ -20,13 +20,13 @@ container (a few bytes per 64 KB block); the kernels do the block work:
 * decompress: ``decompress_frame_device`` -> ``decode_blocks_linked``
   (kernel D, linked mode) in groups of ``DEC_GROUP_BLOCKS`` blocks, the
   window handed from group to group on the device; independent frames of
-  64 KB blocks take ``decode_blocks`` (kernel D, batch mode).  Both fetch
-  the decoded rows into one pinned host buffer and copy the content out of
-  it once (``_Landing``).  Frames of
+  64 KB blocks take ``decode_blocks`` (kernel D, batch mode).  Frames of
   larger blocks (the ``lz4`` CLI writes 4 MB blocks by default) take
   ``decode_stream_raw`` (kernel E) over the raw frame, and so do legacy
-  files (``decompress_legacy_device``, 8 MB blocks).  A linked chain with a
-  short non-final block (``DeviceFrameCompressor.flush`` writes those) is
+  files (``decompress_legacy_device``, 8 MB blocks).  Every route fetches
+  the decoded bytes into one pinned host buffer and copies the content
+  out of it once (``_Landing``).  A linked chain with a short non-final
+  block (``DeviceFrameCompressor.flush`` writes those) is
   legal LZ4F but outside kernel D's one-block window: when kernel D finds
   one, the whole chain is decoded again by kernel E, whose window is
   everything decoded so far.  Kernel E holds its input offsets as int32,
@@ -861,16 +861,18 @@ def _literal_block(payload: bytes) -> bytes:
 class _Landing:
     """Decoded content on its way to the host, gathered for one copy out.
 
-    On the card each run of decoded rows is fetched with one non-blocking
-    D2H into its place in one pinned host buffer of ``size`` bytes
+    Kernel D's decoded rows and kernel E's decoded runs
+    (``decode_stream_runs``) land here.  On the card each run of decoded
+    bytes is fetched with one non-blocking D2H into its place in one
+    pinned host buffer of ``size`` bytes, a bound on the content
     (``torch.empty(..., pin_memory=True)``).  PyTorch's caching host
     allocator hands the buffer out and takes it back when the call drops
     it, so a caller in a steady state allocates no pinned memory and two
     callers at once never share one.  The cache keeps each buffer it has
-    handed out, rounded up to a power of two (64 MiB per caller decoding
-    objects of 64 MiB), until the process ends or the host cache is
-    emptied.  On the CPU the rows are
-    host memory already and are read where they lie.  ``content`` waits
+    handed out, rounded up to a power of two: one per caller decoding at
+    the same time (64 MiB per caller decoding objects of 64 MiB), until
+    the process ends or the host cache is emptied.  On the CPU the rows
+    are host memory already and are read where they lie.  ``content`` waits
     once for the stream, then joins the runs and the stored blocks, which
     come straight from the frame, in one host copy: a new ``bytes``, never
     a view of the landing."""
@@ -989,11 +991,17 @@ def decode_stream_runs(buf, starts: Sequence[int], sizes: Sequence[int],
     payload alone passes the bound fails without a launch, as it fails in
     one call: a block decodes to about its payload's length or more, and
     its cap is at most 8 MB.  Device memory holds one run's input and
-    output, not the whole frame's."""
+    output, not the whole frame's.
+
+    Each run's decoded bytes land in one ``_Landing`` of the sum of the
+    caps (on the card one non-blocking D2H per run into one pinned host
+    buffer), and the content is copied out of it once, after one wait.
+    In linked mode the 64 KB carried into the next run is fetched from
+    the run's output on the device, a small blocking copy."""
     B = len(starts)
     buf = memoryview(buf)
     stored = [bool(x) for x in stored]
-    parts: List[bytes] = []
+    landing = _Landing(int(sum(caps)), dev)
     olen = np.zeros((B,), np.int64)
     tail = bytes(window[-WINDOW:]) if linked else b""
     bounds = _runs(starts, sizes, caps, WINDOW if linked else 0)
@@ -1015,12 +1023,14 @@ def decode_stream_runs(buf, starts: Sequence[int], sizes: Sequence[int],
         ol = to_host(ol).astype(np.int64)[len(head):]
         olen[i:j] = ol
         got = int(ol[ol > 0].sum())
-        if got:
+        landing.fetch(out, lead, got)
+        if linked and got and j < B:
+            # out begins with the window carried in, so its last 64 KB
+            # decoded is the next run's window
             with span("copy"):
-                parts.append(copied(to_host(out[lead:lead + got]).tobytes()))
-                if linked:
-                    tail = copied((tail + parts[-1][-WINDOW:])[-WINDOW:])
-    return _join(parts), olen
+                tail = copied(to_host(
+                    out[max(lead + got - WINDOW, 0):lead + got]).tobytes())
+    return landing.content(), olen
 
 
 def _decode_stream_blocks(buf, starts: List[int], sizes: List[int],
@@ -1128,6 +1138,7 @@ def _decode_linked_chain(frame: bytes, starts: List[int], sizes: List[int],
     while full and pending:
         full = drain()
     if not full:
+        landing = None     # its pinned buffer back to the cache for E's
         return _decode_stream_blocks(frame, starts, sizes, stored,
                                      [bs] * nblocks, bs, True, dev)
     return landing.content()

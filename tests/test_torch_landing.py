@@ -1,14 +1,17 @@
 """The landing of decoded content (``device._Landing``) on the CPU.
 
-``decompress_frame_device`` fetches kernel D's decoded rows into one host
-buffer and copies the content out of it once.  Each layout below
+``decompress_frame_device`` fetches kernel D's decoded rows, and
+``decode_stream_runs`` kernel E's decoded runs, into one host buffer and
+copies the content out of it once.  Each layout below
 round-trips to content byte-equal to its input, as ``bytes``: stored
 blocks between compressed ones, a short block before the last of an
 independent frame, one block, no block, a linked chain with stored blocks
 in groups of 2, and a linked chain that falls back to kernel E.  A block
 the kernel rejects raises, naming that block, and the next call is right.
 The card's path (a pinned buffer, runs copied into it at their offsets,
-one wait) is driven here on a plain host tensor with the stream stubbed.
+one wait) is driven here on a plain host tensor with the stream stubbed:
+for kernel D's rows, for a ``-B7`` frame through kernel E, and for kernel
+E's runs across cuts, linked and independent.
 """
 
 import struct
@@ -19,8 +22,10 @@ import pytest
 import torch
 
 from lz4_tpu_torch import device, trace
-from lz4_tpu_torch.frame import (FramePreferences, Lz4FrameError,
-                                 decode_frame_header, encode_frame_header)
+from lz4_tpu_torch.frame import (FrameCompressor, FramePreferences,
+                                 Lz4FrameError, decode_frame_header,
+                                 encode_frame_header)
+from lz4_tpu_torch.kernels import decode_kernel
 
 CPU = "cpu"
 W = 65536
@@ -68,13 +73,17 @@ def decoded(frame: bytes):
     return content, dict(trace.COUNTS)
 
 
-def independent_frame(pieces, checksum: bool = True) -> bytes:
-    """An independent frame of 64 KB blocks written by hand, one block per
-    piece, compressed by kernel B's plain version, or stored where that is
-    not smaller."""
-    prefs = FramePreferences(block_size_id=4, block_independent=True,
+def independent_frame(pieces, checksum: bool = True,
+                      block_size_id: int = 4) -> bytes:
+    """An independent frame written by hand, one block per piece (64 KB
+    blocks, or larger ones with pieces up to kernel B's 256 KB rows),
+    compressed by kernel B's plain version, or stored where that is not
+    smaller."""
+    prefs = FramePreferences(block_size_id=block_size_id,
+                             block_independent=True,
                              content_checksum=checksum)
-    rows, lens = device.encode_batch(list(pieces), device=CPU)
+    rows, lens = device.encode_batch(list(pieces), max(W, *map(len, pieces)),
+                                     device=CPU)
     body = b"".join(
         struct.pack("<I", int(n)) + rows[i, :n].tobytes() if n < len(p)
         else struct.pack("<I", len(p) | 0x80000000) + p
@@ -162,8 +171,9 @@ def test_linked_chain_that_falls_back_to_kernel_e(monkeypatch):
     frame = c.begin() + c.update(seg) + c.flush() + c.update(seg) + c.end()
     content, counts = decoded(frame)
     assert content == seg + seg
-    # the first group ends in the short block: nothing reaches the landing
-    assert counts["pinned_d2h_bytes"] == 0
+    # the first group ends in the short block, so nothing of kernel D's
+    # lands; kernel E's run lands the whole content
+    assert counts["pinned_d2h_bytes"] == len(content)
 
 
 def corrupt(frame: bytes, block: int) -> bytes:
@@ -197,10 +207,11 @@ class _Stream:
         _Stream.waits += 1
 
 
-def test_the_card_path_lands_runs_at_their_offsets(monkeypatch):
-    """The pinned route on a plain host tensor: each run of rows copied to
-    its place in one buffer, one wait, one copy out that never aliases the
-    buffer."""
+@pytest.fixture
+def pinned(monkeypatch):
+    """The card's route on the CPU: every landing gets a plain host tensor
+    as its pinned buffer (listed, in order), and the stream's waits are
+    counted in ``_Stream.waits``."""
     made = []
     init = device._Landing.__init__
 
@@ -213,6 +224,14 @@ def test_the_card_path_lands_runs_at_their_offsets(monkeypatch):
     monkeypatch.setattr(device._Landing, "__init__", fake_init)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
     _Stream.waits = 0
+    return made
+
+
+def test_the_card_path_lands_runs_at_their_offsets(pinned):
+    """The pinned route on a plain host tensor: each run of rows copied to
+    its place in one buffer, one wait, one copy out that never aliases the
+    buffer."""
+    made = pinned
     pieces = [text(W), text(W, 3), text(700, 4), noise(W, 5), text(W, 6),
               text(2000, 8)]
     frame = independent_frame(pieces)
@@ -226,3 +245,77 @@ def test_the_card_path_lands_runs_at_their_offsets(monkeypatch):
         want[:2 * W + 700] + want[3 * W + 700:]
     made[-1].zero_()
     assert content == want
+
+
+def test_kernel_e_lands_a_b7_frame_on_the_card_path(pinned):
+    """A ``-B7`` independent frame, a stored block between compressed
+    ones, through kernel E: the run's bytes fetched into one buffer no
+    larger than the sum of the caps, one wait, one copy out."""
+    bs = 4 << 20
+    pieces = [text(200_000), text(150_000, 3), noise(W, 5),
+              text(180_000, 6), text(5000, 8)]
+    frame = independent_frame(pieces, block_size_id=7)
+    sizes, stored = blocks_of(frame)
+    assert stored == [False, False, True, False, False]
+    content, counts = decoded(frame)
+    want = b"".join(pieces)
+    assert content == want and _Stream.waits == 1
+    assert counts["pinned_d2h_bytes"] == len(want)
+    assert counts["host_copy_bytes"] == len(want)
+    (buf,) = pinned
+    assert buf.numel() <= sum(n if st else bs
+                              for n, st in zip(sizes, stored))
+    assert buf[:len(want)].numpy().tobytes() == want
+    buf.zero_()
+    assert content == want
+
+
+def chain_of_runs(linked: bool):
+    """A ``-B5`` frame of six 256 KB blocks (linked or independent): text,
+    stored noise, text, a block zeroed so that the kernel rejects it, text,
+    and a short last block.  Returns (frame, starts, sizes, stored)."""
+    bs = 256 * 1024
+    data = (text(bs) + noise(bs, 4) + text(bs, 5) + text(bs, 9)
+            + text(bs, 11) + text(100_000, 13))
+    c = FrameCompressor(FramePreferences(block_size_id=5,
+                                         block_independent=not linked),
+                        device=CPU)
+    frame = corrupt(c.begin() + c.update(data) + c.end(), 3)
+    info = decode_frame_header(frame)
+    starts, sizes, stored, _ = device._read_blocks(frame, info.header_size,
+                                                   info)
+    assert stored == [False, True, False, False, False, False]
+    return frame, starts, sizes, stored
+
+
+@pytest.mark.parametrize("linked", [False, True])
+def test_kernel_e_runs_land_at_their_offsets_across_cuts(linked, pinned,
+                                                          monkeypatch):
+    """``decode_stream_runs`` over runs of two blocks (the output bound of
+    a run patched down) on the card's route gives the bytes and olen of
+    one ``decode_stream_raw`` call, with a rejected and a stored block
+    among the runs; in linked mode each run starts behind the 64 KB
+    fetched from the run before it, also after a run whose last block
+    failed."""
+    bs = 256 * 1024
+    frame, starts, sizes, stored = chain_of_runs(linked)
+    caps = [n if st else bs for n, st in zip(sizes, stored)]
+    out, olen = decode_kernel.decode_stream_raw(
+        torch.frombuffer(bytearray(frame), dtype=torch.uint8), starts, sizes,
+        stored, bs, 0, linked, out_caps=caps)
+    want = out[:int(olen[olen > 0].sum())].numpy().tobytes()
+    lead = W if linked else 0
+    monkeypatch.setattr(device, "RUN_MAX_OUTPUT", lead + 2 * bs)
+    assert device._runs(starts, sizes, caps, lead) == [0, 2, 4, 6]
+    trace.reset_counts()
+    got, g_olen = device.decode_stream_runs(frame, starts, sizes, stored,
+                                            caps, bs, linked,
+                                            torch.device(CPU))
+    assert g_olen.tolist() == olen.tolist() and -1 in g_olen.tolist()
+    assert got == want and _Stream.waits == 1
+    assert trace.COUNTS["pinned_d2h_bytes"] == len(want)
+    (buf,) = pinned
+    assert buf.numel() <= sum(caps)
+    assert buf[:len(want)].numpy().tobytes() == want
+    buf.zero_()
+    assert got == want
